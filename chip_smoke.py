@@ -1,25 +1,45 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: kernels, then the served path.
+"""Smoke run of the PyTorch/CUDA port on one GPU: kernels, the served
+path, then the training path.
 
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi``); exits non-zero without CUDA.
-2. Builds the CUDA kernels of ``tfkaldi_tpu_torch/ops/csrc`` and prints the
-   build time.
+2. Builds the CUDA kernels of ``tfkaldi_tpu_torch/ops/csrc`` (one nvcc per
+   source, in parallel) and prints the build time.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (fused FFN: [8192,440]x[440,2048] and
-   [8192,2048]x[2048,2048], f32 and bf16; framing: 16 x 5 s at 16 kHz,
-   bit-equal) and times both.
+   main path's shapes and times the kernel, the plain version and, where
+   one exists, the PyTorch call that computes the same product
+   (``library_ms``): fused FFN [8192,440]x[440,2048] and
+   [8192,2048]x[2048,2048], f32 and bf16 (the served path's decode
+   batches), and [65536,440]x[440,2048] and [65536,2048]x[2048,2048] f32
+   (the training path's validation batches); framing 16 x 5 s at 16 kHz,
+   bit-equal; BN backward (kernel 3) [65536,2048] with w [2048,2048] and
+   [440,2048] f32, the dz-only launch of the first layer, and a bf16 case
+   at N = 8192.
 4. Drives the served path at full width (440 -> 6x2048 -> 2000, batchnorm)
    on a seeded synthetic workspace (32 + 32 wavs of 1-8 s, 4 speakers):
    ``cli.main --steps dnn_train_features,dnn_test_features``, then
    ``cli.main --steps test_nnet``, then ``cli.serve --once`` answering 3
-   spool jobs. Both kernels' launch counts
-   are reset just before and read just after; each must be > 0.
+   spool jobs. The kernels' launch counts are reset just before and read
+   just after; the path's kernels must each be > 0.
 5. Checks the outputs: every ark finite and of the right shape, features
    against the numpy oracle of the reference (tests/reference_port) and
    against the plain framing, likelihoods against the plain versions of
    both kernels on the same card.
-6. Prints one JSON line of per-kernel results, then the final JSON line.
+6. Drives the training path at full width on a separate seeded workspace
+   (800 train wavs of 2-5.1 s, so T_pad = 512 and a batch of 128 is
+   65,536 frames; 32 test wavs; a pdf alignment over 2000 pdfs):
+   ``cli.main --steps dnn_train_features,dnn_test_features,train_nnet,
+   test_nnet`` with the recipe's ``[nnet]`` (6x2048 relu+BN, batch 128,
+   valid_batches 2) and only num_epochs, valid_frequency and check_freq
+   lowered. Counts reset before, read after: bn_dgrad launches = 6 per
+   train step; the step-0 loss is ln 2000 (zero output layer); the ark
+   covers the test set. Then, from the step-2 checkpoint, with the
+   kernels and with the plain versions: the validation loss over the
+   validation batches (the number that decides a rollback) and the eval
+   logits agree; one full-width step on one batch gives the same loss and
+   gradients; and the step is timed by parts.
+7. Prints one JSON line of per-kernel results, then the final JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
 """
@@ -28,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -36,6 +57,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+TRAIN_WORK = os.path.join(ROOT, "build", "chip_smoke_train")
+# 800 utterances: 2 validation batches of 128 and 4.25 training batches;
+# num_batches = 800 / 128 = 6.25, so one epoch is 6 steps
+TRAIN_UTTS = 800
+TRAIN_NNET = {"num_epochs": 1, "valid_frequency": 2, "check_freq": 2}
 
 # full width of the flagship recipe (config/config_AURORA4.cfg, bench.py:22)
 NUM_PDFS = 2000
@@ -43,6 +69,18 @@ HIDDEN_UNITS = 2048
 HIDDEN_LAYERS = 6
 FFN_TOL = {"float32": 1e-4, "bfloat16": 0.0625}  # see check_ffn
 LIKE_TOL = 1e-3
+# kernel 3 vs its plain version, max|diff| / max|ref| (see check_bn_dgrad)
+BN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# the validation pass and one training step, kernels vs plain versions
+# (see check_train_step)
+STEP_LOSS_TOL = 1e-5
+STEP_GRAD_TOL = 1e-4
+BN_BIAS_NOISE = 1e-2
+# H100 SXM peaks (NVIDIA data sheet): f32 and f64 outside the tensor cores, HBM
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+PEAK_BF16 = 989e12  # dense, tensor cores
+PEAK_BYTES = 3.35e12
 
 
 def log(*parts) -> None:
@@ -65,6 +103,17 @@ def ms_per_call(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32) -> dict:
+    """The least time the card could take: the larger of operations over
+    the peak rate and bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def check_ffn(card: str) -> dict:
     """Kernel vs plain at the DNN's layer shapes. f32: both contract in
     full f32 (TF32 off), differing only in summation order, so 1e-4
@@ -78,26 +127,39 @@ def check_ffn(card: str) -> dict:
 
     gen = torch.Generator().manual_seed(0)
     result = None
-    for n, k, m in ((8192, 440, 2048), (8192, 2048, 2048)):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(n, k, generator=gen).to("cuda", dtype)
-            w = (torch.randn(k, m, generator=gen) / k ** 0.5).to("cuda", dtype)
-            b = (torch.randn(m, generator=gen) * 0.1).cuda()
-            scale = (torch.rand(m, generator=gen) + 0.5).cuda()
-            shift = (torch.randn(m, generator=gen) * 0.1).cuda()
-            got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=True)
-            want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=True)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            name = str(dtype).replace("torch.", "")
-            kernel_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block(x, w, b, scale, shift))
-            plain_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift))
-            log(f"fused_ffn [{n},{k}]x[{k},{m}] {name}: max|diff| {err!r} (tol {FFN_TOL[name]}), "
-                f"kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, launches {fused_mlp.launches} [{card}]")
-            if not err <= FFN_TOL[name]:
-                raise AssertionError(f"fused_ffn {name} [{n},{k},{m}]: max|diff| {err} > {FFN_TOL[name]}")
-            if (k, dtype) == (2048, torch.float32):  # the dominant layer of the path
-                result = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+    # the served path's decode batches, f32 and bf16
+    cases = [(8192, k, dtype) for k in (440, 2048) for dtype in (torch.float32, torch.bfloat16)]
+    # the validation forward of the training path: whole 128 x 512 batches, f32
+    cases += [(65536, 440, torch.float32), (65536, 2048, torch.float32)]
+    m = HIDDEN_UNITS
+    for n, k, dtype in cases:
+        x = torch.randn(n, k, generator=gen).to("cuda", dtype)
+        w = (torch.randn(k, m, generator=gen) / k ** 0.5).to("cuda", dtype)
+        b = (torch.randn(m, generator=gen) * 0.1).cuda()
+        scale = (torch.rand(m, generator=gen) + 0.5).cuda()
+        shift = (torch.randn(m, generator=gen) * 0.1).cuda()
+        got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=True)
+        want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=True)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        kernel_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block(x, w, b, scale, shift))
+        plain_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift))
+        # the yardstick: the product alone (bf16 on the tensor cores)
+        library_ms = ms_per_call(lambda: torch.matmul(x, w))
+        b_ = bound(2 * n * k * m + 4 * n * m, nbytes(x, w, b, scale, shift, got),
+                   PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+        log(f"fused_ffn [{n},{k}]x[{k},{m}] {name}: max|diff| {err!r} (tol {FFN_TOL[name]}), "
+            f"kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, library (torch.matmul) "
+            f"{library_ms!r} ms, bound {b_['bound_ms']!r} ms by {b_['bound_by']}, "
+            f"launches {fused_mlp.launches} [{card}]")
+        if not err <= FFN_TOL[name]:
+            raise AssertionError(f"fused_ffn {name} [{n},{k},{m}]: max|diff| {err} > {FFN_TOL[name]}")
+        if (n, k, dtype) == (8192, 2048, torch.float32):  # the served path's dominant layer
+            result = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, **b_}
+        del x, w, got, want
+        torch.cuda.empty_cache()
     return result
 
 
@@ -120,28 +182,292 @@ def check_framing(card: str) -> dict:
     err = (got - want).abs().max().item()
     kernel_ms = ms_per_call(lambda: fp.frame_preemph(sig, eff, **args))
     plain_ms = ms_per_call(lambda: fp.frame_preemph_ref(sig, eff, **args))
+    b_ = bound(2 * b * s, nbytes(sig, eff, got), PEAK_F64)
     log(f"frame_preemph [{b},{s}] -> [{b},{t_max},{wl}] f64: max|diff| {err!r}, bit-equal "
         f"{torch.equal(got, want)}, kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, "
-        f"launches {fp.launches} [{card}]")
+        f"bound {b_['bound_ms']!r} ms by {b_['bound_by']}, launches {fp.launches} [{card}]")
     if not torch.equal(got, want):
         raise AssertionError(f"frame_preemph differs from the plain version (max|diff| {err})")
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, **b_}
+
+
+def check_bn_dgrad(card: str) -> dict:
+    """Kernel 3 vs plain at the training step's shapes (N = 128 x 512
+    frames). dz is the same f32 arithmetic in the same order on both sides
+    (no FMA contraction), dh a 2048- or 440-term f32 sum in another order:
+    1e-5 of max|ref| is far above that and far below any wrong-tile error.
+    bf16: both round f32 values that may differ in the last bits to bf16,
+    so they may land one bf16 step (2^-7 of the largest magnitude) apart.
+    ``library_ms`` is ``torch.matmul(dz, w.t())`` alone, the product
+    without the BN prologue."""
+    import torch
+
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd as bf
+
+    gen = torch.Generator().manual_seed(2)
+    result = None
+    cases = [(65536, 2048, 2048, torch.float32, True), (65536, 2048, 440, torch.float32, True),
+             (65536, 2048, 440, torch.float32, False), (8192, 2048, 2048, torch.bfloat16, True)]
+    for n, h, k, dtype, need_dh in cases:
+        mask = (torch.arange(n) % 512 < 400).float().cuda()  # 400 real frames of 512
+        g = (torch.randn(n, h, generator=gen).cuda() * mask[:, None] * 1e-3).to(dtype)
+        z = torch.randn(n, h, generator=gen).to("cuda", dtype)
+        w = (torch.randn(k, h, generator=gen) / h ** 0.5).cuda()
+        mean = (torch.randn(h, generator=gen) * 0.1).cuda()
+        r = (torch.rand(h, generator=gen) + 0.5).cuda()
+        beta = (torch.randn(h, generator=gen) * 0.1).cuda()
+        c1 = (torch.randn(h, generator=gen) * 1e-5).cuda()
+        c2 = (torch.randn(h, generator=gen) * 1e-5).cuda()
+        args = (g, z, mask, w, mean, r, beta, c1, c2)
+        dh, dz = bf.bn_dgrad(*args, need_dh=need_dh)
+        dh0, dz0 = bf.bn_dgrad_ref(*args, dtype, need_dh=need_dh)
+        torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "")
+        errs = {"dz": (dz.float() - dz0.float()).abs().max().item()}
+        if need_dh:
+            errs["dh"] = (dh.float() - dh0.float()).abs().max().item()
+        rel = max(errs["dz"] / dz0.float().abs().max().item(),
+                  errs.get("dh", 0.0) / (dh0.float().abs().max().item() if need_dh else 1.0))
+        kernel_ms = ms_per_call(lambda: bf.bn_dgrad(*args, need_dh=need_dh))
+        plain_ms = ms_per_call(lambda: bf.bn_dgrad_ref(*args, dtype, need_dh=need_dh))
+        wt = w.to(dtype)
+        library_ms = ms_per_call(lambda: torch.matmul(dz0, wt.t())) if need_dh else None
+        flops = (2 * n * h * k if need_dh else 0) + 10 * n * h
+        b_ = bound(flops, nbytes(g, z, mask, wt, mean, r, beta, c1, c2, dz, dh),
+                   PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+        log(f"bn_dgrad g,z [{n},{h}] w [{k},{h}] {name}{'' if need_dh else ' (dz only)'}: "
+            f"max|diff| {errs!r}, /max|ref| {rel!r} (tol {BN_TOL[name]}), kernel {kernel_ms!r} ms, "
+            f"plain {plain_ms!r} ms, library {library_ms!r} ms, bound {b_['bound_ms']!r} ms by "
+            f"{b_['bound_by']} [{card}]")
+        if not rel <= BN_TOL[name]:
+            raise AssertionError(f"bn_dgrad {name} [{n},{h},{k}]: {errs} (/max|ref| {rel}) > {BN_TOL[name]}")
+        if (k, dtype, need_dh) == (2048, torch.float32, True):  # 5 of the 6 launches of a step
+            result = {"max_abs_err": max(errs.values()), "ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, **b_}
+        if (k, dtype, need_dh) == (440, torch.float32, False):  # the first layer's launch
+            result_dz_only_ms = kernel_ms
+        del args, g, z, dh, dz, dh0, dz0
+        torch.cuda.empty_cache()
+    return result, result_dz_only_ms
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the path's two kernel call sites to their plain versions."""
+    """Route the paths' three kernel call sites to their plain versions."""
     from tfkaldi_tpu_torch.frontend import features
     from tfkaldi_tpu_torch.models import dnn
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
     from tfkaldi_tpu_torch.ops import fused_mlp
 
-    saved = (features.frame_preemph, dnn.fused_ffn_block)
-    features.frame_preemph, dnn.fused_ffn_block = fp.frame_preemph_ref, fused_mlp.fused_ffn_block_ref
+    saved = (features.frame_preemph, dnn.fused_ffn_block, bn_fused_bwd.bn_dgrad)
+    features.frame_preemph = fp.frame_preemph_ref
+    dnn.fused_ffn_block = fused_mlp.fused_ffn_block_ref
+    bn_fused_bwd.bn_dgrad = bn_fused_bwd.bn_dgrad_ref
     try:
         yield
     finally:
-        features.frame_preemph, dnn.fused_ffn_block = saved
+        features.frame_preemph, dnn.fused_ffn_block, bn_fused_bwd.bn_dgrad = saved
+
+
+def train_path(card: str) -> tuple[dict, dict]:
+    """The training path at full width through the CLI; returns the launch
+    counts of its run and the workspace."""
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.cli import main as cli_main
+    from tfkaldi_tpu_torch.io import native
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    os.makedirs(TRAIN_WORK)
+    t0 = time.perf_counter()
+    ws = synthetic.make_train_workspace(
+        TRAIN_WORK, num_pdfs=NUM_PDFS, hidden_units=HIDDEN_UNITS, hidden_layers=HIDDEN_LAYERS,
+        num_train=TRAIN_UTTS, num_test=32, min_seconds=2.0, max_seconds=5.1, nnet=TRAIN_NNET,
+    )
+    log(f"training workspace: {TRAIN_UTTS} + 32 wavs of 2-5.1 s, 440 -> {HIDDEN_LAYERS}x{HIDDEN_UNITS} "
+        f"-> {NUM_PDFS}, [nnet] overrides {TRAIN_NNET}: {time.perf_counter() - t0!r} s")
+
+    fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main.main(["--config", ws["cfg_path"], "--steps",
+                        "dnn_train_features,dnn_test_features,train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main training path: rc {rc}")
+    launches = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches,
+                "bn_dgrad": bn_fused_bwd.launches}
+    savedir = ws["savedir"]
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    log(f"training-path launches: {launches}; {len(steps)} train steps run "
+        f"(replays after a rollback included); whole run {run_s!r} s")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the training path")
+    if launches["bn_dgrad"] != HIDDEN_LAYERS * len(steps):
+        raise AssertionError(f"bn_dgrad launched {launches['bn_dgrad']} times, want "
+                             f"{HIDDEN_LAYERS} x {len(steps)} steps")
+    loss0 = steps[0]["loss"]
+    log(f"step-0 loss {loss0!r} vs ln {NUM_PDFS} = {math.log(NUM_PDFS)!r} (tol 1e-4; exact for the "
+        f"zero output layer); losses {[round(st['loss'], 6) for st in steps]}")
+    if not abs(loss0 - math.log(NUM_PDFS)) <= 1e-4:
+        raise AssertionError(f"step-0 loss {loss0} is not ln {NUM_PDFS}")
+    warm = steps[1:]
+    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
+    frames = sorted(st["num_frames"] for st in warm)[len(warm) // 2]
+    log(f"train step (median of {len(warm)} after the first, host clock, data wait included): "
+        f"{step_s!r} s, {frames / step_s!r} frames/s at ~{frames} real frames per 65,536-row batch; "
+        f"native ark loader (decode stream) in use: {native.available()} [{card}]")
+
+    prior = np.load(os.path.join(savedir, "prior.npy"))
+    if prior.shape != (NUM_PDFS,) or not abs(float(prior.sum()) - 1.0) <= 1e-5:
+        raise AssertionError(f"prior.npy: shape {prior.shape}, sum {prior.sum()}")
+    for name in ("final.pt", os.path.join("training", "step2.pt"), os.path.join("training", "validated.pt")):
+        if not os.path.isfile(os.path.join(savedir, name)):
+            raise AssertionError(f"training wrote no {name}")
+    feats = read_ark(os.path.join(ws["test_featdir"], "feats.scp"))
+    likes = read_ark(os.path.join(savedir, "decode", "feats.scp"))
+    if list(likes) != list(feats):
+        raise AssertionError("test_nnet: the likelihood ark does not cover the test set")
+    for utt, m in likes.items():
+        if m.shape != (feats[utt].shape[0], NUM_PDFS) or not np.isfinite(m).all():
+            raise AssertionError(f"test_nnet {utt}: likelihoods shape {m.shape} or non-finite")
+    log(f"test_nnet decoded the trained final.pt: {len(likes)} utterances, "
+        f"{sum(m.shape[0] for m in likes.values())} frames, all finite")
+    return launches, ws
+
+
+def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) -> None:
+    """From the step-2 checkpoint, with the kernels and through
+    ``plain_versions()``:
+
+    - the validation pass (``Trainer.evaluate`` over the run's validation
+      batches, whose loss decides a rollback) runs the eval forward, six
+      fused FFN launches per 65,536-row batch against cuBLAS: the loss
+      within 1e-5 relative (f32 sums in another order), and the eval
+      logits of the first batch within LIKE_TOL absolute;
+    - one full-width training step on the first training batch. The
+      forward is the same code on both sides, so the loss agrees to f32
+      rounding (1e-5 relative). The gradients differ by the summation order
+      of dh = dz @ w^T (kernel vs cuBLAS) carried back through six layers
+      and their wgrads: every gradient within 1e-4 of its max|ref|.
+
+    Then the step is timed by parts (CUDA events)."""
+    import torch
+
+    from tfkaldi_tpu_torch.data.batching import DeviceBatcher
+    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
+    from tfkaldi_tpu_torch.models.dnn import DNNConfig
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp
+    from tfkaldi_tpu_torch.train import checkpoint as ckpt
+    from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    config, featdir = ws["config"], ws["train_featdir"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+                           os.path.join(featdir, "utt2spk"), ws["context"], max_length)
+    ali = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali", "pdf.all.gz")
+    dispenser = AlignmentBatchDispenser(reader, AlignmentCoder(identity_normalizer, NUM_PDFS),
+                                        config.getint("nnet", "batch_size"), ali)
+    # the validation carve, then the first training batch
+    val_batches = [dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
+                   for _ in range(config.getint("nnet", "valid_batches"))]
+    batch = dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
+    reader.close()
+    trainer = Trainer(DNNConfig.from_config(dict(config.items("nnet")), 440, NUM_PDFS),
+                      TrainerConfig(num_steps=6), device="cuda")
+    state = ckpt.restore_state(os.path.join(ws["savedir"], "training", "step2.pt"), trainer.init_state(0))
+
+    before = fused_mlp.launches
+    val_loss = trainer.evaluate(state, val_batches)
+    with torch.inference_mode():
+        logits = state.model(val_batches[0].inputs)
+    with plain_versions():
+        val_loss0 = trainer.evaluate(state, val_batches)
+        with torch.inference_mode():
+            logits0 = state.model(val_batches[0].inputs)
+    torch.cuda.synchronize()
+    if fused_mlp.launches != before + HIDDEN_LAYERS * (len(val_batches) + 1):
+        raise AssertionError("the kernel side of the validation pass did not launch fused_ffn once per layer")
+    val_rel = abs(val_loss - val_loss0) / abs(val_loss0)
+    logit_err = (logits - logits0).abs().max().item()
+    log(f"validation pass over {len(val_batches)} batches of [{val_batches[0].inputs.shape[0]}x"
+        f"{val_batches[0].inputs.shape[1]}, 440] from the step-2 checkpoint, kernels vs plain: loss "
+        f"{val_loss!r} vs {val_loss0!r} (rel {val_rel!r}, tol {STEP_LOSS_TOL}); eval logits of the first "
+        f"batch max|diff| {logit_err!r} (tol {LIKE_TOL})")
+    if not val_rel <= STEP_LOSS_TOL:
+        raise AssertionError(f"validation loss differs from the plain versions: rel {val_rel}")
+    if not logit_err <= LIKE_TOL:
+        raise AssertionError(f"eval logits differ from the plain versions: {logit_err}")
+    del logits, logits0
+
+    before = bn_fused_bwd.launches
+    grads, loss, frames = trainer.gradients(ckpt.device_snapshot(state), batch)
+    with plain_versions():
+        grads0, loss0, _ = trainer.gradients(ckpt.device_snapshot(state), batch)
+    torch.cuda.synchronize()
+    if bn_fused_bwd.launches != before + HIDDEN_LAYERS:
+        raise AssertionError("the kernel side of the step did not launch bn_dgrad once per layer")
+    loss_rel = abs(loss.item() - loss0.item()) / abs(loss0.item())
+    # a batchnorm layer's bias b has a zero gradient in exact arithmetic (BN
+    # removes the mean), so both sides hold rounding noise there: each must
+    # stay below BN_BIAS_NOISE of the layer's beta gradient instead
+    bias_noise = {}
+    for l in range(HIDDEN_LAYERS):
+        scale = grads0[f"hidden.{l}.beta"].abs().max()
+        bias_noise[l] = max(grads[f"hidden.{l}.b"].abs().max(), grads0[f"hidden.{l}.b"].abs().max()).item() / scale.item()
+    errs = {name: ((grads[name] - g0).abs().max() / g0.abs().max().clamp(min=1e-30)).item()
+            for name, g0 in grads0.items() if not (name.startswith("hidden.") and name.endswith(".b"))}
+    worst = max(errs, key=errs.get)
+    log(f"one step at [{batch.inputs.shape[0]}x{batch.inputs.shape[1]}, 440] from the step-2 checkpoint, "
+        f"kernels vs plain: loss {loss.item()!r} vs {loss0.item()!r} (rel {loss_rel!r}, tol "
+        f"{STEP_LOSS_TOL}); gradients max|diff|/max|ref| worst {worst} {errs[worst]!r} (tol "
+        f"{STEP_GRAD_TOL}), all {errs!r}; BN-layer bias gradients / max|dbeta| {bias_noise!r} "
+        f"(noise, tol {BN_BIAS_NOISE})")
+    if not loss_rel <= STEP_LOSS_TOL:
+        raise AssertionError(f"step loss differs from the plain versions: rel {loss_rel}")
+    if not errs[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"gradient {worst} differs from the plain versions: {errs[worst]}")
+    if not max(bias_noise.values()) <= BN_BIAS_NOISE:
+        raise AssertionError(f"a BN-layer bias gradient is not noise-level: {bias_noise}")
+
+    # ---- where a step's time goes (CUDA events, 3 calls after 3 warm-ups) ----
+    del grads, grads0
+    s = ckpt.device_snapshot(state)
+    fwd_ms = ms_per_call(lambda: trainer.loss_sum(s.model, batch, train=True), iters=3)
+    grad_ms = ms_per_call(lambda: trainer.gradients(s, batch), iters=3)
+    with plain_versions():
+        grad_plain_ms = ms_per_call(lambda: trainer.gradients(s, batch), iters=3)
+    step_ms = ms_per_call(lambda: trainer.update(s, batch), iters=3)
+    n = batch.inputs.shape[0] * batch.inputs.shape[1]
+    h = torch.randn(n, HIDDEN_UNITS, device="cuda")
+    h0 = torch.randn(n, 440, device="cuda")
+    dz = torch.randn(n, HIDDEN_UNITS, device="cuda")
+    dlogits = torch.randn(n, NUM_PDFS, device="cuda")
+    wgrad_ms = (
+        (HIDDEN_LAYERS - 1) * ms_per_call(lambda: torch.matmul(h.t(), dz))
+        + ms_per_call(lambda: torch.matmul(h0.t(), dz))
+        + ms_per_call(lambda: torch.matmul(h.t(), dlogits))
+    )
+    bn_total = (HIDDEN_LAYERS - 1) * bn_ms + bn_dz_only_ms
+    rest = grad_ms - fwd_ms - bn_total - wgrad_ms
+    log(f"train step at {n} rows ({int(frames.item())} real frames): update {step_ms!r} ms "
+        f"({frames.item() / step_ms * 1e3!r} frames/s), of which forward {fwd_ms!r} ms, kernel-3 "
+        f"launches {bn_total!r} ms (5 x {bn_ms!r} + dz-only {bn_dz_only_ms!r}), wgrad GEMMs "
+        f"{wgrad_ms!r} ms (cuBLAS f32), other backward (output-layer dgrad, BN pass 1, CE) "
+        f"{rest!r} ms, Adam {step_ms - grad_ms!r} ms; forward+backward with the plain kernel-3 "
+        f"version {grad_plain_ms!r} ms vs {grad_ms!r} ms with the kernel [{card}]")
 
 
 def read_ark(scp: str) -> dict:
@@ -187,10 +513,14 @@ def main() -> int:
         f"{os.path.relpath(_build.library_path(), ROOT)}")
 
     # ---- kernels vs plain ----
+    t0 = time.perf_counter()
     ffn = check_ffn(card)
     framing = check_framing(card)
+    bn, bn_dz_only_ms = check_bn_dgrad(card)
+    log(f"phase kernels vs plain: {time.perf_counter() - t0!r} s")
 
     # ---- served path at full width ----
+    t_serve = time.perf_counter()
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     ws = synthetic.make_workspace(WORK, num_pdfs=NUM_PDFS, hidden_units=HIDDEN_UNITS,
@@ -305,12 +635,23 @@ def main() -> int:
     log(f"features (train+test, 64 wavs): {feat_s!r} s, {feat_frames / feat_s!r} frames/s [{card}]")
     log(f"test_nnet (32 utts, model load included): {test_nnet_s!r} s, {test_frames / test_nnet_s!r} frames/s [{card}]")
     log(f"serve --once (3 jobs, model load included): {serve_s!r} s, {serve_frames / serve_s!r} frames/s [{card}]")
+    log(f"phase served path: {time.perf_counter() - t_serve!r} s")
 
+    # ---- training path at full width ----
+    t0 = time.perf_counter()
+    train_launches, train_ws = train_path(card)
+    check_train_step(card, train_ws, bn["ms"], bn_dz_only_ms)
+    log(f"phase training path: {time.perf_counter() - t0!r} s")
+
+    # launches: the served path's and the training path's runs together
+    total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
     kernels = [
         dict(name="fused_ffn", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
-             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=launches["fused_ffn"], **ffn),
+             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=total["fused_ffn"], **ffn),
         dict(name="frame_preemph", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/frame_preemph.cu",
-             replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=launches["frame_preemph"], **framing),
+             replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=total["frame_preemph"], **framing),
+        dict(name="bn_dgrad", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
+             replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=total["bn_dgrad"], **bn),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,7 @@ def _port_model(params, state, **over):
     cfg.update(over)
     model = DNN(DNNConfig(**cfg))
     model.load_state_dict(dnn_from_jax(params, state))
-    return model
+    return model.requires_grad_(False)  # eval forward only
 
 
 def _inputs(seed=2):

@@ -129,7 +129,7 @@ def test_arks_match_jax(slice_run, what, tol):
 def test_decode_streams_are_byte_identical(slice_run):
     """The port's Python and native decode streams, and the JAX package's
     Python stream, give the same batches byte for byte."""
-    from tfkaldi_tpu.io import native
+    from tfkaldi_tpu_torch.io import native
 
     assert native.available()
     featdir, context = slice_run["featdir"], slice_run["context"]
@@ -159,7 +159,7 @@ def test_service_marks_job_done(slice_run):
 
 def test_unported_steps_and_flags_name_the_jax_entry_point(slice_run):
     with pytest.raises(NotImplementedError, match="tfkaldi_tpu.cli.main"):
-        cli_main.main(["--config", slice_run["cfg"], "--steps", "train_nnet", "--device", "cpu"])
+        cli_main.main(["--config", slice_run["cfg"], "--steps", "train_mono", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="tfkaldi_tpu.cli.serve"):
         cli_serve.main(["--config", slice_run["cfg"], "--stream", "--device", "cpu"])
 
@@ -172,19 +172,17 @@ def test_default_device_without_card_raises(slice_run):
 
 
 def test_port_imports_without_jax():
-    """The port must not import JAX, and of the JAX package it may load only
-    ``tfkaldi_tpu.io`` (run in a subprocess: this test process has JAX
-    loaded by tests/conftest.py)."""
+    """The port must not import JAX nor any module of the JAX package (run
+    in a subprocess: this test process has JAX loaded by tests/conftest.py)."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import tfkaldi_tpu_torch.cli.main, tfkaldi_tpu_torch.cli.serve, "
-            "tfkaldi_tpu_torch.synthetic, tfkaldi_tpu_torch.profile_serve; "
+            "tfkaldi_tpu_torch.synthetic, tfkaldi_tpu_torch.profile_serve, "
+            "tfkaldi_tpu_torch.nnet, tfkaldi_tpu_torch.train, tfkaldi_tpu_torch.convert; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    loaded = proc.stdout.split()
-    assert "tfkaldi_tpu.io" in loaded
-    assert all(m == "tfkaldi_tpu" or m.startswith("tfkaldi_tpu.io") for m in loaded), loaded
+    assert proc.stdout.split() == []
 
 
 def _imported_modules(path):
@@ -206,7 +204,7 @@ _PORT_SOURCES = sorted(
 
 @pytest.mark.parametrize("path", _PORT_SOURCES)
 def test_only_port_io_module_imports_jax_package(path):
-    """Every import of the JAX package goes through tfkaldi_tpu_torch/io.py,
-    and none imports JAX; chip_smoke.py names neither."""
+    """No source file of the port, and not chip_smoke.py, imports JAX or
+    any module of the JAX package."""
     reached = [m for m in _imported_modules(path) if m.split(".")[0] in ("jax", "tfkaldi_tpu")]
-    assert reached == (["tfkaldi_tpu.io"] if path == os.path.join("tfkaldi_tpu_torch", "io.py") else [])
+    assert reached == []

@@ -1,16 +1,18 @@
 """tfkaldi_tpu_torch: the PyTorch/CUDA port of :mod:`tfkaldi_tpu`.
 
-The port runs the hybrid serving path on an NVIDIA H100: wav → 40-dim
-log-fbank → per-speaker CMVN → ±5-frame splice → 440→6×2048→2000 DNN →
-softmax ÷ prior → Kaldi ark of log pseudo-likelihoods. The two device
-kernels of that path (the fused FFN block and the preemphasis/framing pass)
-are hand-written CUDA for ``sm_90a`` under ``ops/csrc/``, each with a plain
-PyTorch version beside it that defines its numerics and runs on CPU tensors.
+The port runs the hybrid recipe of ``config/config_AURORA4.cfg`` on an
+NVIDIA H100: wav → 40-dim log-fbank → per-speaker CMVN → ±5-frame splice →
+the 440→6×2048→2000 relu+batchnorm DNN, trained with the reference's
+optimizer, rollback and checkpoint semantics, then softmax ÷ prior → Kaldi
+ark of log pseudo-likelihoods. The three device kernels of that path (the
+preemphasis/framing pass, the fused FFN block of the eval forward and the
+fused BN backward of every hidden layer) are hand-written CUDA for
+``sm_90a`` under ``ops/csrc/``, each with a plain PyTorch version beside it
+that defines its numerics and runs on CPU tensors.
 
-The package imports ``torch`` and never ``jax``. From the JAX package it
-imports only :mod:`tfkaldi_tpu.io` (Kaldi ark/scp/wav readers and the native
-ark loader, pure numpy), and only in :mod:`tfkaldi_tpu_torch.io`; every other
-host module it needs is its own copy.
+The package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: every host module it needs is its own copy (the Kaldi I/O of
+:mod:`tfkaldi_tpu_torch.io` included).
 """
 
 __version__ = "0.1.0"

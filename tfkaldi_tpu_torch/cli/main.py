@@ -1,21 +1,24 @@
-"""Pipeline entry point of the port: features and likelihood emission.
+"""Pipeline entry point of the port: features, DNN training, likelihoods.
 
-Port of :mod:`tfkaldi_tpu.cli.main` for the hybrid serving path. It runs
-the four feature steps and ``test_nnet`` (CMVN + splice + DNN + softmax ÷
-prior → ``<expdir>/<nnet name>/decode/likelihoods.ark`` with its
-``feats.scp``). The GMM steps and ``train_nnet`` are not ported yet and
-raise; ``python -m tfkaldi_tpu.cli.main`` runs them. The WFST decode and
-WER scoring that follow the likelihoods in the JAX pipeline run in
-external Kaldi on the emitted ark and are not part of this entry point.
+Port of :mod:`tfkaldi_tpu.cli.main` for the hybrid recipe on one device.
+It runs the four feature steps, ``train_nnet`` (shuffle the training scp,
+merge the parent GMM's pdf alignments, train the DNN → ``<expdir>/<nnet
+name>/final.pt`` and ``prior.npy``) and ``test_nnet`` (CMVN + splice + DNN
++ softmax ÷ prior → ``<expdir>/<nnet name>/decode/likelihoods.ark`` with
+its ``feats.scp``). The GMM steps are not ported yet and raise; ``python
+-m tfkaldi_tpu.cli.main`` runs them. The WFST decode and WER scoring that
+follow the likelihoods in the JAX pipeline run in external Kaldi on the
+emitted ark and are not part of this entry point.
 
 Usage:
     python -m tfkaldi_tpu_torch.cli.main --config config/config_AURORA4.cfg \\
-        --steps dnn_test_features,test_nnet [--device cuda]
+        --steps dnn_train_features,train_nnet,test_nnet [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import gzip
 import logging
 import os
 import sys
@@ -46,6 +49,7 @@ PORTED_STEPS = {
     "dnn_train_features",
     "gmm_test_features",
     "dnn_test_features",
+    "train_nnet",
     "test_nnet",
 }
 
@@ -78,6 +82,70 @@ def cmvn_path(config, featdir: str) -> str | None:
 
 def featdir(config, kind: str, section: str) -> str:
     return os.path.join(config.get("directories", f"{kind}_features"), config.get(section, "name"))
+
+
+def merge_alignments(ali_dir: str, num_jobs: int) -> str:
+    """Concatenate per-job pdf archives into ``pdf.all.gz`` (a copy of
+    tfkaldi_tpu/kaldi/gmm.py ``merge_alignments``, replacing the ``cat`` at
+    main.py:140-142)."""
+    out_path = os.path.join(ali_dir, "pdf.all.gz")
+    with gzip.open(out_path, "wt") as out:
+        for i in range(1, num_jobs + 1):
+            with gzip.open(os.path.join(ali_dir, f"pdf.{i}.gz"), "rt") as part:
+                out.write(part.read())
+    return out_path
+
+
+def train_nnet(config, nnet, num_labels: int) -> None:
+    """The ``train_nnet`` step (tfkaldi_tpu/cli/main.py:253-369, one host,
+    the Python dispenser)."""
+    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
+    from tfkaldi_tpu_torch.frontend.prepare_data import shuffle_examples
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # started by torchrun on several processes
+        raise NotImplementedError(
+            "multi-process training is not in the port yet (ROADMAP.md, queue 1, slice 8); "
+            "use python -m tfkaldi_tpu.cli.main"
+        )
+    train_featdir = featdir(config, "train", "dnn-features")
+    seed = config.getint("nnet", "seed", fallback=0)
+    if config.get("nnet", "starting_step") == "0":
+        log.info("------- shuffling examples ----------")
+        # keep the validation carve (head of the scp) uniformly sampled
+        valid_head = config.getint("nnet", "valid_batches") * config.getint("nnet", "batch_size")
+        shuffle_examples(
+            train_featdir, seed=seed,
+            length_bands=config.getint("nnet", "shuffle_length_bands", fallback=0),
+            valid_head=valid_head,
+        )
+    with open(os.path.join(train_featdir, "maxlength")) as fid:
+        max_input_length = int(fid.read())
+    featreader = FeatureReader(
+        os.path.join(train_featdir, "feats_shuffled.scp"),
+        cmvn_path(config, train_featdir),
+        os.path.join(train_featdir, "utt2spk"),
+        nnet.context_width,
+        max_input_length,
+    )
+    # merge per-job alignments (main.py:139-142)
+    ali_dir = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali")
+    alifile = os.path.join(ali_dir, "pdf.all.gz")
+    if not os.path.isfile(alifile):
+        alifile = merge_alignments(ali_dir, config.getint("general", "num_jobs"))
+    log.info("the native bulk training loader is not in the port yet (ROADMAP.md, queue 1); "
+             "using the Python dispenser")
+    dispenser = AlignmentBatchDispenser(
+        featreader, AlignmentCoder(identity_normalizer, num_labels),
+        config.getint("nnet", "batch_size"), alifile,
+    )
+    log.info("------- training neural net ----------")
+    try:
+        nnet.train(dispenser)
+    finally:
+        featreader.close()
 
 
 def parse_args(argv=None):
@@ -141,18 +209,24 @@ def main(argv=None) -> int:
         log.info("------- computing cmvn stats ----------")
         compute_cmvn(out)
 
-    if "test_nnet" not in steps:
+    if not ({"train_nnet", "test_nnet"} & steps):
         return 0
 
     from tfkaldi_tpu_torch.io import ArkReader, ArkWriter
     from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
     from tfkaldi_tpu_torch.nnet import Nnet
 
-    log.info("------- computing state pseudo-likelihoods ----------")
     # feature input dim from the first training utterance (main.py:118-120)
     with ArkReader(os.path.join(featdir(config, "train", "dnn-features"), "feats.scp")) as reader:
         input_dim = reader.read_utt_data(0).shape[1]
-    nnet = Nnet(config, input_dim, resolve_labels(config), device=device)
+    num_labels = resolve_labels(config)
+    nnet = Nnet(config, input_dim, num_labels, device=device)
+    if "train_nnet" in steps:
+        train_nnet(config, nnet, num_labels)
+    if "test_nnet" not in steps:
+        return 0
+
+    log.info("------- computing state pseudo-likelihoods ----------")
 
     decodedir = os.path.join(nnet.savedir, "decode")
     os.makedirs(decodedir, exist_ok=True)

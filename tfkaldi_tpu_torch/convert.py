@@ -3,8 +3,11 @@
 :func:`dnn_from_jax` maps the JAX DNN pytree (models/dnn.py:95-128,
 ``params`` and ``state`` given as numpy arrays) to the ``state_dict`` of
 :class:`tfkaldi_tpu_torch.models.DNN`; the layouts are the same, so the
-arrays are copied as they are. The port's checkpoint is
-``<savedir>/final.pt``, beside the JAX package's Orbax ``final/``.
+arrays are copied as they are. :func:`train_state_from_jax` maps a whole
+JAX ``TrainState`` (its leaves as numpy) onto the port's
+:class:`~tfkaldi_tpu_torch.train.trainer.TrainState`. The port's decode
+checkpoint is ``<savedir>/final.pt``, beside the JAX package's Orbax
+``final/``; Orbax checkpoints are not read (``orbax`` imports JAX).
 """
 
 from __future__ import annotations
@@ -27,18 +30,49 @@ def dnn_from_jax(params, state) -> dict[str, torch.Tensor]:
     ``params``: ``{"hidden": [{"w", "b"[, "beta"]}, ...], "out": {"w", "b"}}``;
     ``state``: ``{"depth"[, "bn_mean", "bn_var"]}``.
     """
-    sd: dict[str, torch.Tensor] = {}
-    for l, layer in enumerate(params["hidden"]):
-        for name in ("w", "b", "beta"):
-            if name in layer:
-                sd[f"hidden.{l}.{name}"] = _tensor(np.asarray(layer[name], np.float32))
-    sd["out.w"] = _tensor(np.asarray(params["out"]["w"], np.float32))
-    sd["out.b"] = _tensor(np.asarray(params["out"]["b"], np.float32))
+    sd = _param_dict(params)
     sd["depth"] = _tensor(np.asarray(state["depth"], np.int32))
     for name in ("bn_mean", "bn_var"):
         if name in state:
             sd[name] = _tensor(np.asarray(state[name], np.float32))
     return sd
+
+
+def _param_dict(tree) -> dict[str, torch.Tensor]:
+    """A params-shaped pytree (params, Adam ``m`` or ``v``) → the port's
+    parameter names."""
+    out: dict[str, torch.Tensor] = {}
+    for l, layer in enumerate(tree["hidden"]):
+        for name in ("w", "b", "beta"):
+            if name in layer:
+                out[f"hidden.{l}.{name}"] = _tensor(np.asarray(layer[name], np.float32))
+    for name in ("w", "b"):
+        out[f"out.{name}"] = _tensor(np.asarray(tree["out"][name], np.float32))
+    return out
+
+
+def train_state_from_jax(state, config, *, seed: int = 0, device: str | torch.device = "cpu"):
+    """A JAX ``TrainState`` (any object with the attributes ``params``,
+    ``model_state``, ``adam_m``, ``adam_v``, ``adam_t``, ``step`` and
+    ``lr_fact``, leaves as numpy arrays; train/trainer.py:63-80) → the
+    port's ``TrainState`` for a ``DNNConfig`` on ``device``. The threefry
+    dropout key does not carry over: the port's dropout stream is seeded
+    from ``seed``."""
+    from tfkaldi_tpu_torch.models.dnn import DNN
+    from tfkaldi_tpu_torch.train.trainer import TrainState
+
+    model = DNN(config)
+    model.load_state_dict(dnn_from_jax(state.params, state.model_state))
+    model.to(device)
+    return TrainState(
+        step=int(np.asarray(state.step)),
+        lr_fact=float(np.asarray(state.lr_fact)),
+        model=model,
+        adam_m={k: v.to(device) for k, v in _param_dict(state.adam_m).items()},
+        adam_v={k: v.to(device) for k, v in _param_dict(state.adam_v).items()},
+        adam_t=int(np.asarray(state.adam_t)),
+        seed=int(seed),
+    )
 
 
 def save_checkpoint(savedir: str, state_dict: dict[str, torch.Tensor]) -> str:

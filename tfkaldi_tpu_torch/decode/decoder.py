@@ -37,7 +37,7 @@ class Decoder:
         pseudo-likelihoods, on the device."""
         inputs = torch.as_tensor(inputs, dtype=torch.float32).to(self.device, non_blocking=True)
         lengths = torch.as_tensor(lengths, dtype=torch.int32)
-        with torch.no_grad():
+        with torch.inference_mode():
             logits = self.model(inputs, lengths)
             likes = torch.softmax(logits.float(), dim=-1) / self.prior
             likes = torch.where(likes == 0, _EPS, likes)  # nnet.py:283, fixed

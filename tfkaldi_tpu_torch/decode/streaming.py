@@ -15,12 +15,9 @@ from typing import Iterator
 
 import numpy as np
 
+from tfkaldi_tpu_torch.data.batching import round_up
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.io import native, scan_scp_shapes
-
-
-def round_up(value: int, multiple: int) -> int:
-    return -(-int(value) // int(multiple)) * int(multiple)
 
 
 def stream_padded_batches(

@@ -1,7 +1,7 @@
 """Feature preparation: wav corpus → Kaldi featdir on disk.
 
-Port of :mod:`tfkaldi_tpu.frontend.prepare_data` (``prepare_data`` and
-``compute_cmvn``). Utterances are packed into padded batches (signal
+Port of :mod:`tfkaldi_tpu.frontend.prepare_data` (``prepare_data``,
+``compute_cmvn`` and ``shuffle_examples``). Utterances are packed into padded batches (signal
 lengths bucketed to whole seconds) and each batch is one device call. A
 reader thread reads wavs ahead; the main thread dispatches batch k+1 to the
 device before it copies batch k back and writes it, so the ark write
@@ -15,6 +15,7 @@ from __future__ import annotations
 import logging
 import os
 import queue
+import random
 import shutil
 import threading
 
@@ -22,7 +23,15 @@ import numpy as np
 
 from tfkaldi_tpu_torch.frontend.cmvn import cmvn_stats
 from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
-from tfkaldi_tpu_torch.io import ArkReader, ArkWriter, read_segments, read_spk2utt, read_wav, read_wavfiles
+from tfkaldi_tpu_torch.io import (
+    ArkReader,
+    ArkWriter,
+    read_segments,
+    read_spk2utt,
+    read_wav,
+    read_wavfiles,
+    scan_scp_shapes,
+)
 
 log = logging.getLogger(__name__)
 
@@ -68,8 +77,8 @@ def prepare_data(
         conf["dynamic"] = dynamic
     if str(conf.get("speed_perturb", "")).strip():
         raise NotImplementedError(
-            "speed_perturb is not in the port yet (ROADMAP.md, queue 1, slice 2: "
-            "training); use tfkaldi_tpu.frontend.prepare_data"
+            "speed_perturb is not in the port yet (ROADMAP.md, queue 1); "
+            "use tfkaldi_tpu.frontend.prepare_data"
         )
     opts = FeatureOpts.from_config(conf)
 
@@ -184,3 +193,51 @@ def compute_cmvn(featdir: str) -> None:
                 s = cmvn_stats(reader.read_utt(utt_id))
                 stats = s if stats is None else stats + s
             writer.write_next_utt(spk, stats)
+
+
+def shuffle_examples(
+    featdir: str,
+    seed: int | None = None,
+    length_bands: int = 0,
+    valid_head: int = 0,
+) -> None:
+    """Shuffle feats.scp once on disk → feats_shuffled.scp (a copy of
+    tfkaldi_tpu/frontend/prepare_data.py ``shuffle_examples``; reference
+    prepare_data.py:124-141).
+
+    ``length_bands > 1`` sorts the utterances by frame count (ark header
+    reads), splits them into that many bands and shuffles within each band
+    and the band order, so batches draw similar lengths. ``valid_head``
+    reserves that many uniformly sampled utterances at the head, where the
+    training controller carves its validation set.
+    """
+    with open(os.path.join(featdir, "feats.scp")) as f:
+        lines = f.readlines()
+    rng = random.Random(seed)
+
+    if length_bands > 1:
+        rng.shuffle(lines)  # uniform order; the head stays uniform
+        head, rest = lines[:valid_head], lines[valid_head:]
+        entries = []
+        for line in rest:
+            _, path_pos = line.strip().split(" ", 1)
+            path, pos = path_pos.rsplit(":", 1)
+            entries.append((path, int(pos)))
+        counts = [rows for rows, _cols in scan_scp_shapes(entries)]
+        order = sorted(range(len(rest)), key=lambda i: counts[i])
+        band_size = max(1, -(-len(rest) // length_bands))
+        bands = [
+            [rest[i] for i in order[b : b + band_size]]
+            for b in range(0, len(rest), band_size)
+        ]
+        for band in bands:
+            rng.shuffle(band)
+        rng.shuffle(bands)
+        lines = head + [line for band in bands for line in band]
+    else:
+        rng.shuffle(lines)
+    out = os.path.join(featdir, "feats_shuffled.scp")
+    tmp = f"{out}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.writelines(lines)
+    os.replace(tmp, out)

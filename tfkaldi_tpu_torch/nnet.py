@@ -1,9 +1,10 @@
-"""Nnet facade of the port: config → DNN → likelihood emission.
+"""Nnet facade of the port: config → DNN → training and likelihood emission.
 
-Port of the decode half of :class:`tfkaldi_tpu.nnet.Nnet` for the hybrid
-recipe (``model = dnn``, ``loss = cross_entropy``; config_AURORA4.cfg
-``[nnet]``). Weights come from ``<savedir>/final.pt``
-(:mod:`tfkaldi_tpu_torch.convert`) and the prior from ``<savedir>/prior.npy``.
+Port of :class:`tfkaldi_tpu.nnet.Nnet` for the hybrid recipe (``model =
+dnn``, ``loss = cross_entropy``; config_AURORA4.cfg ``[nnet]``) on one
+device. :meth:`Nnet.train` runs the training controller, which writes
+``<savedir>/final.pt`` and ``<savedir>/prior.npy``; :meth:`Nnet.decode`
+reads them back (:mod:`tfkaldi_tpu_torch.convert`).
 """
 
 from __future__ import annotations
@@ -15,11 +16,14 @@ import numpy as np
 import torch
 
 from tfkaldi_tpu_torch.convert import load_checkpoint
+from tfkaldi_tpu_torch.data.batching import DeviceBatcher
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.decoder import Decoder
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.io import ArkWriter
 from tfkaldi_tpu_torch.models.dnn import DNN, DNNConfig
+from tfkaldi_tpu_torch.train import NnetTrainOptions, Trainer, TrainerConfig, TrainingController
+from tfkaldi_tpu_torch.utils import MetricsLogger
 
 log = logging.getLogger(__name__)
 
@@ -55,11 +59,44 @@ class Nnet:
             )
         self.model = DNN(DNNConfig.from_config(self.conf, self.input_dim, num_labels))
 
-    def train(self, dispenser) -> None:
-        raise NotImplementedError(
-            "training is not in the port yet (ROADMAP.md, queue 1, slice 2: training); "
-            "use tfkaldi_tpu.nnet.Nnet.train"
+    def _micro_batches(self, batch_size: int) -> int:
+        """Map ``numutterances_per_minibatch`` (microbatch SIZE, -1 = whole
+        batch; nnet.py:110-114) to an accumulation COUNT."""
+        val = int(self.conf.get("numutterances_per_minibatch", -1))
+        if val <= 0 or val >= batch_size:
+            return 1
+        if batch_size % val != 0:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by numutterances_per_minibatch {val}"
+            )
+        return batch_size // val
+
+    def train(self, dispenser, *, init_state=None):
+        """Train the network (nnet.py:156-304, one device). ``init_state``
+        (a :class:`~tfkaldi_tpu_torch.train.trainer.TrainState`, e.g. from
+        :func:`tfkaldi_tpu_torch.convert.train_state_from_jax`) replaces
+        the seeded initialisation. Returns the final state."""
+        for key in ("visualise", "specaugment"):
+            if str(self.conf.get(key, "False")) == "True":
+                raise NotImplementedError(
+                    f"{key} = True is not in the port yet (ROADMAP.md, queue 1, slice 8); "
+                    "use tfkaldi_tpu.nnet.Nnet.train"
+                )
+        opts = NnetTrainOptions.from_config(self.conf, self.savedir)
+        trainer_cfg = TrainerConfig(
+            init_learning_rate=float(self.conf.get("initial_learning_rate", 1e-3)),
+            learning_rate_decay=float(self.conf.get("learning_rate_decay", 1)),
+            num_steps=int(dispenser.num_batches * opts.num_epochs),
+            micro_batches=self._micro_batches(opts.batch_size),
         )
+        trainer = Trainer(self.model.config, trainer_cfg, device=self.device)
+        metrics = MetricsLogger(os.path.join(self.savedir, "metrics.jsonl"))
+        controller = TrainingController(trainer, dispenser, DeviceBatcher(), opts, metrics_hook=metrics)
+        try:
+            return controller.train(init_state)
+        finally:
+            log.info("avg training throughput: %.0f frames/sec", metrics.avg_frames_per_sec)
+            metrics.close()
 
     def load_decoder(self) -> Decoder:
         """Load ``final.pt`` and ``prior.npy`` onto the device (once)."""

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, written under
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all run in parallel) and linked into one shared
+library with a plain C interface, written under
 ``<checkout>/build/tfkaldi_tpu_torch/`` and named by a hash of the sources,
 so an edited kernel is rebuilt and a stale library is never loaded. The
 library is loaded with ``ctypes``; every pointer and the stream pass as
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "tk_fused_ffn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tk_fused_ffn_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tk_frame_preemph_f64": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_double, _P],
+    "tk_bn_dgrad_f32": [_P] * 11 + [_I, _I, _I, _P],
+    "tk_bn_dgrad_bf16": [_P] * 11 + [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -72,19 +75,36 @@ def library_path() -> str:
 
 
 def _compile(lib_path: str) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.tmp.{os.getpid()}"
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-o", tmp, *_sources(),
-    ]
+    nvcc = _nvcc()
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+    jobs = []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *flags, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    objs = []
+    failed = []
+    for cmd, obj, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        objs.append(obj)
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a torn file
     build_seconds = time.perf_counter() - t0
 

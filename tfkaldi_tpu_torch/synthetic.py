@@ -7,10 +7,17 @@ parent GMM's ``graph/num_pdfs``, and a DNN checkpoint (``final.pt`` +
 ``prior.npy``) of seeded random weights with non-trivial batchnorm stats.
 ``chip_smoke.py`` and ``tfkaldi_tpu_torch.profile_serve`` drive the port on
 it at full width (:func:`make_workspace`); the tests use it at a small width.
+
+:func:`make_train_workspace` lays down a separate training workspace: a
+train and a test corpus, and the parent GMM's pdf alignment
+``<expdir>/<gmm_name>/ali/pdf.all.gz`` with one label per frame that the
+feature step will produce (``1 + (n − 400) // 160`` frames for ``n``
+samples at 16 kHz, snip_edges).
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 from configparser import ConfigParser
 
@@ -163,4 +170,86 @@ def make_workspace(root: str, *, num_pdfs: int, hidden_units: int, hidden_layers
         "test_featdir": os.path.join(config.get("directories", "test_features"), feat_name),
         "savedir": savedir,
         "context": context,
+    }
+
+
+def num_frames(num_samples: int) -> int:
+    """Frames of a 16 kHz signal under the recipe's 25 ms / 10 ms
+    snip_edges framing."""
+    return 1 + (int(num_samples) - 400) // 160
+
+
+def write_alignments(path: str, datadir: str, num_pdfs: int, *, seed: int) -> dict[str, np.ndarray]:
+    """A gzipped Kaldi pdf alignment for every wav of ``datadir``, one
+    label per frame: runs of 5-30 frames. The first ``num_pdfs`` runs of
+    the corpus visit every pdf once (so no pdf has a zero prior, provided
+    the corpus holds that many runs); later runs draw their pdf from a
+    skewed (Zipf-like) distribution, so the label prior carries information
+    a model can learn. Returns ``{utt: labels}``."""
+    rng = np.random.default_rng(seed)
+    weights = 1.0 / np.arange(1, num_pdfs + 1)
+    weights /= weights.sum()
+    first = list(rng.permutation(num_pdfs))
+    alignments = {}
+    with open(os.path.join(datadir, "wav.scp")) as f:
+        entries = [line.split() for line in f if line.strip()]
+    for utt, wav in entries:
+        with open(wav, "rb") as fw:
+            _, sig = scipy.io.wavfile.read(fw, mmap=True)
+            n = num_frames(len(sig))
+        runs = []
+        while sum(len(r) for r in runs) < n:
+            pdf = first.pop() if first else rng.choice(num_pdfs, p=weights)
+            runs.append(np.full(int(rng.integers(5, 31)), pdf, np.int32))
+        alignments[utt] = np.concatenate(runs)[:n]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        for utt, ali in alignments.items():
+            f.write(utt + " " + " ".join(map(str, ali.tolist())) + "\n")
+    return alignments
+
+
+def make_train_workspace(
+    root: str,
+    *,
+    num_pdfs: int,
+    hidden_units: int,
+    hidden_layers: int,
+    num_train: int,
+    num_test: int,
+    min_seconds: float,
+    max_seconds: float,
+    nnet: dict | None = None,
+    num_speakers: int = 4,
+) -> dict:
+    """The training workspace: a config derived from ``config_AURORA4.cfg``
+    (``[nnet]`` widths and ``nnet`` overrides applied), train and test data
+    dirs of ``num_train`` / ``num_test`` wavs of ``min_seconds`` to
+    ``max_seconds`` over ``num_speakers`` speakers each (seeds 20 and 21),
+    and the pdf alignment of the train set (seed 22). Returns the config's
+    path and parsed form, the two featdirs the feature steps will write, the
+    model dir, the splice context and the alignments."""
+    over = {"num_hidden_units": hidden_units, "num_hidden_layers": hidden_layers, **(nnet or {})}
+    cfg_path = write_config(root, num_pdfs=num_pdfs, nnet=over)
+    config = ConfigParser()
+    config.read(cfg_path)
+    for kind, seed, count in (("train", 20, num_train), ("test", 21, num_test)):
+        make_wav_datadir(
+            config.get("directories", f"{kind}_data"), num_speakers=num_speakers,
+            utts_per_speaker=-(-count // num_speakers), min_seconds=min_seconds,
+            max_seconds=max_seconds, seed=seed,
+        )
+    ali_path = os.path.join(
+        config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali", "pdf.all.gz"
+    )
+    alignments = write_alignments(ali_path, config.get("directories", "train_data"), num_pdfs, seed=22)
+    feat_name = config.get("dnn-features", "name")
+    return {
+        "cfg_path": cfg_path,
+        "config": config,
+        "train_featdir": os.path.join(config.get("directories", "train_features"), feat_name),
+        "test_featdir": os.path.join(config.get("directories", "test_features"), feat_name),
+        "savedir": os.path.join(config.get("directories", "expdir"), config.get("nnet", "name")),
+        "context": config.getint("nnet", "context_width"),
+        "alignments": alignments,
     }

@@ -1,0 +1,225 @@
+"""Training steps with the reference's exact optimizer semantics.
+
+Port of :mod:`tfkaldi_tpu.train.trainer` for the hybrid recipe's
+cross-entropy loss (the other losses and SpecAugment are not ported;
+:class:`tfkaldi_tpu_torch.nnet.Nnet` rejects them):
+
+- frame-summed cross-entropy over real frames only (trainer.py:264-275);
+- gradients accumulated over microbatches in a Python loop that threads
+  the batchnorm moving stats through (trainer.py:311-359), then divided by
+  the batch's total frame count and clipped to ±1, in that order;
+- ``lr = init · decay^(step/num_steps) · lr_fact``, with ``lr_fact``
+  halved on validation regressions;
+- TF-Adam written out: ``lr_t = lr·√(1−β2ᵗ)/(1−β1ᵗ)`` computed in float32
+  as JAX does, then ``p −= lr_t·m/(√v + ε)`` (ε outside the square root;
+  ``torch.optim.Adam`` folds ε into the bias correction, a different
+  update, so it is not used);
+- the average loss reported as loss_sum / num_frames.
+
+The state is a :class:`TrainState`; :meth:`Trainer.update` updates its
+model and Adam slots in place and returns it. Dropout masks come from a
+generator seeded from ``(seed, step)``, so resume and rollback replay the
+same masks (the bits are the port's own: JAX's threefry stream does not
+carry over).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tfkaldi_tpu_torch.data.batching import PaddedBatch
+from tfkaldi_tpu_torch.device import resolve_device
+from tfkaldi_tpu_torch.models.dnn import DNN, DNNConfig
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    init_learning_rate: float = 1e-3
+    learning_rate_decay: float = 1.0
+    num_steps: int = 1000
+    micro_batches: int = 1  # grad-accumulation factor (1 = whole batch at once)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """All mutable training state: the step counter, the learning-rate
+    factor, the model (parameters, batchnorm moving stats and the
+    layerwise depth), TF-Adam's slots and power counter, and the seed of
+    the dropout stream (trainer.py:63-80)."""
+
+    step: int
+    lr_fact: float
+    model: DNN
+    adam_m: dict[str, torch.Tensor]
+    adam_v: dict[str, torch.Tensor]
+    adam_t: int
+    seed: int
+
+    def params(self) -> dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+class Trainer:
+    """Train and validation steps for the DNN on one device, resolved by
+    :func:`~tfkaldi_tpu_torch.device.resolve_device` (``cuda`` unless the
+    caller names the CPU)."""
+
+    def __init__(self, model_config: DNNConfig, config: TrainerConfig, device: str | torch.device = "cuda"):
+        self.model_config = model_config
+        self.config = config
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def init_state(self, seed: int) -> TrainState:
+        """A fresh state: the model initialised from a CPU generator seeded
+        with ``seed`` (the same weights on every device), zero Adam slots."""
+        model = DNN(self.model_config)
+        model.reset_parameters(torch.Generator().manual_seed(int(seed)))
+        model.to(self.device)
+        params = dict(model.named_parameters())
+        return TrainState(
+            step=0,
+            lr_fact=1.0,
+            model=model,
+            adam_m={n: torch.zeros_like(p) for n, p in params.items()},
+            adam_v={n: torch.zeros_like(p) for n, p in params.items()},
+            adam_t=0,
+            seed=int(seed),
+        )
+
+    def dropout_generator(self, state: TrainState) -> torch.Generator | None:
+        """The step's dropout generator, seeded from ``(seed, step)``; None
+        when the model has no dropout."""
+        if not self.model_config.dropout < 1:
+            return None
+        mixed = (state.seed * 0x9E3779B97F4A7C15 + state.step * 0xBF58476D1CE4E5B9 + 0x5EED) % (1 << 63)
+        return torch.Generator(device=self.device).manual_seed(mixed)
+
+    # ------------------------------------------------------------------
+    # loss and gradients
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def loss_sum(model: DNN, batch: PaddedBatch, *, train: bool, generator=None):
+        """Frame-summed CE over real frames and the frame count (f32)."""
+        logits = model(batch.inputs, batch.input_lengths, train=train, generator=generator)
+        b, t, o = logits.shape
+        if batch.targets.shape != (b, t):
+            raise ValueError(
+                f"frame-level CE needs targets [B, T] = {(b, t)}, got {tuple(batch.targets.shape)}"
+            )
+        ce = F.cross_entropy(
+            logits.reshape(b * t, o), batch.targets.reshape(b * t).long(), reduction="none"
+        ).reshape(b, t)
+        frames = torch.arange(t, device=logits.device)[None, :]
+        mask = frames < batch.target_lengths.to(logits.device)[:, None]
+        loss = torch.sum(ce * mask)
+        return loss, batch.target_lengths.sum().float()
+
+    def gradients(self, state: TrainState, batch: PaddedBatch, generator=None):
+        """Summed gradients over the microbatches, the summed loss and the
+        frame count. Parameters that do not reach the loss (hidden layers
+        past the depth selector) get zero gradients, as under autodiff."""
+        model = state.model
+        for p in model.parameters():
+            p.grad = None
+        k = self.config.micro_batches
+        b = batch.inputs.shape[0]
+        if b % k != 0:
+            raise ValueError(f"batch size {b} not divisible by micro_batches {k}")
+        micro = b // k
+        loss_total = torch.zeros((), device=self.device)
+        frames_total = torch.zeros((), device=self.device)
+        for i in range(0, b, micro):
+            mb = PaddedBatch(*(a[i : i + micro] for a in batch.fields()))
+            loss, frames = self.loss_sum(model, mb, train=True, generator=generator)
+            loss.backward()
+            loss_total += loss.detach()
+            frames_total += frames
+        grads = {
+            n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in model.named_parameters()
+        }
+        for p in model.parameters():
+            p.grad = None
+        return grads, loss_total, frames_total
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def learning_rate(self, state: TrainState) -> np.float32:
+        """``init · decay^(step/num_steps) · lr_fact`` in float32
+        (trainer.py:414-420)."""
+        cfg = self.config
+        f32 = np.float32
+        return (
+            f32(cfg.init_learning_rate)
+            * np.power(f32(cfg.learning_rate_decay), f32(state.step) / f32(cfg.num_steps))
+            * f32(state.lr_fact)
+        )
+
+    def update(self, state: TrainState, batch: PaddedBatch):
+        """One optimizer step on a batch (on the state's device), in place;
+        returns ``(state, average loss)`` with the loss a 0-d tensor."""
+        grads, loss, frames = self.gradients(state, batch, self.dropout_generator(state))
+        frames_safe = torch.clamp(frames, min=1.0)
+        f32 = np.float32
+        t = state.adam_t + 1
+        tf_ = f32(t)
+        lr_t = (
+            self.learning_rate(state)
+            * np.sqrt(f32(1.0) - f32(ADAM_B2) ** tf_)
+            / (f32(1.0) - f32(ADAM_B1) ** tf_)
+        )
+        lr_t = float(np.float32(lr_t))
+        with torch.no_grad():
+            for name, p in state.model.named_parameters():
+                # mean over frames then clip ±1, in that order (trainer.py:410-412)
+                g = torch.clamp(grads[name] / frames_safe, -1.0, 1.0)
+                m = state.adam_m[name]
+                v = state.adam_v[name]
+                m.copy_(ADAM_B1 * m + (1.0 - ADAM_B1) * g)
+                v.copy_(ADAM_B2 * v + (1.0 - ADAM_B2) * torch.square(g))
+                p.copy_(p - lr_t * m / (torch.sqrt(v) + ADAM_EPS))
+        state.step += 1
+        state.adam_t = t
+        return state, loss / frames_safe
+
+    def evaluate(self, state: TrainState, batches) -> float:
+        """Average frame loss over validation batches with the eval forward
+        (trainer.py:475-483: accumulate loss and frames, then divide)."""
+        total_loss, total_frames = 0.0, 0.0
+        with torch.inference_mode():
+            for batch in batches:
+                loss, frames = self.loss_sum(state.model, batch, train=False)
+                total_loss += float(loss)
+                total_frames += float(frames)
+        return total_loss / max(total_frames, 1.0)
+
+    @staticmethod
+    def halve_learning_rate(state: TrainState) -> TrainState:
+        """The validation-rollback LR halving (trainer.py:140-142)."""
+        return dataclasses.replace(state, lr_fact=state.lr_fact / 2)
+
+    @staticmethod
+    def add_layer(state: TrainState) -> TrainState:
+        """Layerwise 'add' + 'init' (dnn.py:92, 112-122): advance the depth
+        selector and re-zero the output layer and its Adam slots, in place."""
+        model = state.model
+        with torch.no_grad():
+            model.depth.add_(1)
+            model.reinit_output_layer()
+            for name in ("out.w", "out.b"):
+                state.adam_m[name].zero_()
+                state.adam_v[name].zero_()
+        return state
