@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, the served
-path, then the training path.
+path, the training path, then the BiLSTM and BiGRU paths.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,11 @@ path, then the training path.
    (the training path's validation batches); framing 16 x 5 s at 16 kHz,
    bit-equal; BN backward (kernel 3) [65536,2048] with w [2048,2048] and
    [440,2048] f32, the dz-only launch of the first layer, and a bf16 case
-   at N = 8192.
+   at N = 8192; the recurrences (kernels 4-7) at one layer of the repo's
+   BiLSTM/BiGRU, T 512, B 128, H 512, f32 and bf16, ragged lengths of
+   204-512 frames with garbage in the padding: every output and residual,
+   the backward alone on the plain residuals, and their times beside
+   cuDNN's packed bidirectional LSTM/GRU (``check_rnn_kernels``).
 4. Drives the served path at full width (440 -> 6x2048 -> 2000, batchnorm)
    on a seeded synthetic workspace (32 + 32 wavs of 1-8 s, 4 speakers):
    ``cli.main --steps dnn_train_features,dnn_test_features``, then
@@ -39,7 +43,19 @@ path, then the training path.
    validation batches (the number that decides a rollback) and the eval
    logits agree; one full-width step on one batch gives the same loss and
    gradients; and the step is timed by parts.
-7. Prints one JSON line of per-kernel results, then the final JSON line.
+7. Drives the BiLSTM, then the BiGRU hybrid path at full width on the
+   training workspace's features and alignments: ``cli.main --steps
+   train_nnet,test_nnet`` with the ``[nnet]`` of config_AURORA4_ctc.cfg
+   under frame CE (2 x 512 bidirectional, context 2, bf16, batch 128,
+   dropout 0.8) and only num_epochs, valid_frequency and check_freq
+   lowered. Counts reset before, read after: the backward kernel launches
+   2 x T_pad per train step, the forward kernel that and more (validation
+   and decode); step-0 loss ln 2000; the ark covers the test set and
+   matches the plain versions' decode; one step from the step-2 checkpoint
+   with the kernels and with the plain versions agrees; and the step is
+   timed by parts (``rnn_train_path``, ``check_rnn_step``).
+8. Prints one JSON line of per-kernel results (all seven), then the final
+   JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
 """
@@ -76,6 +92,32 @@ BN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 STEP_LOSS_TOL = 1e-5
 STEP_GRAD_TOL = 1e-4
 BN_BIAS_NOISE = 1e-2
+# the recurrent layer of the repo's BiLSTM (config_AURORA4_ctc.cfg:75-108): T_pad, batch, hidden
+RNN_SHAPE = (512, 128, 512)
+RNN_LAYERS = 2
+RNN_TRAIN_NNET = {"num_epochs": 1, "valid_frequency": 2, "check_freq": 2}
+# kernels 4-7 vs their plain versions (see check_rnn_kernels, check_rnn_step)
+RNN_F32_TOL = 1e-5
+RNN_BF16_RATIO = 2.0
+RNN_LOSS_TOL = 1e-4
+
+
+def bf16_close(mine: float, theirs: float) -> bool:
+    """The bf16 rule of check_rnn_kernels: the kernels' distance from the
+    plain f32 result within RNN_BF16_RATIO of the plain bf16 version's, plus
+    RNN_F32_TOL for an output the bf16 rounding hardly moves (there both
+    distances are f32 rounding noise: the output bias's gradient read 1.1e-7
+    against 5.5e-8 in the first run of this check)."""
+    return mine <= RNN_BF16_RATIO * theirs + RNN_F32_TOL
+
+
+def bf16_rounds(mine: float, theirs: float) -> bool:
+    """The other side of the bf16 rule: against the plain version run in f32
+    on the bf16-rounded weights, which lacks only the roundings of h and of
+    the gate cotangents, the kernels' distance at least 1/RNN_BF16_RATIO of
+    the plain bf16 version's, less RNN_F32_TOL. A kernel that skipped those
+    roundings would sit near zero there."""
+    return mine >= theirs / RNN_BF16_RATIO - RNN_F32_TOL
 # H100 SXM peaks (NVIDIA data sheet): f32 and f64 outside the tensor cores, HBM
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
@@ -251,12 +293,194 @@ def check_bn_dgrad(card: str) -> dict:
     return result, result_dz_only_ms
 
 
+def _rnn_cell(cell: str):
+    """The ``rnn_bidi.Cell`` of a recurrence: its kernels, plain versions
+    and launch counts."""
+    from tfkaldi_tpu_torch.ops import gru_bidi, lstm_bidi
+
+    return lstm_bidi.CELL if cell == "lstm" else gru_bidi.CELL
+
+
+def _rnn_chain(cell: str, gxs, whs, mask, dys, cd, *, kernel: bool, residuals=None) -> dict:
+    """Forward with residuals, backward and dW_h of both directions, through
+    the kernels or their plain versions; with ``residuals`` given, only the
+    backward runs, on them. Returns every output by name, per direction."""
+    from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
+
+    c = _rnn_cell(cell)
+    whs_cd = [w.to(cd) for w in whs]
+    out = {}
+    if residuals is None:
+        outs = (c.fwd if kernel else c.fwd_ref)(gxs, whs_cd, mask, residuals=True)
+        residuals = [res for _, res in outs]
+        out["ys"] = [ys for ys, _ in outs]
+        names = ("acts", "cs", "h_cd") if cell == "lstm" else ("acts", "hs", "h_cd", "gh_n")
+        for i, name in enumerate(names):
+            out[name] = [res[i] for res in residuals]
+    grads = (c.bwd if kernel else c.bwd_ref)(dys, residuals, mask, whs_cd)
+    out["dgx"] = [g for g, _ in grads]
+    if cell == "gru":
+        out["dgh"] = [g for _, g in grads]
+    out["dW_h"] = [weight_grad(res[2], g, cd) for res, (_, g) in zip(residuals, grads)]
+    out["_residuals"] = residuals
+    return out
+
+
+def _rel(got: dict, ref: dict) -> dict:
+    """max|got - ref| / max|ref| per output (the worse direction)."""
+    return {name: max(((g.float() - r.float()).abs().max() / r.float().abs().max().clamp(min=1e-30)).item()
+                      for g, r in zip(got[name], ref[name]))
+            for name in ref if not name.startswith("_")}
+
+
+def check_rnn_kernels(card: str, cell: str) -> dict:
+    """Kernels 4 and 5 (LSTM) or 6 and 7 (GRU) against their plain versions
+    on the card at one BiLSTM/BiGRU layer of the recipe (T 512, B 128,
+    H 512), with ragged lengths of 200-512 frames and garbage (7.7) in the
+    padding of gx; every output: ys, each residual, dgx (and dgh), dW_h.
+
+    - f32: the kernels and the plain versions differ only in the summation
+      order of the recurrent products, so every output within RNN_F32_TOL
+      (1e-5) of its max|ref| (measured at most 1.8e-6 in the first chip run
+      of these kernels).
+    - bf16: h (forward) and dgates/dgh (backward) are rounded to bf16 at
+      each of 512 steps; an f32 sum in another order can land on the other
+      side of a rounding boundary, and that one-step difference then
+      travels on through the recurrence. The yardstick is the effect of the
+      bf16 rounding itself: each output of the kernels, against the plain
+      version run in f32, must lie within RNN_BF16_RATIO (2x) of the plain
+      bf16 version's own distance from it (the rule the DNN's bf16 card
+      gradients are held to), plus RNN_F32_TOL (``bf16_close``). And the
+      kernels must round as the plain version does: against the plain
+      version run in f32 on the bf16-rounded weights (no rounding of h or
+      dgates), each output's distance at least half of the plain bf16
+      version's, less RNN_F32_TOL (``bf16_rounds``). The direct
+      kernel-vs-plain distance is printed.
+    - The backward alone, on the plain forward's residuals (so kernel 5 or 7
+      sees the plain version's inputs): the same rules.
+
+    Times (CUDA events): the kernels, the plain versions, and the library
+    call, cuDNN's bidirectional ``torch.nn.LSTM``/``GRU`` on a packed batch
+    of the same lengths, whose forward includes its own input projection
+    (input 1024 wide, the second layer's) and whose backward (one
+    ``torch.autograd.grad`` call) its input and weight gradients.
+    Returns the bf16 rows (the recipe's compute dtype) of both kernels."""
+    import torch
+
+    c = _rnn_cell(cell)
+    gates = c.gates
+    t, b, h = RNN_SHAPE
+    gen = torch.Generator().manual_seed(5 if cell == "lstm" else 6)
+    lengths = torch.randint(t * 2 // 5, t + 1, (b,), generator=gen)  # 204-512 frames at T 512
+    lengths[0] = t
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[:, :, None].cuda()
+    gxs = [torch.randn(t, b, gates * h, generator=gen).cuda() for _ in range(2)]
+    for gx in gxs:
+        gx[mask[:, :, 0] == 0] = 7.7  # garbage in the padding must not leak
+    whs = [(torch.randn(h, gates * h, generator=gen) / h ** 0.5).cuda() for _ in range(2)]
+    dys = [torch.randn(t, b, h, generator=gen).cuda() for _ in range(2)]
+    frames = int(lengths.sum())
+    ref32 = _rnn_chain(cell, gxs, whs, mask, dys, torch.float32, kernel=False)
+    whs_rounded = [w.bfloat16().float() for w in whs]  # bf16 values, f32 compute
+    rows = {}
+    for cd in (torch.float32, torch.bfloat16):
+        name = str(cd).replace("torch.", "")
+        got = _rnn_chain(cell, gxs, whs, mask, dys, cd, kernel=True)
+        plain = ref32 if cd == torch.float32 else _rnn_chain(cell, gxs, whs, mask, dys, cd, kernel=False)
+        same_in = _rnn_chain(cell, gxs, whs, mask, dys, cd, kernel=True, residuals=plain["_residuals"])
+        torch.cuda.synchronize()
+        direct = _rel(got, plain)
+        bwd_direct = _rel(same_in, {k: plain[k] for k in same_in if not k.startswith("_")})
+        if cd == torch.float32:
+            verdict = {k: v <= RNN_F32_TOL for k, v in {**direct, **bwd_direct}.items()}
+            log(f"{cell} kernels [{t},{b},{h}] f32, kernels vs plain max|diff|/max|ref|: chain {direct!r}, "
+                f"backward on the plain residuals {bwd_direct!r} (tol {RNN_F32_TOL})")
+        else:
+            plain_err = _rel(plain, ref32)
+            chain = _rel(got, ref32)
+            back = _rel(same_in, {k: ref32[k] for k in same_in if not k.startswith("_")})
+            back_plain = {k: plain_err[k] for k in back}
+            verdict = {k: bf16_close(chain[k], plain_err[k]) for k in chain}
+            verdict.update({f"bwd {k}": bf16_close(back[k], back_plain[k]) for k in back})
+            # the lower side: against f32 compute on the rounded weights, the whole
+            # chain, and the backward alone on the plain residuals
+            unrounded = _rnn_chain(cell, gxs, whs_rounded, mask, dys, torch.float32, kernel=False)
+            rounds, rounds_plain = _rel(got, unrounded), _rel(plain, unrounded)
+            unrounded = _rnn_chain(cell, gxs, whs_rounded, mask, dys, torch.float32, kernel=False,
+                                   residuals=plain["_residuals"])
+            rounds_bwd = _rel(same_in, {k: unrounded[k] for k in same_in if not k.startswith("_")})
+            rounds_bwd_plain = _rel({k: plain[k] for k in rounds_bwd}, {k: unrounded[k] for k in rounds_bwd})
+            del unrounded
+            verdict.update({f"rounds {k}": bf16_rounds(rounds[k], rounds_plain[k]) for k in rounds})
+            verdict.update({f"rounds bwd {k}": bf16_rounds(rounds_bwd[k], rounds_bwd_plain[k])
+                            for k in rounds_bwd})
+            log(f"{cell} kernels [{t},{b},{h}] bf16, distance from the plain f32 run (/max|ref|): kernels "
+                f"{chain!r}, plain bf16 {plain_err!r} (each kernel value within {RNN_BF16_RATIO}x of the plain "
+                f"one + {RNN_F32_TOL}); backward on the plain residuals {back!r}; distance from the plain f32 "
+                f"run on the bf16 weights (no rounding of h or dgates): kernels {rounds!r}, plain bf16 "
+                f"{rounds_plain!r}, backward alone {rounds_bwd!r} vs {rounds_bwd_plain!r} (each kernel value at "
+                f"least 1/{RNN_BF16_RATIO} of the plain one - {RNN_F32_TOL}); kernels vs plain bf16 directly "
+                f"{direct!r}, backward alone {bwd_direct!r}")
+        if not all(verdict.values()):
+            raise AssertionError(f"{cell} kernels {name}: outside tolerance: "
+                                 f"{[k for k, ok in verdict.items() if not ok]}")
+        del same_in
+
+        # times at the recipe's shapes, residuals on (the training forward)
+        whs_cd = [w.to(cd) for w in whs]
+        res = got["_residuals"]
+        fwd_ms = ms_per_call(lambda: c.fwd(gxs, whs_cd, mask, residuals=True), iters=5)
+        eval_ms = ms_per_call(lambda: c.fwd(gxs, whs_cd, mask, residuals=False), iters=5)
+        bwd_ms = ms_per_call(lambda: c.bwd(dys, res, mask, whs_cd), iters=5)
+        plain_fwd_ms = ms_per_call(lambda: c.fwd_ref(gxs, whs_cd, mask, residuals=True), iters=2)
+        plain_bwd_ms = ms_per_call(lambda: c.bwd_ref(dys, res, mask, whs_cd), iters=2)
+        lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(2 * h, h, bidirectional=True)
+        lib = lib.to("cuda", cd)
+        lib.flatten_parameters()
+        x = torch.randn(t, b, 2 * h, device="cuda", dtype=cd, requires_grad=True)
+        packed = torch.nn.utils.rnn.pack_padded_sequence(x, lengths, enforce_sorted=False)
+        lib_fwd_ms = ms_per_call(lambda: lib(packed), iters=5)
+        out = lib(packed)[0].data
+        cot = torch.randn_like(out)
+        wrt = [x, *lib.parameters()]
+        lib_bwd_ms = ms_per_call(lambda: torch.autograd.grad(out, wrt, cot, retain_graph=True), iters=5)
+        peak = PEAK_F32 if cd == torch.float32 else PEAK_BF16
+        # the work these lengths need: the recurrent product and the gate math
+        # of the real frames of both directions; the forward writes every
+        # residual, the backward reads all but h_cd (res[2], which only the
+        # weight gradient outside the kernel reads)
+        mm_flops = 2 * 2 * frames * h * gates * h
+        fwd_b = bound(mm_flops + 2 * frames * 12 * h,
+                      nbytes(*gxs, *whs_cd, mask[:, :, 0], *got["ys"], *(x_ for r in res for x_ in r)), peak)
+        bwd_read = [x_ for r in res for i, x_ in enumerate(r) if i != 2]
+        bwd_b = bound(mm_flops + 2 * frames * 20 * h,
+                      nbytes(*dys, *bwd_read, *whs_cd, mask[:, :, 0], *got["dgx"], *got.get("dgh", [])), peak)
+        log(f"{cell} kernels [{t},{b},{h}] {name} ({frames} real frames): forward {fwd_ms!r} ms "
+            f"(eval, no residuals, {eval_ms!r}), plain {plain_fwd_ms!r} ms, cuDNN {lib_fwd_ms!r} ms, bound "
+            f"{fwd_b['bound_ms']!r} ms by {fwd_b['bound_by']}; backward {bwd_ms!r} ms, plain {plain_bwd_ms!r} "
+            f"ms, cuDNN {lib_bwd_ms!r} ms, bound {bwd_b['bound_ms']!r} ms by {bwd_b['bound_by']} [{card}]")
+        if cd == torch.bfloat16:
+            def max_abs(names):
+                return max((g.float() - r.float()).abs().max().item()
+                           for k in names if k in plain for g, r in zip(got[k], plain[k]))
+
+            rows = {
+                "fwd": {"max_abs_err": max_abs(("ys", "acts", "cs", "hs", "h_cd", "gh_n")), "ms": fwd_ms,
+                        "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms, **fwd_b},
+                "bwd": {"max_abs_err": max_abs(("dgx", "dgh", "dW_h")), "ms": bwd_ms,
+                        "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms, **bwd_b},
+            }
+        del got, plain, res, lib, x, packed, out, cot, wrt
+        torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the paths' three kernel call sites to their plain versions."""
+    """Route the paths' kernel call sites to their plain versions."""
     from tfkaldi_tpu_torch.frontend import features
     from tfkaldi_tpu_torch.models import dnn
-    from tfkaldi_tpu_torch.ops import bn_fused_bwd
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, gru_bidi, lstm_bidi
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
     from tfkaldi_tpu_torch.ops import fused_mlp
 
@@ -264,10 +488,15 @@ def plain_versions():
     features.frame_preemph = fp.frame_preemph_ref
     dnn.fused_ffn_block = fused_mlp.fused_ffn_block_ref
     bn_fused_bwd.bn_dgrad = bn_fused_bwd.bn_dgrad_ref
+    cells = (lstm_bidi.CELL, gru_bidi.CELL)
+    for c in cells:  # instance attributes over the Cell's methods
+        c.fwd, c.bwd = c.fwd_ref, c.bwd_ref
     try:
         yield
     finally:
         features.frame_preemph, dnn.fused_ffn_block, bn_fused_bwd.bn_dgrad = saved
+        for c in cells:
+            del c.fwd, c.bwd
 
 
 def train_path(card: str) -> tuple[dict, dict]:
@@ -470,6 +699,270 @@ def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) ->
         f"version {grad_plain_ms!r} ms vs {grad_ms!r} ms with the kernel [{card}]")
 
 
+def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
+    """The BiLSTM (or BiGRU) hybrid path at full width through the CLI, on
+    the training workspace's features and 2000-pdf alignments: ``cli.main
+    --steps train_nnet,test_nnet`` with ``synthetic.recurrent_nnet(cell)``
+    (the ``[nnet]`` of config_AURORA4_ctc.cfg under frame CE: 2 x 512
+    bidirectional, context 2, bf16, batch 128, dropout 0.8, valid_batches
+    4) and only num_epochs, valid_frequency and check_freq lowered. Counts
+    reset before, read after: the backward kernel launches once per time
+    step of each layer in each train step (2 x T_pad), the forward kernel as
+    often in training and once more per step of every validation and decode
+    batch, and no kernel of the DNN paths launches; the step-0 loss is
+    ln 2000 (zero output layer); the ark covers the test set. Returns the
+    launches, the config's path and the model dir."""
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.cli import main as cli_main
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    nnet = {**synthetic.recurrent_nnet(cell), **RNN_TRAIN_NNET}
+    for key, value in nnet.items():
+        config.set("nnet", key, str(value))
+    cfg_path = os.path.join(TRAIN_WORK, f"config_bi{cell}.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), nnet["name"])
+
+    for c in (lstm_bidi.CELL, gru_bidi.CELL):
+        c.fwd_launches = c.bwd_launches = 0
+    fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main bi{cell} path: rc {rc}")
+    this = _rnn_cell(cell)
+    launches = {f"{cell}_fwd": this.fwd_launches, f"{cell}_bwd": this.bwd_launches}
+    other = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    other.update({f"{c.name}_{k}": getattr(c, f"{k}_launches") for c in (lstm_bidi.CELL, gru_bidi.CELL)
+                  if c is not this for k in ("fwd", "bwd")})
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    padded = sum(st["padded_length"] for st in steps)
+    log(f"bi{cell} path launches: {launches} (other kernels {other}); {len(steps)} train steps at T_pad "
+        f"{[st['padded_length'] for st in steps]} (replays after a rollback included); whole run {run_s!r} s")
+    if launches[f"{cell}_bwd"] != RNN_LAYERS * padded:
+        raise AssertionError(f"{cell}_bwd launched {launches[f'{cell}_bwd']} times, want {RNN_LAYERS} x {padded}")
+    if not launches[f"{cell}_fwd"] > RNN_LAYERS * padded:
+        raise AssertionError(f"{cell}_fwd launched {launches[f'{cell}_fwd']} times: want more than the "
+                             f"{RNN_LAYERS * padded} of training (validation and decode launch it too)")
+    if any(other.values()):
+        raise AssertionError(f"the bi{cell} path launched another path's kernels: {other}")
+    loss0 = steps[0]["loss"]
+    log(f"bi{cell} step-0 loss {loss0!r} vs ln {NUM_PDFS} = {math.log(NUM_PDFS)!r} (tol 1e-4); losses "
+        f"{[round(st['loss'], 6) for st in steps]}")
+    if not abs(loss0 - math.log(NUM_PDFS)) <= 1e-4:
+        raise AssertionError(f"bi{cell} step-0 loss {loss0} is not ln {NUM_PDFS}")
+    warm = steps[1:]
+    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
+    frames = sorted(st["num_frames"] for st in warm)[len(warm) // 2]
+    log(f"bi{cell} train step (median of {len(warm)} after the first, host clock, data wait included): "
+        f"{step_s!r} s, {frames / step_s!r} frames/s [{card}]")
+    prior = np.load(os.path.join(savedir, "prior.npy"))
+    if prior.shape != (NUM_PDFS,) or not abs(float(prior.sum()) - 1.0) <= 1e-5:
+        raise AssertionError(f"bi{cell} prior.npy: shape {prior.shape}, sum {prior.sum()}")
+    for name in ("final.pt", os.path.join("training", "step2.pt"), os.path.join("training", "validated.pt")):
+        if not os.path.isfile(os.path.join(savedir, name)):
+            raise AssertionError(f"bi{cell} training wrote no {name}")
+    feats = read_ark(os.path.join(ws["test_featdir"], "feats.scp"))
+    likes = read_ark(os.path.join(savedir, "decode", "feats.scp"))
+    if list(likes) != list(feats):
+        raise AssertionError(f"bi{cell} test_nnet: the likelihood ark does not cover the test set")
+    for utt, m in likes.items():
+        if m.shape != (feats[utt].shape[0], NUM_PDFS) or not np.isfinite(m).all():
+            raise AssertionError(f"bi{cell} test_nnet {utt}: likelihoods shape {m.shape} or non-finite")
+    return launches, cfg_path, savedir
+
+
+def check_rnn_step(card: str, cell: str, cfg_path: str, savedir: str, ws: dict) -> None:
+    """The recurrent model's outputs with the kernels against the plain
+    versions, on the card:
+
+    - the likelihood ark ``test_nnet`` wrote (``final.pt``, kernel 4 or 6)
+      against the plain versions' decode of the same weights; in bf16 the
+      yardstick is the plain version run with an f32 compute dtype: the
+      kernels' ark must lie within RNN_BF16_RATIO of the plain bf16 ark's
+      distance from it (see check_rnn_kernels); in f32 within LIKE_TOL;
+    - one full-width training step from the step-2 checkpoint on the first
+      training batch, with the same dropout masks: every gradient by the
+      same rule, and the loss within RNN_LOSS_TOL (relative) of the plain
+      version's.
+
+    Then the step is timed by parts (CUDA events)."""
+    import dataclasses
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.convert import load_checkpoint
+    from tfkaldi_tpu_torch.data.batching import DeviceBatcher
+    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
+    from tfkaldi_tpu_torch.decode.decoder import Decoder
+    from tfkaldi_tpu_torch.io import ArkWriter
+    from tfkaldi_tpu_torch.models import RNNConfig, build_model
+    from tfkaldi_tpu_torch.layers import product
+    from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
+    from tfkaldi_tpu_torch.train import checkpoint as ckpt
+    from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    c = _rnn_cell(cell)
+    config = ConfigParser()
+    config.read(cfg_path)
+    conf = dict(config.items("nnet"))
+    context = int(conf["context_width"])
+    input_dim = 40 * (2 * context + 1)
+    rcfg = RNNConfig.from_config(conf, input_dim, NUM_PDFS)
+    rcfg32 = dataclasses.replace(rcfg, compute_dtype=torch.float32)
+    bf16 = rcfg.compute_dtype == torch.bfloat16
+
+    # ---- the likelihood ark of test_nnet against the plain versions ----
+    prior = np.load(os.path.join(savedir, "prior.npy"))
+    final = load_checkpoint(savedir)
+    featdir = ws["test_featdir"]
+
+    def decode(cfg, tag):
+        model = build_model(cfg)
+        model.load_state_dict(final)
+        model.to("cuda")
+        reader = FeatureReader(os.path.join(featdir, "feats.scp"), os.path.join(featdir, "cmvn.scp"),
+                               os.path.join(featdir, "utt2spk"), context, 0)
+        scp = os.path.join(TRAIN_WORK, f"plain_{cell}_{tag}", "feats.scp")
+        with plain_versions(), ArkWriter(scp, os.path.join(os.path.dirname(scp), "likes.ark")) as w:
+            Decoder(model, prior).decode_to_writer(reader, w, batch_size=int(conf.get("decode_batch_size", 16)))
+        reader.close()
+        return read_ark(scp)
+
+    def dist(a, b):
+        return max(float(np.abs(a[u] - b[u]).max()) for u in b)
+
+    likes = read_ark(os.path.join(savedir, "decode", "feats.scp"))
+    plain = decode(rcfg, "cd")
+    d_kp = dist(likes, plain)
+    if bf16:
+        ref32 = decode(rcfg32, "f32")
+        d_k, d_p = dist(likes, ref32), dist(plain, ref32)
+        log(f"bi{cell} likelihoods ({len(likes)} utterances), max|diff| from the plain f32-compute decode: "
+            f"kernels {d_k!r}, plain bf16 {d_p!r} (within {RNN_BF16_RATIO}x + {RNN_F32_TOL}); kernels vs plain bf16 {d_kp!r}")
+        ok = bf16_close(d_k, d_p)
+    else:
+        log(f"bi{cell} likelihoods ({len(likes)} utterances), kernels vs plain max|diff| {d_kp!r} (tol {LIKE_TOL})")
+        ok = d_kp <= LIKE_TOL
+    if not ok:
+        raise AssertionError(f"bi{cell} likelihoods differ from the plain versions beyond tolerance")
+
+    # ---- one training step, kernels vs plain versions ----
+    featdir = ws["train_featdir"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+                           os.path.join(featdir, "utt2spk"), context, max_length)
+    ali = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali", "pdf.all.gz")
+    dispenser = AlignmentBatchDispenser(reader, AlignmentCoder(identity_normalizer, NUM_PDFS),
+                                        int(conf["batch_size"]), ali)
+    for _ in range(int(conf["valid_batches"])):  # past the validation carve
+        dispenser.skip_batch()
+    batch = dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
+    reader.close()
+    t_pad, b = batch.inputs.shape[1], batch.inputs.shape[0]
+    path = os.path.join(savedir, "training", "step2.pt")
+    trainer = Trainer(rcfg, TrainerConfig(num_steps=6), device="cuda")
+    trainer32 = Trainer(rcfg32, TrainerConfig(num_steps=6), device="cuda")
+    state = ckpt.restore_state(path, trainer.init_state(0))
+    state32 = ckpt.restore_state(path, trainer32.init_state(0))
+
+    def gradients(tr, st, plain_path):
+        s = ckpt.device_snapshot(st)
+        with plain_versions() if plain_path else contextlib.nullcontext():
+            grads, loss, frames = tr.gradients(s, batch, tr.dropout_generator(s))  # the same masks each time
+        return grads, loss.item(), frames.item()
+
+    before = c.bwd_launches
+    g_k, loss_k, frames = gradients(trainer, state, False)
+    if c.bwd_launches != before + RNN_LAYERS * t_pad:
+        raise AssertionError(f"the kernel side of the step did not launch {cell}_bwd once per step of each layer")
+    g_p, loss_p, _ = gradients(trainer, state, True)
+    g_32, loss_32, _ = gradients(trainer32, state32, True) if bf16 else (g_p, loss_p, None)
+    torch.cuda.synchronize()
+
+    def rel(a, ref):
+        return ((a - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+
+    e_kp = {n: rel(g_k[n], g_p[n]) for n in g_p}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if bf16:
+        e_k = {n: rel(g_k[n], g_32[n]) for n in g_32}
+        e_p = {n: rel(g_p[n], g_32[n]) for n in g_32}
+        bad = [n for n in e_k if not bf16_close(e_k[n], e_p[n])]
+        log(f"bi{cell} one step at [{b}x{t_pad}, {input_dim}] from the step-2 checkpoint: loss kernels {loss_k!r}, "
+            f"plain {loss_p!r} (rel {loss_rel!r}, tol {RNN_LOSS_TOL}), plain f32 compute {loss_32!r}; gradients "
+            f"max|diff|/max|ref| from the plain f32-compute step: kernels {e_k!r}, plain bf16 {e_p!r} (within "
+            f"{RNN_BF16_RATIO}x + {RNN_F32_TOL}); kernels vs plain bf16 {e_kp!r}")
+    else:
+        bad = [n for n in e_kp if not e_kp[n] <= RNN_F32_TOL]
+        log(f"bi{cell} one step at [{b}x{t_pad}, {input_dim}]: loss rel {loss_rel!r}, gradients kernels vs plain "
+            f"{e_kp!r} (tol {RNN_F32_TOL})")
+    if bad or not loss_rel <= RNN_LOSS_TOL:
+        raise AssertionError(f"bi{cell} step: loss rel {loss_rel}, gradients outside tolerance: {bad}")
+    del g_k, g_p, g_32, state32, trainer32
+
+    # ---- where a step's time goes (CUDA events, 3 calls after 3 warm-ups) ----
+    s = ckpt.device_snapshot(state)
+    step_ms = ms_per_call(lambda: trainer.update(s, batch), iters=3)
+    grad_ms = ms_per_call(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)), iters=3)
+    fwd_ms = ms_per_call(lambda: trainer.loss_sum(s.model, batch, train=True,
+                                                  generator=trainer.dropout_generator(s)), iters=3)
+    cd, h, gates = rcfg.compute_dtype, rcfg.hidden_units, c.gates
+    n = b * t_pad
+    x0, x1 = torch.randn(n, input_dim, device="cuda"), torch.randn(n, 2 * h, device="cuda")
+    wx0, wx1 = torch.randn(input_dim, gates * h, device="cuda"), torch.randn(2 * h, gates * h, device="cuda")
+    dg = torch.randn(n, gates * h, device="cuda")
+    wout, dlogits = torch.randn(2 * h, NUM_PDFS, device="cuda"), torch.randn(n, NUM_PDFS, device="cuda")
+    # the input projections of both directions of both layers, forward (x @ wx)
+    # and the backward's input gradient of layer 1 (dg @ wx^T)
+    proj_ms = 2 * (ms_per_call(lambda: product(x0, wx0, cd), iters=5)
+                   + ms_per_call(lambda: product(x1, wx1, cd), iters=5)
+                   + ms_per_call(lambda: product(dg, wx1.t(), cd), iters=5))
+    mask = (torch.arange(t_pad, device="cuda")[:, None] < batch.input_lengths.cuda()[None, :])[:, :, None].float()
+    gxs = [dg.reshape(t_pad, b, gates * h).contiguous() for _ in range(2)]
+    whs_cd = [torch.randn(h, gates * h, device="cuda").div(h ** 0.5).to(cd) for _ in range(2)]
+    dys = [torch.randn(t_pad, b, h, device="cuda") for _ in range(2)]
+    outs = c.fwd(gxs, whs_cd, mask, residuals=True)
+    res = [r for _, r in outs]
+    k_fwd_ms = RNN_LAYERS * ms_per_call(lambda: c.fwd(gxs, whs_cd, mask, residuals=True), iters=3)
+    k_bwd_ms = RNN_LAYERS * ms_per_call(lambda: c.bwd(dys, res, mask, whs_cd), iters=3)
+    dgx3 = dg.reshape(t_pad, b, gates * h)
+    # dW_h, dW_x of both directions of both layers and the output layer's dW
+    wgrad_ms = (2 * RNN_LAYERS * ms_per_call(lambda: weight_grad(res[0][2], dgx3, cd), iters=5)
+                + 2 * ms_per_call(lambda: product(x0.t(), dg, cd), iters=5)
+                + 2 * ms_per_call(lambda: product(x1.t(), dg, cd), iters=5)
+                + ms_per_call(lambda: product(x1.t(), dlogits, cd), iters=5))
+    # the output layer's forward and input gradient
+    out_ms = (ms_per_call(lambda: product(x1, wout, cd), iters=5)
+              + ms_per_call(lambda: product(dlogits, wout.t(), cd), iters=5))
+    rest = grad_ms - proj_ms - k_fwd_ms - k_bwd_ms - wgrad_ms - out_ms
+    log(f"bi{cell} train step at [{b}x{t_pad}] ({int(frames)} real frames): update {step_ms!r} ms "
+        f"({frames / step_ms * 1e3!r} frames/s), of which forward {fwd_ms!r} ms; by parts: input projections "
+        f"{proj_ms!r} ms, kernel {cell}_fwd {k_fwd_ms!r} ms ({RNN_LAYERS} layers), kernel {cell}_bwd "
+        f"{k_bwd_ms!r} ms, wgrads (dW_h, dW_x, output dW) {wgrad_ms!r} ms, output layer (forward, input "
+        f"gradient) {out_ms!r} ms, rest (CE, dropout, casts, concat, bias sums) {rest!r} ms, Adam "
+        f"{step_ms - grad_ms!r} ms [{card}]")
+
+
 def read_ark(scp: str) -> dict:
     from tfkaldi_tpu_torch.io import ArkReader
 
@@ -517,6 +1010,7 @@ def main() -> int:
     ffn = check_ffn(card)
     framing = check_framing(card)
     bn, bn_dz_only_ms = check_bn_dgrad(card)
+    rnn_rows = {cell: check_rnn_kernels(card, cell) for cell in ("lstm", "gru")}
     log(f"phase kernels vs plain: {time.perf_counter() - t0!r} s")
 
     # ---- served path at full width ----
@@ -643,6 +1137,15 @@ def main() -> int:
     check_train_step(card, train_ws, bn["ms"], bn_dz_only_ms)
     log(f"phase training path: {time.perf_counter() - t0!r} s")
 
+    # ---- the BiLSTM and BiGRU hybrid paths at full width ----
+    rnn_launches = {}
+    for cell in ("lstm", "gru"):
+        t0 = time.perf_counter()
+        cell_launches, cell_cfg, cell_savedir = rnn_train_path(card, cell, train_ws)
+        check_rnn_step(card, cell, cell_cfg, cell_savedir, train_ws)
+        rnn_launches.update(cell_launches)
+        log(f"phase bi{cell} path: {time.perf_counter() - t0!r} s")
+
     # launches: the served path's and the training path's runs together
     total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
     kernels = [
@@ -653,6 +1156,12 @@ def main() -> int:
         dict(name="bn_dgrad", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
              replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=total["bn_dgrad"], **bn),
     ]
+    for cell, kernel_file, lines in (("lstm", "pallas_lstm.py", (103, 255)), ("gru", "pallas_gru.py", (71, 212))):
+        for part, line in zip(("fwd", "bwd"), lines):
+            kernels.append(dict(
+                name=f"{cell}_{part}", route="cuda", source=f"tfkaldi_tpu_torch/ops/csrc/{cell}_bidi.cu",
+                replaces=f"tfkaldi_tpu/ops/{kernel_file}:{line}", launches=rnn_launches[f"{cell}_{part}"],
+                **rnn_rows[cell][part]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,0 +1,138 @@
+"""Kernels 4-7 (``ops/csrc/lstm_bidi.cu``, ``ops/csrc/gru_bidi.cu``) on the
+card, against their plain versions.
+
+Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
+skips (inside the ``cuda`` fixture) when ``torch.cuda.is_available()`` is
+false. The file imports no JAX:
+
+    python -m pytest tests/test_torch_cuda_rnn.py --noconftest -q -m cuda
+
+Tolerances: f32 1e-5 of max|ref| (the kernels and the plain versions
+differ only in the summation order of the recurrent products). bf16: the
+distance of the kernels' result from the plain version run in f32 within
+2x of the plain bf16 version's own distance from it (one bf16 rounding of
+``h`` or of the gate cotangents may land a step apart and travel on), and,
+against the plain version run in f32 on the bf16-rounded weights, at least
+half of the plain bf16 version's distance: a kernel that skipped the
+rounding of ``h`` or of the gate cotangents before its products would sit
+near zero there (the rules of chip_smoke.py::check_rnn_kernels).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tfkaldi_tpu_torch.ops import gru_bidi, lstm_bidi
+from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
+
+pytestmark = pytest.mark.cuda
+
+CELLS = {"lstm": lstm_bidi.CELL, "gru": gru_bidi.CELL}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from tfkaldi_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+def _case(gates, t, b, h, dirs, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(max(1, t * 2 // 5), t + 1, (b,), generator=g)
+    lengths[0] = t
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[:, :, None]
+    gxs = [torch.randn(t, b, gates * h, generator=g) for _ in range(dirs)]
+    for gx in gxs:
+        gx[mask[:, :, 0] == 0] = 7.7
+    whs = [torch.randn(h, gates * h, generator=g) / h ** 0.5 for _ in range(dirs)]
+    dys = [torch.randn(t, b, h, generator=g) for _ in range(dirs)]
+    return [x.to(device) for x in gxs], [w.to(device) for w in whs], mask.to(device), [d.to(device) for d in dys]
+
+
+def _chain(cell, gxs, whs, mask, dys, cd, kernel):
+    c = CELLS[cell]
+    whs_cd = [w.to(cd) for w in whs]
+    outs = (c.fwd if kernel else c.fwd_ref)(gxs, whs_cd, mask, residuals=True)
+    res = [r for _, r in outs]
+    grads = (c.bwd if kernel else c.bwd_ref)(dys, res, mask, whs_cd)
+    flat = {"ys": [y for y, _ in outs]}
+    for i in range(len(res[0])):
+        flat[f"res{i}"] = [r[i] for r in res]
+    flat["dgx"] = [g for g, _ in grads]
+    flat["dg_w"] = [g for _, g in grads]
+    flat["dW_h"] = [weight_grad(r[2], g, cd) for r, (_, g) in zip(res, grads)]
+    return flat
+
+
+def _rel(a, b):
+    return max(((x.float() - y.float()).abs().max() / y.float().abs().max().clamp(min=1e-30)).item()
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("t,b,h,dirs", [(16, 8, 128, 2), (7, 5, 33, 2), (9, 37, 70, 1), (512, 128, 512, 2)])
+def test_kernels_match_plain(cuda, cell, t, b, h, dirs):
+    c = CELLS[cell]
+    gxs, whs, mask, dys = _case(c.gates, t, b, h, dirs, cuda, seed=t + b + h)
+    ref32 = _chain(cell, gxs, whs, mask, dys, torch.float32, kernel=False)
+    before = c.fwd_launches, c.bwd_launches
+    got32 = _chain(cell, gxs, whs, mask, dys, torch.float32, kernel=True)
+    torch.cuda.synchronize()
+    assert (c.fwd_launches, c.bwd_launches) == (before[0] + t, before[1] + t)  # one launch per step
+    for name in ref32:
+        assert _rel(got32[name], ref32[name]) <= 1e-5, name
+    got = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=True)
+    plain = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=False)
+    # the same bf16 weights in f32: only the roundings of h and dgates are missing
+    unrounded = _chain(cell, gxs, [w.bfloat16().float() for w in whs], mask, dys, torch.float32, kernel=False)
+    torch.cuda.synchronize()
+    for name in ref32:
+        mine, theirs = _rel(got[name], ref32[name]), _rel(plain[name], ref32[name])
+        assert mine <= 2.0 * theirs + 1e-5, (name, mine, theirs)
+        mine, theirs = _rel(got[name], unrounded[name]), _rel(plain[name], unrounded[name])
+        assert mine >= theirs / 2.0 - 1e-5, (name, mine, theirs)
+    for ys in got["ys"]:
+        assert torch.all(ys[mask[:, :, 0] == 0] == 0)  # the padding emits zeros, garbage or not
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_autograd_on_card_matches_cpu(cuda, cell):
+    """``lstm_scan_bidi``/``gru_scan_bidi`` on the card (kernels) and on the
+    CPU (plain versions): values and all four gradients, f32."""
+    fn = lstm_bidi.lstm_scan_bidi if cell == "lstm" else gru_bidi.gru_scan_bidi
+    gxs, whs, mask, dys = _case(CELLS[cell].gates, 24, 16, 64, 2, "cpu", seed=3)
+    results = []
+    for device in ("cpu", cuda):
+        args = [x.detach().to(device).requires_grad_() for x in (*gxs, *whs)]
+        ysf, ysb = fn(*args, mask.to(device), torch.float32)
+        ((ysf * dys[0].to(device)).sum() + (ysb * dys[1].to(device)).sum()).backward()
+        results.append([y.detach().cpu() for y in (ysf, ysb)] + [a.grad.cpu() for a in args])
+    for i, (a, b) in enumerate(zip(*results)):
+        assert _rel([b], [a]) <= 1e-5, i
+
+
+def test_model_on_card_matches_cpu(cuda):
+    """A BiLSTM's eval logits on the card (kernel 4) and on the CPU."""
+    from tfkaldi_tpu_torch.models import RNNConfig, build_model
+
+    model = build_model(RNNConfig(input_dim=20, num_labels=9, num_layers=2, hidden_units=64, bidirectional=True))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.out.w.normal_(0, 0.3)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 30, 20)).astype(np.float32))
+    lengths = torch.tensor([30, 12, 29, 5])
+    with torch.inference_mode():
+        want = model(x, lengths)
+        got = model.to(cuda)(x.to(cuda), lengths).cpu()
+    assert _rel([got], [want]) <= 1e-5
+
+
+def test_kernels_reject_mixed_dtypes(cuda):
+    gxs, whs, mask, _ = _case(4, 4, 2, 8, 2, cuda, seed=0)
+    with pytest.raises(ValueError):
+        lstm_bidi.CELL.fwd(gxs, [whs[0].bfloat16(), whs[1]], mask)
+    with pytest.raises(ValueError):
+        lstm_bidi.CELL.fwd([gxs[0].double(), gxs[1]], whs, mask)

@@ -1,10 +1,11 @@
-"""Pipeline entry point of the port: features, DNN training, likelihoods.
+"""Pipeline entry point of the port: features, model training, likelihoods.
 
-Port of :mod:`tfkaldi_tpu.cli.main` for the hybrid recipe on one device.
-It runs the four feature steps, ``train_nnet`` (shuffle the training scp,
-merge the parent GMM's pdf alignments, train the DNN → ``<expdir>/<nnet
-name>/final.pt`` and ``prior.npy``) and ``test_nnet`` (CMVN + splice + DNN
-+ softmax ÷ prior → ``<expdir>/<nnet name>/decode/likelihoods.ark`` with
+Port of :mod:`tfkaldi_tpu.cli.main` for the hybrid recipe on one device,
+with ``model = dnn``, ``lstm`` or ``gru`` in ``[nnet]``. It runs the four
+feature steps, ``train_nnet`` (shuffle the training scp, merge the parent
+GMM's pdf alignments, train the model → ``<expdir>/<nnet
+name>/final.pt`` and ``prior.npy``) and ``test_nnet`` (CMVN + splice +
+model + softmax ÷ prior → ``<expdir>/<nnet name>/decode/likelihoods.ark`` with
 its ``feats.scp``). The GMM steps are not ported yet and raise; ``python
 -m tfkaldi_tpu.cli.main`` runs them. The WFST decode and WER scoring that
 follow the likelihoods in the JAX pipeline run in external Kaldi on the

@@ -2,10 +2,12 @@
 
 :func:`dnn_from_jax` maps the JAX DNN pytree (models/dnn.py:95-128,
 ``params`` and ``state`` given as numpy arrays) to the ``state_dict`` of
-:class:`tfkaldi_tpu_torch.models.DNN`; the layouts are the same, so the
-arrays are copied as they are. :func:`train_state_from_jax` maps a whole
-JAX ``TrainState`` (its leaves as numpy) onto the port's
-:class:`~tfkaldi_tpu_torch.train.trainer.TrainState`. The port's decode
+:class:`tfkaldi_tpu_torch.models.DNN`, and :func:`rnn_from_jax` the JAX
+LSTM/GRU pytree (models/rnn.py:100-133) to that of
+:class:`~tfkaldi_tpu_torch.models.LSTM` or ``GRU``; the layouts are the
+same, so the arrays are copied as they are. :func:`train_state_from_jax`
+maps a whole JAX ``TrainState`` (its leaves as numpy) of either family onto
+the port's :class:`~tfkaldi_tpu_torch.train.trainer.TrainState`. The port's decode
 checkpoint is ``<savedir>/final.pt``, beside the JAX package's Orbax
 ``final/``; Orbax checkpoints are not read (``orbax`` imports JAX).
 """
@@ -38,14 +40,26 @@ def dnn_from_jax(params, state) -> dict[str, torch.Tensor]:
     return sd
 
 
+def rnn_from_jax(params) -> dict[str, torch.Tensor]:
+    """JAX LSTM/GRU ``params`` → ``state_dict``.
+
+    ``params``: ``{"layers": [[{"wx", "wh", "b"}] × directions] × layers,
+    "out": {"w", "b"}}`` (the model has no state)."""
+    return _param_dict(params)
+
+
 def _param_dict(tree) -> dict[str, torch.Tensor]:
-    """A params-shaped pytree (params, Adam ``m`` or ``v``) → the port's
-    parameter names."""
+    """A params-shaped pytree (params, Adam ``m`` or ``v``) of the DNN
+    (``hidden``) or of an RNN (``layers``) → the port's parameter names."""
     out: dict[str, torch.Tensor] = {}
-    for l, layer in enumerate(tree["hidden"]):
+    for l, layer in enumerate(tree.get("hidden", ())):
         for name in ("w", "b", "beta"):
             if name in layer:
                 out[f"hidden.{l}.{name}"] = _tensor(np.asarray(layer[name], np.float32))
+    for l, dirs in enumerate(tree.get("layers", ())):
+        for d, direction in enumerate(dirs):
+            for name in ("wx", "wh", "b"):
+                out[f"layers.{l}.{d}.{name}"] = _tensor(np.asarray(direction[name], np.float32))
     for name in ("w", "b"):
         out[f"out.{name}"] = _tensor(np.asarray(tree["out"][name], np.float32))
     return out
@@ -55,14 +69,17 @@ def train_state_from_jax(state, config, *, seed: int = 0, device: str | torch.de
     """A JAX ``TrainState`` (any object with the attributes ``params``,
     ``model_state``, ``adam_m``, ``adam_v``, ``adam_t``, ``step`` and
     ``lr_fact``, leaves as numpy arrays; train/trainer.py:63-80) → the
-    port's ``TrainState`` for a ``DNNConfig`` on ``device``. The threefry
-    dropout key does not carry over: the port's dropout stream is seeded
-    from ``seed``."""
-    from tfkaldi_tpu_torch.models.dnn import DNN
+    port's ``TrainState`` for a ``DNNConfig`` or an ``RNNConfig`` on
+    ``device``. The threefry dropout key does not carry over: the port's
+    dropout stream is seeded from ``seed``."""
+    from tfkaldi_tpu_torch.models import DNNConfig, build_model
     from tfkaldi_tpu_torch.train.trainer import TrainState
 
-    model = DNN(config)
-    model.load_state_dict(dnn_from_jax(state.params, state.model_state))
+    model = build_model(config)
+    if isinstance(config, DNNConfig):
+        model.load_state_dict(dnn_from_jax(state.params, state.model_state))
+    else:
+        model.load_state_dict(rnn_from_jax(state.params))
     model.to(device)
     return TrainState(
         step=int(np.asarray(state.step)),

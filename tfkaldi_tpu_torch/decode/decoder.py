@@ -1,9 +1,10 @@
 """Prior-normalized pseudo-likelihood emission.
 
 Port of :class:`tfkaldi_tpu.decode.decoder.Decoder`. Utterances are packed
-into padded batches; per batch the DNN forward, softmax, ÷prior, ε-floor
-and log run on the device, and the real rows are written to a Kaldi ark
-for ``latgen-faster-mapped``.
+into padded batches; per batch the model's eval forward (DNN, LSTM or
+GRU; the lengths freeze a recurrent model's carry past each utterance),
+softmax, ÷prior, ε-floor and log run on the device, and the real rows are
+written to a Kaldi ark for ``latgen-faster-mapped``.
 
 The reference's ε floor is a no-op bug (``np.where(...)`` result discarded,
 nnet.py:283), so its log can emit -inf; the floor is applied for real, as
@@ -14,11 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.streaming import pick_stream
 from tfkaldi_tpu_torch.io import ArkWriter
-from tfkaldi_tpu_torch.models.dnn import DNN
 
 _EPS = float(np.finfo(np.float64).eps)
 
@@ -27,7 +28,7 @@ class Decoder:
     """Batched posterior → log pseudo-likelihood computer on the model's
     device."""
 
-    def __init__(self, model: DNN, prior: np.ndarray):
+    def __init__(self, model: nn.Module, prior: np.ndarray):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.prior = torch.as_tensor(np.asarray(prior, np.float32), device=self.device)

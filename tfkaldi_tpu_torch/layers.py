@@ -1,11 +1,13 @@
-"""The DNN's per-layer arithmetic in the training forward.
+"""The models' per-layer arithmetic.
 
 Shared by :mod:`tfkaldi_tpu_torch.models.dnn` (its unfused chains and the
 eval fallback) and :class:`tfkaldi_tpu_torch.ops.bn_fused_bwd.BnReluLayer`
 (whose forward must be the same ops in the same order, so that the fused
-and the unfused layer agree to the bit). The ops are those of the JAX
-package's ``models/dnn.py`` ``_affine`` and ``ops/bn_fused_bwd.py``
-``_forward``.
+and the unfused layer agree to the bit), and, for :func:`product`, by the
+recurrent models and the plain scans. The ops are those of the JAX
+package's ``models/dnn.py`` ``_affine``, ``ops/bn_fused_bwd.py``
+``_forward`` and the ``preferred_element_type=float32`` products of
+``models/rnn.py`` and ``ops/{lstm,gru}_scan.py``.
 """
 
 from __future__ import annotations
@@ -13,13 +15,18 @@ from __future__ import annotations
 import torch
 
 
+def product(a, b, compute_dtype):
+    """``a @ b`` with operands rounded to ``compute_dtype``, f32 accumulation
+    and an f32 result: bf16 operands widen exactly, so this is the JAX
+    package's ``preferred_element_type=float32`` product, where
+    ``torch.matmul`` on bf16 would return bf16."""
+    return torch.matmul(a.to(compute_dtype).float(), b.to(compute_dtype).float())
+
+
 def affine(h, w, b, compute_dtype):
-    """``h @ w + b``: operands in ``compute_dtype``, f32 accumulation and
-    f32 bias add, stored in ``compute_dtype`` (bf16 operands widen exactly,
-    so the product is the JAX package's ``preferred_element_type=float32``
-    one)."""
-    y = torch.matmul(h.to(compute_dtype).float(), w.to(compute_dtype).float())
-    return (y + b.float()).to(compute_dtype)
+    """``h @ w + b``: :func:`product`, then an f32 bias add, stored in
+    ``compute_dtype``."""
+    return (product(h, w, compute_dtype) + b.float()).to(compute_dtype)
 
 
 def masked_moments(zf, mask):

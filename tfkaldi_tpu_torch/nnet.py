@@ -1,8 +1,10 @@
-"""Nnet facade of the port: config → DNN → training and likelihood emission.
+"""Nnet facade of the port: config → model → training and likelihood emission.
 
-Port of :class:`tfkaldi_tpu.nnet.Nnet` for the hybrid recipe (``model =
-dnn``, ``loss = cross_entropy``; config_AURORA4.cfg ``[nnet]``) on one
-device. :meth:`Nnet.train` runs the training controller, which writes
+Port of :class:`tfkaldi_tpu.nnet.Nnet` for the hybrid recipe's frame
+cross-entropy (``loss = cross_entropy``) on one device, with the model
+selector of tfkaldi_tpu/nnet.py:95-141 for ``model = dnn``
+(config_AURORA4.cfg ``[nnet]``), ``lstm`` and ``gru`` (uni- or
+bidirectional); the other families raise ``NotImplementedError``. :meth:`Nnet.train` runs the training controller, which writes
 ``<savedir>/final.pt`` and ``<savedir>/prior.npy``; :meth:`Nnet.decode`
 reads them back (:mod:`tfkaldi_tpu_torch.convert`).
 """
@@ -21,15 +23,22 @@ from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.decoder import Decoder
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.io import ArkWriter
-from tfkaldi_tpu_torch.models.dnn import DNN, DNNConfig
+from tfkaldi_tpu_torch.models import DNNConfig, RNNConfig, build_model
 from tfkaldi_tpu_torch.train import NnetTrainOptions, Trainer, TrainerConfig, TrainingController
 from tfkaldi_tpu_torch.utils import MetricsLogger
 
 log = logging.getLogger(__name__)
 
+# families of the JAX package not in the port yet, and their ROADMAP slice
+_UNPORTED = {
+    "tdnn": "slice 3, item 9", "cnn": "slice 3, item 9", "transformer": "slice 4",
+    "conformer": "slice 4", "transducer": "slice 5", "seq2seq": "slice 6",
+}
+
 
 class Nnet:
-    """The hybrid DNN, configured from the ``[nnet]`` section."""
+    """The acoustic model (DNN, LSTM or GRU), configured from the ``[nnet]``
+    section."""
 
     def __init__(self, conf, input_dim: int, num_labels: int, *, device: str | torch.device = "cuda"):
         """Args:
@@ -52,12 +61,20 @@ class Nnet:
                 f"loss = {self.loss_type} is not in the port yet (ROADMAP.md, queue 1, "
                 "slices 4-6); use tfkaldi_tpu.nnet.Nnet"
             )
-        if model_type != "dnn":
+        if model_type in _UNPORTED:
             raise NotImplementedError(
                 f"model = {model_type} is not in the port yet (ROADMAP.md, queue 1, "
-                "slices 3-6); use tfkaldi_tpu.nnet.Nnet"
+                f"{_UNPORTED[model_type]}); use tfkaldi_tpu.nnet.Nnet"
             )
-        self.model = DNN(DNNConfig.from_config(self.conf, self.input_dim, num_labels))
+        if model_type in ("lstm", "gru"):
+            if int(self.conf.get("add_layer_period", 0)) > 0:
+                raise ValueError("layerwise init (add_layer_period) requires model = dnn")
+            config = RNNConfig.from_config(self.conf, self.input_dim, num_labels)
+        elif model_type == "dnn":
+            config = DNNConfig.from_config(self.conf, self.input_dim, num_labels)
+        else:
+            raise ValueError(f"unknown model type {model_type!r}")
+        self.model = build_model(config)
 
     def _micro_batches(self, batch_size: int) -> int:
         """Map ``numutterances_per_minibatch`` (microbatch SIZE, -1 = whole

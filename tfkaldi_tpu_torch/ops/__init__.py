@@ -5,6 +5,17 @@ wrappers that run the plain PyTorch version on CPU tensors.
 - :mod:`tfkaldi_tpu_torch.ops.frame_preemph`: ``frame_preemph``
 - :mod:`tfkaldi_tpu_torch.ops.bn_fused_bwd`: ``bn_dgrad`` (the backward of
   ``BnReluLayer``)
+- :mod:`tfkaldi_tpu_torch.ops.lstm_bidi`: ``CELL.fwd``, ``CELL.bwd`` (both
+  directions of a (Bi)LSTM layer, one launch per time step, behind
+  ``lstm_scan_bidi``); the plain numerics in
+  :mod:`~tfkaldi_tpu_torch.ops.lstm_scan`
+- :mod:`tfkaldi_tpu_torch.ops.gru_bidi`: the same for the GRU, behind
+  ``gru_scan_bidi``; plain numerics in
+  :mod:`~tfkaldi_tpu_torch.ops.gru_scan`
+- :mod:`tfkaldi_tpu_torch.ops.rnn_bidi`: the wrappers, the autograd
+  Function and the launch both recurrences share
 
-Each module keeps its kernel's launch count in its ``launches`` global.
+Each of the first three modules keeps its kernel's launch count in a
+module global ``launches``; a recurrence keeps ``fwd_launches`` and
+``bwd_launches`` on its ``CELL``.
 """

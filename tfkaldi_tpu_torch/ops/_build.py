@@ -3,11 +3,14 @@
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
 ``nvcc -c`` per source, all run in parallel) and linked into one shared
 library with a plain C interface, written under
-``<checkout>/build/tfkaldi_tpu_torch/`` and named by a hash of the sources,
+``<checkout>/build/tfkaldi_tpu_torch/`` and named by a hash of the sources
+and of the headers they share (``ops/csrc/*.cuh``),
 so an edited kernel is rebuilt and a stale library is never loaded. The
 library is loaded with ``ctypes``; every pointer and the stream pass as
-``c_void_p``. Each C entry returns ``cudaGetLastError()`` after its launch,
-and :func:`check` raises on a non-zero code.
+``c_void_p``. Each C entry returns ``cudaGetLastError()`` after its launch
+(the recurrences: after the first launch that fails, of the one launch per
+time step their C entry makes), and :func:`check` raises on a non-zero
+code.
 
 A failed build raises: there is no fallback from a kernel to plain code.
 """
@@ -40,6 +43,11 @@ _SIGNATURES = {
     "tk_frame_preemph_f64": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_double, _P],
     "tk_bn_dgrad_f32": [_P] * 11 + [_I, _I, _I, _P],
     "tk_bn_dgrad_bf16": [_P] * 11 + [_I, _I, _I, _P],
+    # the recurrences: (pointer block, mask, dirs, T, B, H[, residuals], stream)
+    **{f"tk_{cell}_fwd_{dt}": [_P, _P, _I, _I, _I, _I, _I, _P]
+       for cell in ("lstm", "gru") for dt in ("f32", "bf16")},
+    **{f"tk_{cell}_bwd_{dt}": [_P, _P, _I, _I, _I, _I, _P]
+       for cell in ("lstm", "gru") for dt in ("f32", "bf16")},
 }
 
 _lock = threading.Lock()
@@ -67,7 +75,7 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     digest = hashlib.sha256()
-    for path in _sources():
+    for path in _sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     digest.update(" ".join(ARCH_FLAGS).encode())

@@ -1,0 +1,195 @@
+"""Both directions of a recurrence layer on the card: the parts kernels 4-7
+share.
+
+A :class:`Cell` names one recurrence (the LSTM in
+:mod:`tfkaldi_tpu_torch.ops.lstm_bidi`, the GRU in
+:mod:`tfkaldi_tpu_torch.ops.gru_bidi`) and carries its two kernel wrappers,
+their plain versions and their launch counts:
+
+- :meth:`Cell.fwd` launches ``tk_{name}_fwd_{f32,bf16}`` (one launch per
+  time step carrying both directions, ``csrc/{name}_bidi.cu``) on CUDA
+  tensors and runs :meth:`Cell.fwd_ref` on CPU tensors: one
+  ``scan.forward`` per direction, the second reversed;
+- :meth:`Cell.bwd` launches ``tk_{name}_bwd_*`` or runs :meth:`Cell.bwd_ref`
+  (one ``scan.backward_scan`` per direction, each shifting its own carry
+  stream, as the JAX package's custom VJPs do).
+
+:class:`BidiScan` is the ``torch.autograd.Function`` around them, with
+``dW_h = h_cdᵀ @ round_cd(dg)`` per direction as one ``torch.matmul``
+(``lstm_scan.weight_grad``), outside the kernel as in the JAX package.
+Without gradients (eval), :func:`run` takes the forward without residuals.
+A unidirectional layer passes one direction to the same kernels. There is
+no shape gate: the kernels mask their edges, so any T, B and H run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tfkaldi_tpu_torch.ops import _build
+from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
+
+_DT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_PTRS = 9  # pointers per direction, in the order of csrc/rnn_step.cuh FwdDir / BwdDir
+
+
+def _check(name, gxs, whs_cd, mask, gates: int) -> tuple[int, int, int]:
+    """Validate the operands a kernel takes; returns ``(T, B, H)``."""
+    if len(gxs) not in (1, 2) or len(whs_cd) != len(gxs):
+        raise ValueError(f"{name}: want 1 or 2 directions, got {len(gxs)} inputs and {len(whs_cd)} weights")
+    t, b, gh = gxs[0].shape
+    h = gh // gates
+    cd = whs_cd[0].dtype
+    if cd not in _DT:
+        raise TypeError(f"{name}: compute dtype {cd}; want float32 or bfloat16")
+    for gx, wh in zip(gxs, whs_cd):
+        if gx.shape != (t, b, gates * h) or gx.dtype != torch.float32 or gx.device.type != "cuda":
+            raise ValueError(f"{name}: inputs must be float32 [T, B, {gates}H] on one CUDA device")
+        if wh.shape != (h, gates * h) or wh.dtype != cd or wh.device != gx.device:
+            raise ValueError(f"{name}: weights must be [{h}, {gates * h}] {cd} on {gx.device}")
+    if mask.shape != (t, b, 1) or mask.device != gxs[0].device:
+        raise ValueError(f"{name}: mask must be [{t}, {b}, 1] on {gxs[0].device}")
+    return t, b, h
+
+
+def _launch(entry: str, blocks, mask, dirs: int, t: int, b: int, h: int, *extra: int) -> None:
+    """Call a recurrence entry of the kernel library on the current stream:
+    ``blocks`` holds ``_PTRS`` tensors (or None) per direction."""
+    tensors = [x for block in blocks for x in block]
+    assert len(tensors) == _PTRS * dirs
+    ptrs = (ctypes.c_void_p * len(tensors))(*(None if x is None else x.data_ptr() for x in tensors))
+    mask2d = mask[:, :, 0].to(torch.float32).contiguous()
+    lib = _build.load()
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, entry)(ctypes.addressof(ptrs), mask2d.data_ptr(), dirs, t, b, h, *extra, stream)
+    _build.check(code, entry)
+
+
+class Cell:
+    """One recurrence the kernels run.
+
+    ``name`` picks the library entries ``tk_{name}_{fwd,bwd}_{f32,bf16}``;
+    ``scan`` is the cell's plain module (``forward``, ``backward_scan``).
+    ``gh_n`` marks the GRU: its forward keeps the recurrent n projection as
+    a fourth residual and its backward emits ``dgh`` beside ``dgx``, where
+    the LSTM carries a cell state ``c`` instead and its weight gradient
+    contracts ``dgx`` itself. Residuals per direction: ``(acts, state,
+    h_cds)`` plus ``gh_n`` for the GRU, ``state`` being ``cs`` (LSTM) or
+    ``hs`` (GRU). ``fwd_launches`` and ``bwd_launches`` count the kernels'
+    launches (one per time step) since the last reset."""
+
+    def __init__(self, name: str, gates: int, scan, *, gh_n: bool):
+        self.name, self.gates, self.scan, self.gh_n = name, gates, scan, gh_n
+        self.fwd_launches = 0
+        self.bwd_launches = 0
+
+    def fwd_ref(self, gxs, whs_cd, mask, *, residuals: bool = True):
+        """Plain version of the forward kernel: ``[(ys, residuals or None),
+        ...]`` per direction (direction 1 runs reversed)."""
+        outs = []
+        for k, (gx, wh) in enumerate(zip(gxs, whs_cd)):
+            ys, *res = self.scan.forward(gx, wh, mask, reverse=k == 1)
+            outs.append((ys, tuple(res) if residuals else None))
+        return outs
+
+    def fwd(self, gxs, whs_cd, mask, *, residuals: bool = True):
+        """The forward kernel on CUDA tensors, :meth:`fwd_ref` on CPU
+        tensors. ``gxs``: 1 or 2 ``[T, B, G·H]`` f32; ``whs_cd``: ``[H,
+        G·H]`` in the compute dtype; ``mask [T, B, 1]`` f32 0/1."""
+        if gxs[0].device.type == "cpu":
+            return self.fwd_ref(gxs, whs_cd, mask, residuals=residuals)
+        t, b, h = _check(f"{self.name}_fwd", gxs, whs_cd, mask, self.gates)
+        cd = whs_cd[0].dtype
+        dev = gxs[0].device
+        outs, blocks = [], []
+        for gx, wh in zip(gxs, whs_cd):
+            ys = torch.empty(t, b, h, device=dev)
+            res = None
+            if residuals:
+                res = (torch.empty(t, b, self.gates * h, device=dev), torch.empty(t, b, h, device=dev),
+                       torch.empty(t, b, h, dtype=cd, device=dev))
+                res += (torch.empty(t, b, h, device=dev),) if self.gh_n else ()
+            acts, state, h_cds, ghns = (*res, None)[:4] if residuals else (None,) * 4
+            carry_c = None if self.gh_n else torch.zeros(b, h, device=dev)
+            blocks.append((gx.contiguous(), wh.contiguous(), ys, acts, state, h_cds, ghns,
+                           torch.zeros(2, b, h, device=dev), carry_c))
+            outs.append((ys, res))
+        _launch(f"tk_{self.name}_fwd_{_DT[cd]}", blocks, mask, len(gxs), t, b, h, int(residuals))
+        self.fwd_launches += t
+        return outs
+
+    def bwd_ref(self, dys, residuals, mask, whs_cd):
+        """Plain version of the backward kernel: ``[(dgx, dg_w), ...]`` per
+        direction, ``dg_w`` the operand of the weight gradient (``dgh`` for
+        the GRU, ``dgx`` itself for the LSTM)."""
+        out = []
+        for k, (dy, (acts, state, _, *ghn), wh) in enumerate(zip(dys, residuals, whs_cd)):
+            grads = self.scan.backward_scan(dy, acts, state, *ghn, mask, wh, reverse=k == 1)
+            out.append(grads if self.gh_n else (grads, grads))
+        return out
+
+    def bwd(self, dys, residuals, mask, whs_cd):
+        """The backward kernel on CUDA tensors, :meth:`bwd_ref` on CPU
+        tensors."""
+        if dys[0].device.type == "cpu":
+            return self.bwd_ref(dys, residuals, mask, whs_cd)
+        t, b, h = _check(f"{self.name}_bwd", [r[0] for r in residuals], whs_cd, mask, self.gates)
+        cd = whs_cd[0].dtype
+        out, blocks = [], []
+        for dy, (acts, state, _, *ghn), wh in zip(dys, residuals, whs_cd):
+            for x in (dy, state, *ghn):
+                if x.shape != (t, b, h) or x.dtype != torch.float32:
+                    raise ValueError(f"{self.name}_bwd: dy and the [T, B, H] residuals must be float32 "
+                                     f"[{t}, {b}, {h}]")
+            dgx = torch.empty_like(acts)
+            dgh = torch.empty_like(acts) if self.gh_n else None
+            carry_dc = None if self.gh_n else torch.zeros(b, h, device=dy.device)
+            blocks.append((dy.contiguous(), acts.contiguous(), state.contiguous(),
+                           ghn[0].contiguous() if ghn else None, wh.contiguous(), dgx, dgh,
+                           torch.zeros(b, h, device=dy.device), carry_dc))
+            out.append((dgx, dgx if dgh is None else dgh))
+        _launch(f"tk_{self.name}_bwd_{_DT[cd]}", blocks, mask, len(dys), t, b, h)
+        self.bwd_launches += t
+        return out
+
+
+class BidiScan(torch.autograd.Function):
+    """``(cell, compute_dtype, mask, *gxs, *whs)`` → one ``ys [T, B, H]``
+    per direction. ``whs`` are the f32 master weights, rounded to the
+    compute dtype here; their gradients come back f32."""
+
+    @staticmethod
+    def forward(ctx, cell, compute_dtype, mask, *gx_wh):
+        n = len(gx_wh) // 2
+        gxs, whs = gx_wh[:n], gx_wh[n:]
+        whs_cd = [w.to(compute_dtype) for w in whs]
+        outs = cell.fwd(gxs, whs_cd, mask, residuals=True)
+        ctx.cell, ctx.n, ctx.n_res = cell, n, len(outs[0][1])
+        ctx.wh_dtypes = [w.dtype for w in whs]
+        ctx.save_for_backward(mask, *whs_cd, *(x for _, res in outs for x in res))
+        return tuple(ys for ys, _ in outs)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        mask, *saved = ctx.saved_tensors
+        n, k = ctx.n, ctx.n_res
+        whs_cd = saved[:n]
+        residuals = [tuple(saved[n + i * k: n + (i + 1) * k]) for i in range(n)]
+        grads = ctx.cell.bwd([dy.contiguous() for dy in dys], residuals, mask, whs_cd)
+        cd = whs_cd[0].dtype
+        # residuals[i][2] is h_cds for both cells
+        dwhs = [weight_grad(res[2], dg_w, cd).to(dtype)
+                for res, (_, dg_w), dtype in zip(residuals, grads, ctx.wh_dtypes)]
+        return (None, None, None, *(dgx for dgx, _ in grads), *dwhs)
+
+
+def run(cell: Cell, gxs, whs, mask, compute_dtype) -> list:
+    """One or two directions of a recurrence layer; the autograd Function
+    when a gradient is wanted, else the forward without residuals."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*gxs, *whs)):
+        return list(BidiScan.apply(cell, compute_dtype, mask, *gxs, *whs))
+    whs_cd = [w.to(compute_dtype) for w in whs]
+    return [ys for ys, _ in cell.fwd(gxs, whs_cd, mask, residuals=False)]

@@ -12,7 +12,10 @@ it at full width (:func:`make_workspace`); the tests use it at a small width.
 train and a test corpus, and the parent GMM's pdf alignment
 ``<expdir>/<gmm_name>/ali/pdf.all.gz`` with one label per frame that the
 feature step will produce (``1 + (n − 400) // 160`` frames for ``n``
-samples at 16 kHz, snip_edges).
+samples at 16 kHz, snip_edges). :func:`recurrent_nnet` gives the
+``[nnet]`` overrides that train the repo's BiLSTM (or a BiGRU of the same
+widths) on such a workspace under frame cross-entropy, and
+:func:`random_rnn_pytree` seeded LSTM/GRU weights in the JAX layout.
 """
 
 from __future__ import annotations
@@ -27,9 +30,12 @@ import scipy.io.wavfile
 from tfkaldi_tpu_torch.convert import dnn_from_jax, save_checkpoint
 
 RATE = 16000
-AURORA4_CONFIG = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config", "config_AURORA4.cfg"
-)
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config")
+AURORA4_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4.cfg")
+AURORA4_CTC_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4_ctc.cfg")
+# keys of the CTC recipe's [nnet] that belong to its text targets or its
+# experiment, not to the network
+_CTC_ONLY = ("name", "loss", "normalizer", "beam_width", "gmm_name")
 
 
 def make_wav_datadir(
@@ -129,6 +135,53 @@ def random_dnn_pytree(
         "bn_var": f32(rng.uniform(0.5, 2.0, (hidden_layers, hidden_units))),
     }
     return params, state
+
+
+def recurrent_nnet(cell: str = "lstm") -> dict:
+    """``[nnet]`` overrides for the repo's recurrent network under the
+    hybrid recipe's frame cross-entropy: the ``[nnet]`` of
+    ``config_AURORA4_ctc.cfg`` (2 x 512 bidirectional, ``context_width =
+    2``, bf16, batch 128, dropout 0.8) with its CTC-only keys dropped,
+    ``model = cell`` (lstm or gru) and the name ``bi{cell}_512_2_ce``. Laid
+    over ``config_AURORA4.cfg`` it keeps that recipe's ``gmm_name``, so it
+    trains on the parent GMM's pdf alignments."""
+    config = ConfigParser()
+    if not config.read(AURORA4_CTC_CONFIG):
+        raise FileNotFoundError(AURORA4_CTC_CONFIG)
+    nnet = {k: v for k, v in config.items("nnet") if k not in _CTC_ONLY}
+    nnet.update(model=cell, name=f"bi{cell}_512_2_ce")
+    return nnet
+
+
+def random_rnn_pytree(
+    input_dim: int, hidden_units: int, num_layers: int, num_labels: int, *,
+    gates: int, bidirectional: bool = True, seed: int,
+) -> dict:
+    """Seeded LSTM (``gates = 4``) or GRU (``gates = 3``) params in the JAX
+    package's pytree layout (as numpy): ``N(0, 1)/sqrt(fan_in)`` weights,
+    small biases and a non-zero output layer."""
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    directions = 2 if bidirectional else 1
+    layers = []
+    fan_in = input_dim
+    for _ in range(num_layers):
+        layers.append([{
+            "wx": f32(rng.standard_normal((fan_in, gates * hidden_units)) / np.sqrt(fan_in)),
+            "wh": f32(rng.standard_normal((hidden_units, gates * hidden_units)) / np.sqrt(hidden_units)),
+            "b": f32(rng.standard_normal(gates * hidden_units) * 0.1),
+        } for _ in range(directions)])
+        fan_in = hidden_units * directions
+    return {
+        "layers": layers,
+        "out": {
+            "w": f32(rng.standard_normal((fan_in, num_labels)) / np.sqrt(fan_in)),
+            "b": f32(rng.standard_normal(num_labels) * 0.1),
+        },
+    }
 
 
 def write_checkpoint(savedir: str, params: dict, state: dict, *, seed: int) -> None:

@@ -240,7 +240,8 @@ class TrainingController:
             step_time = time.perf_counter() - t0
             log.info("step %d/%d loss: %f (%.3fs)", step, num_steps, loss, step_time)
             self.metrics_hook(
-                step=step, loss=loss, step_time=step_time, num_frames=batch.num_frames
+                step=step, loss=loss, step_time=step_time, num_frames=batch.num_frames,
+                padded_length=int(batch.inputs.shape[1]),
             )
             step += 1
 

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
 from tfkaldi_tpu_torch.device import resolve_device
-from tfkaldi_tpu_torch.models.dnn import DNN, DNNConfig
+from tfkaldi_tpu_torch.models import build_model
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -55,7 +55,7 @@ class TrainState:
 
     step: int
     lr_fact: float
-    model: DNN
+    model: torch.nn.Module  # DNN, LSTM or GRU
     adam_m: dict[str, torch.Tensor]
     adam_v: dict[str, torch.Tensor]
     adam_t: int
@@ -66,11 +66,13 @@ class TrainState:
 
 
 class Trainer:
-    """Train and validation steps for the DNN on one device, resolved by
+    """Train and validation steps on one device, resolved by
     :func:`~tfkaldi_tpu_torch.device.resolve_device` (``cuda`` unless the
-    caller names the CPU)."""
+    caller names the CPU), for the model its config describes
+    (:func:`~tfkaldi_tpu_torch.models.build_model`: ``DNNConfig`` → DNN,
+    ``RNNConfig`` → LSTM or GRU)."""
 
-    def __init__(self, model_config: DNNConfig, config: TrainerConfig, device: str | torch.device = "cuda"):
+    def __init__(self, model_config, config: TrainerConfig, device: str | torch.device = "cuda"):
         self.model_config = model_config
         self.config = config
         self.device = resolve_device(device)
@@ -82,7 +84,7 @@ class Trainer:
     def init_state(self, seed: int) -> TrainState:
         """A fresh state: the model initialised from a CPU generator seeded
         with ``seed`` (the same weights on every device), zero Adam slots."""
-        model = DNN(self.model_config)
+        model = build_model(self.model_config)
         model.reset_parameters(torch.Generator().manual_seed(int(seed)))
         model.to(self.device)
         params = dict(model.named_parameters())
@@ -109,7 +111,7 @@ class Trainer:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def loss_sum(model: DNN, batch: PaddedBatch, *, train: bool, generator=None):
+    def loss_sum(model: torch.nn.Module, batch: PaddedBatch, *, train: bool, generator=None):
         """Frame-summed CE over real frames and the frame count (f32)."""
         logits = model(batch.inputs, batch.input_lengths, train=train, generator=generator)
         b, t, o = logits.shape
@@ -213,8 +215,9 @@ class Trainer:
 
     @staticmethod
     def add_layer(state: TrainState) -> TrainState:
-        """Layerwise 'add' + 'init' (dnn.py:92, 112-122): advance the depth
-        selector and re-zero the output layer and its Adam slots, in place."""
+        """Layerwise 'add' + 'init' (dnn.py:92, 112-122) of the DNN: advance
+        the depth selector and re-zero the output layer and its Adam slots,
+        in place."""
         model = state.model
         with torch.no_grad():
             model.depth.add_(1)
