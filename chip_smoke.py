@@ -19,7 +19,8 @@ path, the training path, then the BiLSTM and BiGRU paths.
    BiLSTM/BiGRU, T 512, B 128, H 512, f32 and bf16, ragged lengths of
    204-512 frames with garbage in the padding: every output and residual,
    the backward alone on the plain residuals, and their times beside
-   cuDNN's packed bidirectional LSTM/GRU (``check_rnn_kernels``).
+   cuDNN's packed bidirectional LSTM/GRU; the forward's route (persistent,
+   one launch per call), grid and time a step (``check_rnn_kernels``).
 4. Drives the served path at full width (440 -> 6x2048 -> 2000, batchnorm)
    on a seeded synthetic workspace (32 + 32 wavs of 1-8 s, 4 speakers):
    ``cli.main --steps dnn_train_features,dnn_test_features``, then
@@ -49,8 +50,8 @@ path, the training path, then the BiLSTM and BiGRU paths.
    under frame CE (2 x 512 bidirectional, context 2, bf16, batch 128,
    dropout 0.8) and only num_epochs, valid_frequency and check_freq
    lowered. Counts reset before, read after: the backward kernel launches
-   2 x T_pad per train step, the forward kernel that and more (validation
-   and decode); step-0 loss ln 2000; the ark covers the test set and
+   2 x T_pad per train step, the forward kernel once per layer call on the
+   persistent route (training, validation and decode); step-0 loss ln 2000; the ark covers the test set and
    matches the plain versions' decode; one step from the step-2 checkpoint
    with the kernels and with the plain versions agrees; and the step is
    timed by parts (``rnn_train_path``, ``check_rnn_step``).
@@ -363,9 +364,14 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
     call, cuDNN's bidirectional ``torch.nn.LSTM``/``GRU`` on a packed batch
     of the same lengths, whose forward includes its own input projection
     (input 1024 wide, the second layer's) and whose backward (one
-    ``torch.autograd.grad`` call) its input and weight gradients.
-    Returns the bf16 rows (the recipe's compute dtype) of both kernels."""
+    ``torch.autograd.grad`` call) its input and weight gradients. The
+    forward must take the persistent route (one launch per call); its
+    route, grid and shared memory are printed with its time at T 1 and the
+    time a step after it. Returns the bf16 rows (the recipe's compute
+    dtype) of both kernels."""
     import torch
+
+    from tfkaldi_tpu_torch.ops.rnn_bidi import fwd_plan
 
     c = _rnn_cell(cell)
     gates = c.gates
@@ -429,8 +435,15 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
         # times at the recipe's shapes, residuals on (the training forward)
         whs_cd = [w.to(cd) for w in whs]
         res = got["_residuals"]
+        plan = fwd_plan(b, h, gates, cd, 2)
+        if plan.route != "persistent":
+            raise AssertionError(f"{cell} {name}: the recipe's shape takes the {plan.route} route")
         fwd_ms = ms_per_call(lambda: c.fwd(gxs, whs_cd, mask, residuals=True), iters=5)
         eval_ms = ms_per_call(lambda: c.fwd(gxs, whs_cd, mask, residuals=False), iters=5)
+        # a persistent call at T 1 (launch, W_h slice load, one step without
+        # product or barrier), and the time a step after it
+        one_ms = ms_per_call(lambda: c.fwd([x[:1] for x in gxs], whs_cd, mask[:1], residuals=True), iters=5)
+        step_us = (fwd_ms - one_ms) / (t - 1) * 1e3
         bwd_ms = ms_per_call(lambda: c.bwd(dys, res, mask, whs_cd), iters=5)
         plain_fwd_ms = ms_per_call(lambda: c.fwd_ref(gxs, whs_cd, mask, residuals=True), iters=2)
         plain_bwd_ms = ms_per_call(lambda: c.bwd_ref(dys, res, mask, whs_cd), iters=2)
@@ -459,6 +472,9 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
             f"(eval, no residuals, {eval_ms!r}), plain {plain_fwd_ms!r} ms, cuDNN {lib_fwd_ms!r} ms, bound "
             f"{fwd_b['bound_ms']!r} ms by {fwd_b['bound_by']}; backward {bwd_ms!r} ms, plain {plain_bwd_ms!r} "
             f"ms, cuDNN {lib_bwd_ms!r} ms, bound {bwd_b['bound_ms']!r} ms by {bwd_b['bound_by']} [{card}]")
+        log(f"{cell} forward route {plan.route}: {plan.ctas} CTAs ({plan.row_ctas} row CTAs x "
+            f"{plan.tiles_per_cta} tile(s) of 64 rows per direction and 16-unit tile), {plan.smem_bytes} B of "
+            f"shared memory a CTA; T 1 call {one_ms!r} ms, {step_us!r} us a step after it [{card}]")
         if cd == torch.bfloat16:
             def max_abs(names):
                 return max((g.float() - r.float()).abs().max().item()
@@ -707,9 +723,11 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
     bidirectional, context 2, bf16, batch 128, dropout 0.8, valid_batches
     4) and only num_epochs, valid_frequency and check_freq lowered. Counts
     reset before, read after: the backward kernel launches once per time
-    step of each layer in each train step (2 x T_pad), the forward kernel as
-    often in training and once more per step of every validation and decode
-    batch, and no kernel of the DNN paths launches; the step-0 loss is
+    step of each layer in each train step (2 x T_pad), the forward kernel
+    once per layer call on the persistent route (never on the step route):
+    per layer in each train step and once more per layer of every
+    validation and decode batch; no kernel of the DNN paths launches; the
+    step-0 loss is
     ln 2000 (zero output layer); the ark covers the test set. Returns the
     launches, the config's path and the model dir."""
     from configparser import ConfigParser
@@ -732,8 +750,9 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
         config.write(f)
     savedir = os.path.join(config.get("directories", "expdir"), nnet["name"])
 
-    for c in (lstm_bidi.CELL, gru_bidi.CELL):
-        c.fwd_launches = c.bwd_launches = 0
+    cells = (lstm_bidi.CELL, gru_bidi.CELL)
+    for c in cells:
+        c.fwd_persistent_launches = c.fwd_launches = c.bwd_launches = 0
     fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -743,20 +762,25 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
     if rc != 0:
         raise RuntimeError(f"cli.main bi{cell} path: rc {rc}")
     this = _rnn_cell(cell)
-    launches = {f"{cell}_fwd": this.fwd_launches, f"{cell}_bwd": this.bwd_launches}
+    routes = {"persistent": this.fwd_persistent_launches, "step": this.fwd_launches}
+    launches = {f"{cell}_fwd": sum(routes.values()), f"{cell}_bwd": this.bwd_launches}
     other = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
-    other.update({f"{c.name}_{k}": getattr(c, f"{k}_launches") for c in (lstm_bidi.CELL, gru_bidi.CELL)
-                  if c is not this for k in ("fwd", "bwd")})
+    other.update({f"{c.name}_{k}": getattr(c, f"{k}_launches") for c in cells
+                  if c is not this for k in ("fwd_persistent", "fwd", "bwd")})
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
     padded = sum(st["padded_length"] for st in steps)
-    log(f"bi{cell} path launches: {launches} (other kernels {other}); {len(steps)} train steps at T_pad "
-        f"{[st['padded_length'] for st in steps]} (replays after a rollback included); whole run {run_s!r} s")
+    log(f"bi{cell} path launches: {launches}, the forward's by route {routes} (other kernels {other}); "
+        f"{len(steps)} train steps at T_pad {[st['padded_length'] for st in steps]} (replays after a rollback "
+        f"included); whole run {run_s!r} s")
     if launches[f"{cell}_bwd"] != RNN_LAYERS * padded:
         raise AssertionError(f"{cell}_bwd launched {launches[f'{cell}_bwd']} times, want {RNN_LAYERS} x {padded}")
-    if not launches[f"{cell}_fwd"] > RNN_LAYERS * padded:
-        raise AssertionError(f"{cell}_fwd launched {launches[f'{cell}_fwd']} times: want more than the "
-                             f"{RNN_LAYERS * padded} of training (validation and decode launch it too)")
+    # the forward: one persistent launch per layer call, in training, validation and decode alike
+    if routes["step"] != 0:
+        raise AssertionError(f"{cell}_fwd took the step route {routes['step']} times on the bi{cell} path")
+    if not routes["persistent"] > RNN_LAYERS * len(steps):
+        raise AssertionError(f"{cell}_fwd launched {routes['persistent']} times: want more than the "
+                             f"{RNN_LAYERS * len(steps)} of training (validation and decode launch it too)")
     if any(other.values()):
         raise AssertionError(f"the bi{cell} path launched another path's kernels: {other}")
     loss0 = steps[0]["loss"]

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from tfkaldi_tpu_torch.ops import gru_bidi, lstm_bidi
+from tfkaldi_tpu_torch.ops import gru_bidi, lstm_bidi, rnn_bidi
 from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
 
 pytestmark = pytest.mark.cuda
@@ -72,16 +72,27 @@ def _rel(a, b):
                for x, y in zip(a, b))
 
 
+def _counts(c):
+    return c.fwd_persistent_launches, c.fwd_launches, c.bwd_launches
+
+
+# (6, 300, 512, 2): B beyond the grid's 2 row CTAs, so each CTA loops over
+# 3 row tiles; (1, 8, 128, 2): T 1; (5, 6, 720, 2): f32 takes the step route
+# (the LSTM's f32 W_h slice does not fit), bf16 the persistent one
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-@pytest.mark.parametrize("t,b,h,dirs", [(16, 8, 128, 2), (7, 5, 33, 2), (9, 37, 70, 1), (512, 128, 512, 2)])
+@pytest.mark.parametrize("t,b,h,dirs", [(16, 8, 128, 2), (7, 5, 33, 2), (9, 37, 70, 1), (512, 128, 512, 2),
+                                        (6, 300, 512, 2), (1, 8, 128, 2), (12, 70, 256, 1), (5, 6, 720, 2)])
 def test_kernels_match_plain(cuda, cell, t, b, h, dirs):
     c = CELLS[cell]
     gxs, whs, mask, dys = _case(c.gates, t, b, h, dirs, cuda, seed=t + b + h)
     ref32 = _chain(cell, gxs, whs, mask, dys, torch.float32, kernel=False)
-    before = c.fwd_launches, c.bwd_launches
+    plan = rnn_bidi.fwd_plan(b, h, c.gates, torch.float32, dirs)
+    before = _counts(c)
     got32 = _chain(cell, gxs, whs, mask, dys, torch.float32, kernel=True)
     torch.cuda.synchronize()
-    assert (c.fwd_launches, c.bwd_launches) == (before[0] + t, before[1] + t)  # one launch per step
+    # one persistent launch per call, or one step launch per time step; the backward one per step
+    want = (1, 0) if plan.route == "persistent" else (0, t)
+    assert _counts(c) == (before[0] + want[0], before[1] + want[1], before[2] + t), plan
     for name in ref32:
         assert _rel(got32[name], ref32[name]) <= 1e-5, name
     got = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=True)
@@ -96,6 +107,40 @@ def test_kernels_match_plain(cuda, cell, t, b, h, dirs):
         assert mine >= theirs / 2.0 - 1e-5, (name, mine, theirs)
     for ys in got["ys"]:
         assert torch.all(ys[mask[:, :, 0] == 0] == 0)  # the padding emits zeros, garbage or not
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_persistent_forward_repeats(cuda, cell, cd):
+    """The same persistent call twice gives identical results (each call
+    starts its barrier counters at zero), and the eval variant (no
+    residuals, h exchanged through two slots) gives the same ys."""
+    c = CELLS[cell]
+    gxs, whs, mask, _ = _case(c.gates, 64, 128, 512, 2, cuda, seed=11)
+    whs_cd = [w.to(cd) for w in whs]
+    assert rnn_bidi.fwd_plan(128, 512, c.gates, cd, 2).route == "persistent"
+    before = _counts(c)
+    first = c.fwd(gxs, whs_cd, mask, residuals=True)
+    second = c.fwd(gxs, whs_cd, mask, residuals=True)
+    evals = c.fwd(gxs, whs_cd, mask, residuals=False)
+    torch.cuda.synchronize()
+    assert _counts(c) == (before[0] + 3, before[1], before[2])
+    for (ys1, res1), (ys2, res2), (ys3, res3) in zip(first, second, evals):
+        assert res3 is None
+        assert torch.equal(ys1, ys2) and torch.equal(ys1, ys3)
+        for a, b in zip(res1, res2):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h", [33, 512, 704, 1056])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gates", [3, 4])
+def test_plan_smem_matches_kernel_library(cuda, gates, cd, h):
+    """The wrapper's launch plan sizes shared memory as the C side does."""
+    from tfkaldi_tpu_torch.ops import _build
+
+    lib = _build.load()
+    assert rnn_bidi.persistent_smem(gates, h, cd) == lib.tk_rnn_fwd_smem(gates, h, int(cd == torch.bfloat16))
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])

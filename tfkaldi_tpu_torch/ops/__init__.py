@@ -6,8 +6,9 @@ wrappers that run the plain PyTorch version on CPU tensors.
 - :mod:`tfkaldi_tpu_torch.ops.bn_fused_bwd`: ``bn_dgrad`` (the backward of
   ``BnReluLayer``)
 - :mod:`tfkaldi_tpu_torch.ops.lstm_bidi`: ``CELL.fwd``, ``CELL.bwd`` (both
-  directions of a (Bi)LSTM layer, one launch per time step, behind
-  ``lstm_scan_bidi``); the plain numerics in
+  directions of a (Bi)LSTM layer, behind ``lstm_scan_bidi``: the forward
+  one persistent launch per layer call, the backward one launch per time
+  step); the plain numerics in
   :mod:`~tfkaldi_tpu_torch.ops.lstm_scan`
 - :mod:`tfkaldi_tpu_torch.ops.gru_bidi`: the same for the GRU, behind
   ``gru_scan_bidi``; plain numerics in
@@ -16,6 +17,6 @@ wrappers that run the plain PyTorch version on CPU tensors.
   Function and the launch both recurrences share
 
 Each of the first three modules keeps its kernel's launch count in a
-module global ``launches``; a recurrence keeps ``fwd_launches`` and
-``bwd_launches`` on its ``CELL``.
+module global ``launches``; a recurrence keeps ``fwd_persistent_launches``,
+``fwd_launches`` (the step route) and ``bwd_launches`` on its ``CELL``.
 """

@@ -1,8 +1,11 @@
-// Both directions of a (Bi)GRU layer, one launch per time step:
-//   kernel 6, gru_fwd_step: gh = round_cd(h_{t-1}) @ W_h; r = sig(gx_r + gh_r),
-//     z = sig(gx_z + gh_z), n = tanh(gx_n + r*gh_n), h = (1-z)*n + z*h_{t-1},
-//     frozen where the mask is 0; ys = h*m; with the residuals acts (r, z, n),
-//     hs, h_cd = round_cd(h_{t-1}) and gh_n;
+// Both directions of a (Bi)GRU layer:
+//   kernel 6, the forward: gh = round_cd(h_{t-1}) @ W_h; r = sig(gx_r +
+//     gh_r), z = sig(gx_z + gh_z), n = tanh(gx_n + r*gh_n), h = (1-z)*n +
+//     z*h_{t-1}, frozen where the mask is 0; ys = h*m; with the residuals
+//     acts (r, z, n), hs, h_cd = round_cd(h_{t-1}) and gh_n. The persistent
+//     kernel (rnn_step.cuh::persistent_fwd with GruCell, one cooperative
+//     launch per layer call) or, on the shapes the launch plan refuses
+//     (ops/rnn_bidi.py::fwd_plan), gru_fwd_step, one launch per time step;
 //   kernel 7, gru_bwd_step: dh = dh_carry + round_cd(dgh_prev) @ W_h^T, then
 //     the elementwise backward of this step -> dgx and dgh (whose n block
 //     carries the reset-gate factor r), and the dh carry.
@@ -12,8 +15,10 @@
 // behind the custom VJP gru_scan_bidi. Directions, time order, what bounds
 // it and the design are those of lstm_bidi.cu (see rnn_step.cuh) with three
 // gate blocks instead of four: 0.40 GFLOP a step for both directions at
-// B = 128, H = 512, 6.1 us at the f32 FMA rate. The weight gradient
-// (h_cd^T @ dgh) stays outside, as one torch.matmul.
+// B = 128, H = 512 (0.41 us at the bf16 tensor-core rate, 6.1 us at the f32
+// FMA rate); a persistent CTA holds a W_h slice of 512 x 48 (48 KB bf16,
+// 96 KB f32). The weight gradient (h_cd^T @ dgh) stays outside, as one
+// torch.matmul.
 
 #include "rnn_step.cuh"
 
@@ -21,14 +26,32 @@ namespace {
 
 using namespace tk_rnn;
 
+// The elementwise step of one (row, j) pair for persistent_fwd; the op
+// order and roundings of gru_fwd_step. c is unused (the GRU has no cell).
+struct GruCell {
+  static constexpr int G = 3;
+  static __device__ __forceinline__ void step(const float (&gx)[3], const float (&acc)[3], float m, float& h,
+                                              float& c, float (&act)[3], float& state, float& ghn) {
+    const float gr = sigmoid(add(gx[0], acc[0]));
+    const float gz = sigmoid(add(gx[1], acc[1]));
+    ghn = acc[2];
+    const float gn = tanhf(add(gx[2], mul(gr, ghn)));
+    const float h_cand = add(mul(sub(1.0f, gz), gn), mul(gz, h));
+    h = m != 0.0f ? h_cand : h;  // a select: garbage in padded gx cannot leak
+    act[0] = gr, act[1] = gz, act[2] = gn;
+    state = h;
+    (void)c;
+  }
+};
+
 template <typename T, bool RES>
 __global__ void __launch_bounds__(THREADS)
 gru_fwd_step(FwdDir d0, FwdDir d1, const float* __restrict__ mask, int t_len, int B, int H,
              int s) {
   const FwdDir d = blockIdx.z == 0 ? d0 : d1;
   const int t = blockIdx.z == 0 ? s : t_len - 1 - s;
-  const float* h_in = d.h + static_cast<int64_t>(s & 1) * B * H;
-  float* h_out = d.h + static_cast<int64_t>((s + 1) & 1) * B * H;
+  const float* h_in = static_cast<float*>(d.h) + static_cast<int64_t>(s & 1) * B * H;
+  float* h_out = static_cast<float*>(d.h) + static_cast<int64_t>((s + 1) & 1) * B * H;
   const int row0 = blockIdx.y * BM;
   const int j0 = blockIdx.x * BJ;
   float acc[RPT][3] = {};
@@ -114,7 +137,22 @@ gru_bwd_step(BwdDir d0, BwdDir d1, const float* __restrict__ mask, int t_len, in
 
 }  // namespace
 
-// ptrs: PTRS pointers per direction (FwdDir / BwdDir order), dirs = 1 or 2
+// ptrs: PTRS pointers per direction (FwdDir / BwdDir order), dirs = 1 or 2.
+// The persistent forward: row_ctas CTAs along the batch, bar 2 zeroed
+// unsigned counters.
+extern "C" int tk_gru_fwd_persistent_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                         int b, int h, int residuals, int row_ctas, void* bar,
+                                         void* stream) {
+  return tk_rnn::run_persistent_fwd<GruCell, float>(ptrs, mask, dirs, t_len, b, h, residuals, row_ctas,
+                                                    bar, stream);
+}
+extern "C" int tk_gru_fwd_persistent_bf16(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                          int b, int h, int residuals, int row_ctas, void* bar,
+                                          void* stream) {
+  return tk_rnn::run_persistent_fwd<GruCell, __nv_bfloat16>(ptrs, mask, dirs, t_len, b, h, residuals,
+                                                            row_ctas, bar, stream);
+}
+// The step route of the forward: one launch per time step.
 extern "C" int tk_gru_fwd_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
                               int b, int h, int residuals, void* stream) {
   return tk_rnn::run_fwd(gru_fwd_step<float, true>, gru_fwd_step<float, false>, ptrs, mask,

@@ -1,7 +1,13 @@
-// Both directions of a (Bi)LSTM layer, one launch per time step:
-//   kernel 4, lstm_fwd_step: gates = gx_t + round_cd(h_{t-1}) @ W_h; i, f, g, o;
-//     c = f*c + i*g, h = o*tanh(c), frozen where the mask is 0; ys = h*m; with
-//     the residuals acts (gates after activation), cs and h_cd = round_cd(h_{t-1});
+// Both directions of a (Bi)LSTM layer:
+//   kernel 4, the forward: gates = gx_t + round_cd(h_{t-1}) @ W_h; i, f, g,
+//     o; c = f*c + i*g, h = o*tanh(c), frozen where the mask is 0; ys = h*m;
+//     with the residuals acts (gates after activation), cs and h_cd =
+//     round_cd(h_{t-1}). Two routes, picked by the wrapper's launch plan
+//     (ops/rnn_bidi.py::fwd_plan) from the shape and dtype: the persistent
+//     kernel (rnn_step.cuh::persistent_fwd with LstmCell: one cooperative
+//     launch per layer call), or, where the W_h slice does not fit in
+//     shared memory or the grid could not be co-resident, lstm_fwd_step,
+//     one launch per time step;
 //   kernel 5, lstm_bwd_step: the reverse-time LSTM backward of both
 //     directions: dh = dh_carry + round_cd(dgates_prev) @ W_h^T, then the
 //     elementwise backward of this step -> dgates (= dgx), dh/dc carries.
@@ -15,16 +21,20 @@
 //
 // What bounds it on an H100: a step is a [B, H] x [H, 4H] product per
 // direction that depends on the previous step. At B = 128, H = 512 both
-// directions do 0.54 GFLOP a step (275 GFLOP over T = 512), 8.1 us a step at
-// the 67 TFLOP/s f32 FMA rate, while its bytes (W_h twice in bf16: 4 MB from
-// L2; gx, acts and the streams: ~1.3 MB) take about a microsecond: bound by
-// arithmetic, and by the step-to-step dependency, which no launch can hide.
-// What the design does about it: nothing clever yet. One launch per step
-// (the grid-wide barrier), tiles of 32 rows x 16 units (256 blocks of 128
-// threads with both directions), the gate math fused after the product so
-// the gates never go to device memory before their activation. A
-// persistent kernel that keeps W_h slices in shared memory and runs the
-// product on the tensor cores is later work (ROADMAP.md, queue 2).
+// directions do 0.54 GFLOP a step (275 GFLOP over T = 512): 0.55 us a step
+// at the 989 TFLOP/s bf16 tensor-core rate, 8.1 us at the 67 TFLOP/s f32
+// FMA rate. Its bytes from device memory (gx, the outputs and residuals,
+// W_h once) take about 1.6 us a step; what a step cannot hide is its
+// dependency on the step before: a barrier across the CTAs of a direction
+// and the L2 round trip of the published h.
+// What the design does about it (the persistent route): W_h stays in
+// shared memory for the whole call (64 KB bf16 / 128 KB f32 a CTA at H
+// 512), so no step re-reads it; the bf16 product runs on the tensor cores;
+// h and c stay in registers, and only round_cd(h) goes through L2, in the
+// h_cd residual the backward needs anyway; the next step's gx is loaded
+// while the CTA waits at the barrier; a step costs a barrier per direction
+// instead of a launch. At the recipe's shape the grid is 2 directions x 2
+// row tiles of 64 x 32 tiles of 16 units = 128 CTAs, one per SM.
 //
 // Any T, B, H: the loaders and the epilogue mask every edge.
 
@@ -34,14 +44,35 @@ namespace {
 
 using namespace tk_rnn;
 
+// The elementwise step of one (row, j) pair for persistent_fwd; the op
+// order and roundings of lstm_fwd_step.
+struct LstmCell {
+  static constexpr int G = 4;
+  static __device__ __forceinline__ void step(const float (&gx)[4], const float (&acc)[4], float m, float& h,
+                                              float& c, float (&act)[4], float& state, float& ghn) {
+    const float gi = sigmoid(add(gx[0], acc[0]));
+    const float gf = sigmoid(add(gx[1], acc[1]));
+    const float gg = tanhf(add(gx[2], acc[2]));
+    const float go = sigmoid(add(gx[3], acc[3]));
+    const float c_cand = add(mul(gf, c), mul(gi, gg));
+    const float h_cand = mul(go, tanhf(c_cand));
+    const bool keep = m != 0.0f;  // a select: garbage in padded gx cannot leak
+    h = keep ? h_cand : h;
+    c = keep ? c_cand : c;
+    act[0] = gi, act[1] = gf, act[2] = gg, act[3] = go;
+    state = c;
+    ghn = 0.0f;
+  }
+};
+
 template <typename T, bool RES>
 __global__ void __launch_bounds__(THREADS)
 lstm_fwd_step(FwdDir d0, FwdDir d1, const float* __restrict__ mask, int t_len, int B, int H,
               int s) {
   const FwdDir d = blockIdx.z == 0 ? d0 : d1;
   const int t = blockIdx.z == 0 ? s : t_len - 1 - s;
-  const float* h_in = d.h + static_cast<int64_t>(s & 1) * B * H;
-  float* h_out = d.h + static_cast<int64_t>((s + 1) & 1) * B * H;
+  const float* h_in = static_cast<float*>(d.h) + static_cast<int64_t>(s & 1) * B * H;
+  float* h_out = static_cast<float*>(d.h) + static_cast<int64_t>((s + 1) & 1) * B * H;
   const int row0 = blockIdx.y * BM;
   const int j0 = blockIdx.x * BJ;
   float acc[RPT][4] = {};
@@ -135,7 +166,27 @@ lstm_bwd_step(BwdDir d0, BwdDir d1, const float* __restrict__ mask, int t_len, i
 
 }  // namespace
 
-// ptrs: PTRS pointers per direction (FwdDir / BwdDir order), dirs = 1 or 2
+// ptrs: PTRS pointers per direction (FwdDir / BwdDir order), dirs = 1 or 2.
+// The persistent forward: row_ctas CTAs along the batch, bar 2 zeroed
+// unsigned counters.
+extern "C" int tk_lstm_fwd_persistent_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                          int b, int h, int residuals, int row_ctas, void* bar,
+                                          void* stream) {
+  return tk_rnn::run_persistent_fwd<LstmCell, float>(ptrs, mask, dirs, t_len, b, h, residuals, row_ctas,
+                                                     bar, stream);
+}
+extern "C" int tk_lstm_fwd_persistent_bf16(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                           int b, int h, int residuals, int row_ctas, void* bar,
+                                           void* stream) {
+  return tk_rnn::run_persistent_fwd<LstmCell, __nv_bfloat16>(ptrs, mask, dirs, t_len, b, h, residuals,
+                                                             row_ctas, bar, stream);
+}
+// Dynamic shared memory of a persistent CTA (bytes), for the wrapper's plan.
+extern "C" int tk_rnn_fwd_smem(int gates, int h, int bf16) {
+  return static_cast<int>(bf16 ? tk_rnn::persistent_smem<__nv_bfloat16>(gates, h)
+                               : tk_rnn::persistent_smem<float>(gates, h));
+}
+// The step route of the forward: one launch per time step.
 extern "C" int tk_lstm_fwd_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
                                int b, int h, int residuals, void* stream) {
   return tk_rnn::run_fwd(lstm_fwd_step<float, true>, lstm_fwd_step<float, false>, ptrs, mask,

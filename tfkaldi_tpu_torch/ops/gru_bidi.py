@@ -4,8 +4,9 @@ Port of :mod:`tfkaldi_tpu.ops.pallas_gru` (``gru_scan_bidi``), the GRU twin
 of :mod:`tfkaldi_tpu_torch.ops.lstm_bidi`. :data:`CELL` is the GRU's
 :class:`~tfkaldi_tpu_torch.ops.rnn_bidi.Cell`:
 
-- ``CELL.fwd`` launches kernel 6 (``csrc/gru_bidi.cu::gru_fwd_step``) on
-  CUDA tensors; ``CELL.fwd_ref`` runs one
+- ``CELL.fwd`` launches kernel 6 on CUDA tensors (the persistent forward
+  with ``gru_bidi.cu::GruCell``, or ``gru_fwd_step`` on the shapes the
+  launch plan refuses); ``CELL.fwd_ref`` runs one
   :func:`tfkaldi_tpu_torch.ops.gru_scan.forward` per direction; residuals
   ``acts``, ``hs``, ``h_cds`` and ``gh_n``;
 - ``CELL.bwd`` launches kernel 7 (``gru_bwd_step``) or runs

@@ -4,8 +4,11 @@ Port of :mod:`tfkaldi_tpu.ops.pallas_lstm` (``lstm_scan_bidi``, its custom
 VJP and the two Pallas kernels). :data:`CELL` is the LSTM's
 :class:`~tfkaldi_tpu_torch.ops.rnn_bidi.Cell`:
 
-- ``CELL.fwd`` launches kernel 4 (``csrc/lstm_bidi.cu::lstm_fwd_step``) on
-  CUDA tensors; its plain version ``CELL.fwd_ref`` runs one
+- ``CELL.fwd`` launches kernel 4 on CUDA tensors: the persistent forward
+  (``csrc/rnn_step.cuh::persistent_fwd`` with ``lstm_bidi.cu::LstmCell``,
+  one launch per layer call) or, on the shapes
+  :func:`~tfkaldi_tpu_torch.ops.rnn_bidi.fwd_plan` refuses, the step
+  kernel ``lstm_fwd_step``; its plain version ``CELL.fwd_ref`` runs one
   :func:`tfkaldi_tpu_torch.ops.lstm_scan.forward` per direction; residuals
   ``acts``, ``cs`` and ``h_cds``;
 - ``CELL.bwd`` launches kernel 5 (``lstm_bwd_step``), ``CELL.bwd_ref`` one

@@ -3,15 +3,35 @@ share.
 
 A :class:`Cell` names one recurrence (the LSTM in
 :mod:`tfkaldi_tpu_torch.ops.lstm_bidi`, the GRU in
-:mod:`tfkaldi_tpu_torch.ops.gru_bidi`) and carries its two kernel wrappers,
+:mod:`tfkaldi_tpu_torch.ops.gru_bidi`) and carries its kernel wrappers,
 their plain versions and their launch counts:
 
-- :meth:`Cell.fwd` launches ``tk_{name}_fwd_{f32,bf16}`` (one launch per
-  time step carrying both directions, ``csrc/{name}_bidi.cu``) on CUDA
-  tensors and runs :meth:`Cell.fwd_ref` on CPU tensors: one
-  ``scan.forward`` per direction, the second reversed;
-- :meth:`Cell.bwd` launches ``tk_{name}_bwd_*`` or runs :meth:`Cell.bwd_ref`
-  (one ``scan.backward_scan`` per direction, each shifting its own carry
+- :meth:`Cell.fwd` (kernel 4 / 6) runs :meth:`Cell.fwd_ref` on CPU tensors
+  (one ``scan.forward`` per direction, the second reversed) and on CUDA
+  tensors takes the route :func:`fwd_plan` picks from the shape and the
+  dtype alone, before launch:
+
+  - ``"persistent"``: ``tk_{name}_fwd_persistent_{f32,bf16}``
+    (``csrc/rnn_step.cuh::persistent_fwd``), ONE cooperative launch per
+    layer call carrying both directions and all T steps, each CTA's W_h
+    slice resident in shared memory, h and c in registers, the bf16
+    product on the tensor cores. Counted in ``fwd_persistent_launches``.
+    Taken when a CTA's shared memory (W_h slice [H, 16·G] plus the h
+    staging ring) fits in 232,448 bytes, the grid fits one CTA per SM
+    (``dirs × ⌈H/16⌉ × row CTAs ≤ 132``) and no CTA loops over more than
+    4 row tiles of 64 (B beyond the grid's row tiles loops inside a CTA).
+    At the recipe's T 512, B 128, H 512 both dtypes take it (128 CTAs).
+  - ``"step"``: ``tk_{name}_fwd_{f32,bf16}``, one launch per time step, on
+    every other shape (e.g. H > 704 in f32 for the LSTM, or H > 1056
+    bidirectional). Counted in ``fwd_launches`` (one per step).
+
+  The route is never chosen after an error: a persistent launch that fails
+  (the C side checks the occupancy calculator against the grid and
+  launches with ``cudaLaunchCooperativeKernel``, which refuses a grid that
+  cannot be co-resident) raises.
+- :meth:`Cell.bwd` launches ``tk_{name}_bwd_*`` (one launch per step,
+  ``bwd_launches``) or runs :meth:`Cell.bwd_ref` (one
+  ``scan.backward_scan`` per direction, each shifting its own carry
   stream, as the JAX package's custom VJPs do).
 
 :class:`BidiScan` is the ``torch.autograd.Function`` around them, with
@@ -25,6 +45,7 @@ no shape gate: the kernels mask their edges, so any T, B and H run.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -33,6 +54,50 @@ from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
 
 _DT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTRS = 9  # pointers per direction, in the order of csrc/rnn_step.cuh FwdDir / BwdDir
+
+# The persistent forward's tiling, as csrc/rnn_step.cuh sets it: P_ROWS,
+# P_UNITS, P_MAXR, and Pipe<T> (KC, NST, PADK, PADN) per compute dtype.
+P_ROWS, P_UNITS, P_MAXR = 64, 16, 4
+_PIPE = {torch.bfloat16: (64, 8, 8, 8), torch.float32: (32, 4, 4, 4)}
+SMS = 132  # streaming multiprocessors of an H100 (SXM); one persistent CTA on each at most
+SMEM_PER_CTA = 232_448  # the most shared memory a Hopper block may use
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The forward's route and, on the persistent route, its grid:
+    ``row_ctas`` CTAs along the batch per (direction, unit tile), each
+    looping over ``tiles_per_cta`` row tiles of 64; ``ctas`` in all;
+    ``smem_bytes`` of dynamic shared memory a CTA."""
+
+    route: str
+    ctas: int
+    row_ctas: int
+    tiles_per_cta: int
+    smem_bytes: int
+
+
+def persistent_smem(gates: int, h: int, compute_dtype) -> int:
+    """Shared memory of a persistent CTA: the W_h slice ``[KR, 16·G +
+    PADN]`` and the h ring ``[NST, 64, KC + PADK]``, KR = H rounded up to
+    KC (``csrc/rnn_step.cuh::persistent_smem``)."""
+    kc, nst, padk, padn = _PIPE[compute_dtype]
+    size = torch.empty((), dtype=compute_dtype).element_size()
+    kr = -(-h // kc) * kc
+    return (kr * (gates * P_UNITS + padn) + nst * P_ROWS * (kc + padk)) * size
+
+
+def fwd_plan(b: int, h: int, gates: int, compute_dtype, dirs: int) -> FwdPlan:
+    """The forward's route for a layer call of batch ``b``, ``h`` units,
+    ``gates`` gate blocks, ``dirs`` directions, from the shape and the
+    compute dtype alone (T does not enter: the persistent kernel loops over
+    it)."""
+    smem = persistent_smem(gates, h, compute_dtype)
+    tiles = -(-b // P_ROWS)
+    row_ctas = min(tiles, SMS // (dirs * -(-h // P_UNITS)))
+    if smem > SMEM_PER_CTA or row_ctas < 1 or -(-tiles // row_ctas) > P_MAXR:
+        return FwdPlan("step", 0, 0, 0, 0)
+    return FwdPlan("persistent", dirs * -(-h // P_UNITS) * row_ctas, row_ctas, -(-tiles // row_ctas), smem)
 
 
 def _check(name, gxs, whs_cd, mask, gates: int) -> tuple[int, int, int]:
@@ -78,11 +143,14 @@ class Cell:
     the LSTM carries a cell state ``c`` instead and its weight gradient
     contracts ``dgx`` itself. Residuals per direction: ``(acts, state,
     h_cds)`` plus ``gh_n`` for the GRU, ``state`` being ``cs`` (LSTM) or
-    ``hs`` (GRU). ``fwd_launches`` and ``bwd_launches`` count the kernels'
-    launches (one per time step) since the last reset."""
+    ``hs`` (GRU). The launch counts since the last reset, per route:
+    ``fwd_persistent_launches`` (one per call on the persistent route),
+    ``fwd_launches`` (one per time step on the step route) and
+    ``bwd_launches`` (one per time step)."""
 
     def __init__(self, name: str, gates: int, scan, *, gh_n: bool):
         self.name, self.gates, self.scan, self.gh_n = name, gates, scan, gh_n
+        self.fwd_persistent_launches = 0
         self.fwd_launches = 0
         self.bwd_launches = 0
 
@@ -96,14 +164,17 @@ class Cell:
         return outs
 
     def fwd(self, gxs, whs_cd, mask, *, residuals: bool = True):
-        """The forward kernel on CUDA tensors, :meth:`fwd_ref` on CPU
-        tensors. ``gxs``: 1 or 2 ``[T, B, G·H]`` f32; ``whs_cd``: ``[H,
-        G·H]`` in the compute dtype; ``mask [T, B, 1]`` f32 0/1."""
+        """The forward kernel on CUDA tensors, on the route :func:`fwd_plan`
+        picks; :meth:`fwd_ref` on CPU tensors. ``gxs``: 1 or 2 ``[T, B,
+        G·H]`` f32; ``whs_cd``: ``[H, G·H]`` in the compute dtype; ``mask
+        [T, B, 1]`` f32 0/1."""
         if gxs[0].device.type == "cpu":
             return self.fwd_ref(gxs, whs_cd, mask, residuals=residuals)
         t, b, h = _check(f"{self.name}_fwd", gxs, whs_cd, mask, self.gates)
         cd = whs_cd[0].dtype
         dev = gxs[0].device
+        plan = fwd_plan(b, h, self.gates, cd, len(gxs))
+        persistent = plan.route == "persistent"
         outs, blocks = [], []
         for gx, wh in zip(gxs, whs_cd):
             ys = torch.empty(t, b, h, device=dev)
@@ -113,12 +184,22 @@ class Cell:
                        torch.empty(t, b, h, dtype=cd, device=dev))
                 res += (torch.empty(t, b, h, device=dev),) if self.gh_n else ()
             acts, state, h_cds, ghns = (*res, None)[:4] if residuals else (None,) * 4
-            carry_c = None if self.gh_n else torch.zeros(b, h, device=dev)
-            blocks.append((gx.contiguous(), wh.contiguous(), ys, acts, state, h_cds, ghns,
-                           torch.zeros(2, b, h, device=dev), carry_c))
+            if persistent:  # h_cds carries h between CTAs; without it two exchange slots do
+                carry_h = None if residuals else torch.empty(2, b, h, dtype=cd, device=dev)
+                carry_c = None
+            else:
+                carry_h = torch.zeros(2, b, h, device=dev)
+                carry_c = None if self.gh_n else torch.zeros(b, h, device=dev)
+            blocks.append((gx.contiguous(), wh.contiguous(), ys, acts, state, h_cds, ghns, carry_h, carry_c))
             outs.append((ys, res))
-        _launch(f"tk_{self.name}_fwd_{_DT[cd]}", blocks, mask, len(gxs), t, b, h, int(residuals))
-        self.fwd_launches += t
+        if persistent:
+            counters = torch.zeros(2, dtype=torch.int32, device=dev)  # one barrier counter per direction
+            _launch(f"tk_{self.name}_fwd_persistent_{_DT[cd]}", blocks, mask, len(gxs), t, b, h,
+                    int(residuals), plan.row_ctas, counters.data_ptr())
+            self.fwd_persistent_launches += 1
+        else:
+            _launch(f"tk_{self.name}_fwd_{_DT[cd]}", blocks, mask, len(gxs), t, b, h, int(residuals))
+            self.fwd_launches += t
         return outs
 
     def bwd_ref(self, dys, residuals, mask, whs_cd):
