@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, the served
-path, the training path, then the BiLSTM and BiGRU paths.
+path, the training path in f32 and in bf16, then the BiLSTM and BiGRU
+paths.
 
     python3 chip_smoke.py
 
@@ -9,13 +10,14 @@ path, the training path, then the BiLSTM and BiGRU paths.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and times the kernel, the plain version and, where
    one exists, the PyTorch call that computes the same product
-   (``library_ms``): fused FFN [8192,440]x[440,2048] and
-   [8192,2048]x[2048,2048], f32 and bf16 (the served path's decode
-   batches), and [65536,440]x[440,2048] and [65536,2048]x[2048,2048] f32
-   (the training path's validation batches); framing 16 x 5 s at 16 kHz,
-   bit-equal; BN backward (kernel 3) [65536,2048] with w [2048,2048] and
-   [440,2048] f32, the dz-only launch of the first layer, and a bf16 case
-   at N = 8192; the recurrences (kernels 4-7) at one layer of the repo's
+   (``library_ms``): fused FFN [N,440]x[440,2048] and
+   [N,2048]x[2048,2048], N 8192 (the served path's decode batches) and
+   65,536 (the training paths' validation batches), f32 and bf16; framing
+   16 x 5 s at 16 kHz, bit-equal; BN backward (kernel 3) [65536,2048] with
+   w [2048,2048] and [440,2048] and the dz-only launch of the first layer,
+   f32 and bf16, and a bf16 case at N = 8192. Kernels 1 and 3 must take
+   the TMA route of the GEMM core at all these shapes; each row prints its
+   route, tile, grid and shared memory (``gemm_plan``); the recurrences (kernels 4-7) at one layer of the repo's
    BiLSTM/BiGRU, T 512, B 128, H 512, f32 and bf16, ragged lengths of
    204-512 frames with garbage in the padding: every output and residual,
    the backward alone on the plain residuals, and their times beside
@@ -39,11 +41,15 @@ path, the training path, then the BiLSTM and BiGRU paths.
    valid_batches 2) and only num_epochs, valid_frequency and check_freq
    lowered. Counts reset before, read after: bn_dgrad launches = 6 per
    train step; the step-0 loss is ln 2000 (zero output layer); the ark
-   covers the test set. Then, from the step-2 checkpoint, with the
-   kernels and with the plain versions: the validation loss over the
-   validation batches (the number that decides a rollback) and the eval
-   logits agree; one full-width step on one batch gives the same loss and
-   gradients; and the step is timed by parts.
+   covers the test set; kernel 3's launches are on the TMA route (layer 0: the dz pass
+   alone), kernel 1's all on the TMA route. Then, from the step-2
+   checkpoint, with the kernels and with the plain versions: the
+   validation loss over the validation batches (the number that decides a
+   rollback) and the eval logits agree; one full-width step on one batch
+   gives the same loss and gradients; and the step is timed by parts.
+   The same again for bench.py's configuration, the DNN in bf16
+   (``bf16_dnn_path``: ``cli.main --steps train_nnet,test_nnet`` with
+   ``compute_dtype = bfloat16`` on the same features, its own savedir).
 7. Drives the BiLSTM, then the BiGRU hybrid path at full width on the
    training workspace's features and alignments: ``cli.main --steps
    train_nnet,test_nnet`` with the ``[nnet]`` of config_AURORA4_ctc.cfg
@@ -79,6 +85,8 @@ TRAIN_WORK = os.path.join(ROOT, "build", "chip_smoke_train")
 # num_batches = 800 / 128 = 6.25, so one epoch is 6 steps
 TRAIN_UTTS = 800
 TRAIN_NNET = {"num_epochs": 1, "valid_frequency": 2, "check_freq": 2}
+# bench.py's DNN: the same [nnet] in bf16 (bench.py:48), in its own savedir
+BF16_DNN_NNET = {"compute_dtype": "bfloat16", "name": "dnn_bf16"}
 
 # full width of the flagship recipe (config/config_AURORA4.cfg, bench.py:22)
 NUM_PDFS = 2000
@@ -91,6 +99,7 @@ BN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # the validation pass and one training step, kernels vs plain versions
 # (see check_train_step)
 STEP_LOSS_TOL = 1e-5
+BF16_STEP_TOL = 2e-2
 STEP_GRAD_TOL = 1e-4
 BN_BIAS_NOISE = 1e-2
 # the recurrent layer of the repo's BiLSTM (config_AURORA4_ctc.cfg:75-108): T_pad, batch, hidden
@@ -157,23 +166,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def plan_text(plan) -> str:
+    return (f"route {plan.route}, tile {plan.bm}x{plan.bn}x{plan.bk} x {plan.stages} stages, grid "
+            f"{plan.grid[0]}x{plan.grid[1]} of {plan.threads} threads, {plan.smem_bytes} B of shared memory")
+
+
+def check_plan(plan, dtype) -> None:
+    """A recipe shape must take the TMA route, and the plan's shared memory
+    must be the one the source sets (``tk_gemm_smem``)."""
+    import torch
+
+    from tfkaldi_tpu_torch.ops import _build
+
+    if plan.route != "tma":
+        raise AssertionError(f"a recipe shape took the {plan.route} route")
+    want = _build.load().tk_gemm_smem(int(dtype == torch.bfloat16))
+    if plan.smem_bytes != want:
+        raise AssertionError(f"gemm_plan's shared memory {plan.smem_bytes} B, the source's {want} B")
+
+
 def check_ffn(card: str) -> dict:
-    """Kernel vs plain at the DNN's layer shapes. f32: both contract in
-    full f32 (TF32 off), differing only in summation order, so 1e-4
-    absolute on O(1..10) outputs is far above the ~1e-6 seen and far below
-    any wrong-tile error. bf16: outputs are rounded to bf16, whose spacing
-    at the outputs' magnitude (< 16) is at most 0.0625; the two sides round
-    f32 sums that differ in order, so they may land one spacing apart."""
+    """Kernel 1 vs plain at the DNN's layer shapes, f32 and bf16. f32: both
+    contract in full f32 (TF32 off), differing only in summation order, so
+    1e-4 absolute on O(1..10) outputs is far above the ~1e-6 seen and far
+    below any wrong-tile error. bf16: outputs are rounded to bf16, whose
+    spacing at the outputs' magnitude (< 16) is at most 0.0625; the two
+    sides round f32 sums that differ in order, so they may land one spacing
+    apart. Every case takes the TMA route (printed with its tile, grid and
+    shared memory). Returns the rows of [8192,2048]x[2048,2048] per dtype."""
     import torch
 
     from tfkaldi_tpu_torch.ops import fused_mlp
+    from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan
 
     gen = torch.Generator().manual_seed(0)
-    result = None
-    # the served path's decode batches, f32 and bf16
-    cases = [(8192, k, dtype) for k in (440, 2048) for dtype in (torch.float32, torch.bfloat16)]
-    # the validation forward of the training path: whole 128 x 512 batches, f32
-    cases += [(65536, 440, torch.float32), (65536, 2048, torch.float32)]
+    rows = {}
+    # the served path's decode batches and the training paths' validation
+    # batches (whole 128 x 512 batches), f32 and bf16
+    cases = [(n, k, dtype) for dtype in (torch.float32, torch.bfloat16) for n in (8192, 65536) for k in (440, 2048)]
     m = HIDDEN_UNITS
     for n, k, dtype in cases:
         x = torch.randn(n, k, generator=gen).to("cuda", dtype)
@@ -181,9 +211,14 @@ def check_ffn(card: str) -> dict:
         b = (torch.randn(m, generator=gen) * 0.1).cuda()
         scale = (torch.rand(m, generator=gen) + 0.5).cuda()
         shift = (torch.randn(m, generator=gen) * 0.1).cuda()
+        plan = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr()))
+        check_plan(plan, dtype)
+        before = fused_mlp.launches_by_route["tma"]
         got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=True)
         want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=True)
         torch.cuda.synchronize()
+        if fused_mlp.launches_by_route["tma"] != before + 1:
+            raise AssertionError("fused_ffn did not launch on the TMA route")
         err = (got.float() - want.float()).abs().max().item()
         name = str(dtype).replace("torch.", "")
         kernel_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block(x, w, b, scale, shift))
@@ -194,16 +229,16 @@ def check_ffn(card: str) -> dict:
                    PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
         log(f"fused_ffn [{n},{k}]x[{k},{m}] {name}: max|diff| {err!r} (tol {FFN_TOL[name]}), "
             f"kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, library (torch.matmul) "
-            f"{library_ms!r} ms, bound {b_['bound_ms']!r} ms by {b_['bound_by']}, "
-            f"launches {fused_mlp.launches} [{card}]")
+            f"{library_ms!r} ms ({kernel_ms / library_ms!r}x), bound {b_['bound_ms']!r} ms by {b_['bound_by']}; "
+            f"{plan_text(plan)} [{card}]")
         if not err <= FFN_TOL[name]:
             raise AssertionError(f"fused_ffn {name} [{n},{k},{m}]: max|diff| {err} > {FFN_TOL[name]}")
-        if (n, k, dtype) == (8192, 2048, torch.float32):  # the served path's dominant layer
-            result = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, **b_}
+        if (n, k) == (8192, 2048):  # the served path's dominant layer
+            rows[name] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, **b_}
         del x, w, got, want
         torch.cuda.empty_cache()
-    return result
+    return rows
 
 
 def check_framing(card: str) -> dict:
@@ -234,23 +269,29 @@ def check_framing(card: str) -> dict:
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, **b_}
 
 
-def check_bn_dgrad(card: str) -> dict:
+def check_bn_dgrad(card: str) -> tuple[dict, dict]:
     """Kernel 3 vs plain at the training step's shapes (N = 128 x 512
-    frames). dz is the same f32 arithmetic in the same order on both sides
-    (no FMA contraction), dh a 2048- or 440-term f32 sum in another order:
-    1e-5 of max|ref| is far above that and far below any wrong-tile error.
-    bf16: both round f32 values that may differ in the last bits to bf16,
-    so they may land one bf16 step (2^-7 of the largest magnitude) apart.
-    ``library_ms`` is ``torch.matmul(dz, w.t())`` alone, the product
-    without the BN prologue."""
+    frames), f32 and bf16: w [2048,2048] and [440,2048] with dh, and the
+    dz-only launch of the first layer; bf16 also at N = 8192, the shape of
+    earlier runs. dz is the same f32 arithmetic in the same order on both
+    sides (no FMA contraction), dh a 2048- or 440-term f32 sum in another
+    order: 1e-5 of max|ref| is far above that and far below any wrong-tile
+    error. bf16: both round f32 values that may differ in the last bits to
+    bf16, so they may land one bf16 step (2^-7 of the largest magnitude)
+    apart. Every case takes the vector dz pass and, with dh, the TMA route.
+    ``library_ms`` is ``torch.matmul(dz, w.t())`` alone, the product without
+    the dz pass. Returns the rows of w [2048,2048] and the dz-only times,
+    per dtype."""
     import torch
 
     from tfkaldi_tpu_torch.ops import bn_fused_bwd as bf
+    from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan
 
     gen = torch.Generator().manual_seed(2)
-    result = None
-    cases = [(65536, 2048, 2048, torch.float32, True), (65536, 2048, 440, torch.float32, True),
-             (65536, 2048, 440, torch.float32, False), (8192, 2048, 2048, torch.bfloat16, True)]
+    rows, dz_only_ms = {}, {}
+    cases = [(65536, 2048, k, dtype, need_dh) for dtype in (torch.float32, torch.bfloat16)
+             for k, need_dh in ((2048, True), (440, True), (440, False))]
+    cases.append((8192, 2048, 2048, torch.bfloat16, True))
     for n, h, k, dtype, need_dh in cases:
         mask = (torch.arange(n) % 512 < 400).float().cuda()  # 400 real frames of 512
         g = (torch.randn(n, h, generator=gen).cuda() * mask[:, None] * 1e-3).to(dtype)
@@ -262,9 +303,19 @@ def check_bn_dgrad(card: str) -> dict:
         c1 = (torch.randn(h, generator=gen) * 1e-5).cuda()
         c2 = (torch.randn(h, generator=gen) * 1e-5).cuda()
         args = (g, z, mask, w, mean, r, beta, c1, c2)
+        wt = w.to(dtype)
+        route = "tma" if need_dh else "dz"
+        before = bf.launches_by_route[route]
         dh, dz = bf.bn_dgrad(*args, need_dh=need_dh)
         dh0, dz0 = bf.bn_dgrad_ref(*args, dtype, need_dh=need_dh)
         torch.cuda.synchronize()
+        if bf.launches_by_route[route] != before + 1:
+            raise AssertionError(f"bn_dgrad did not launch on the {route} route")
+        plan_note = "dz pass alone"
+        if need_dh:
+            plan = gemm_plan(n, h, k, dtype, "k", (dz.data_ptr(), wt.data_ptr()))
+            check_plan(plan, dtype)
+            plan_note = "dz pass, then the product on " + plan_text(plan)
         name = str(dtype).replace("torch.", "")
         errs = {"dz": (dz.float() - dz0.float()).abs().max().item()}
         if need_dh:
@@ -273,25 +324,26 @@ def check_bn_dgrad(card: str) -> dict:
                   errs.get("dh", 0.0) / (dh0.float().abs().max().item() if need_dh else 1.0))
         kernel_ms = ms_per_call(lambda: bf.bn_dgrad(*args, need_dh=need_dh))
         plain_ms = ms_per_call(lambda: bf.bn_dgrad_ref(*args, dtype, need_dh=need_dh))
-        wt = w.to(dtype)
         library_ms = ms_per_call(lambda: torch.matmul(dz0, wt.t())) if need_dh else None
         flops = (2 * n * h * k if need_dh else 0) + 10 * n * h
-        b_ = bound(flops, nbytes(g, z, mask, wt, mean, r, beta, c1, c2, dz, dh),
+        b_ = bound(flops, nbytes(g, z, mask, wt if need_dh else None, mean, r, beta, c1, c2, dz, dh),
                    PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+        ratio = f" ({kernel_ms / library_ms!r}x)" if need_dh else ""
         log(f"bn_dgrad g,z [{n},{h}] w [{k},{h}] {name}{'' if need_dh else ' (dz only)'}: "
             f"max|diff| {errs!r}, /max|ref| {rel!r} (tol {BN_TOL[name]}), kernel {kernel_ms!r} ms, "
-            f"plain {plain_ms!r} ms, library {library_ms!r} ms, bound {b_['bound_ms']!r} ms by "
-            f"{b_['bound_by']} [{card}]")
-        if not rel <= BN_TOL[name]:
-            raise AssertionError(f"bn_dgrad {name} [{n},{h},{k}]: {errs} (/max|ref| {rel}) > {BN_TOL[name]}")
-        if (k, dtype, need_dh) == (2048, torch.float32, True):  # 5 of the 6 launches of a step
-            result = {"max_abs_err": max(errs.values()), "ms": kernel_ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, **b_}
-        if (k, dtype, need_dh) == (440, torch.float32, False):  # the first layer's launch
-            result_dz_only_ms = kernel_ms
+            f"plain {plain_ms!r} ms, library {library_ms!r} ms{ratio}, bound {b_['bound_ms']!r} ms by "
+            f"{b_['bound_by']}; {plan_note} [{card}]")
+        if not rel <= BN_TOL[name] or not torch.equal(dz, dz0):
+            raise AssertionError(f"bn_dgrad {name} [{n},{h},{k}]: {errs} (/max|ref| {rel}) > {BN_TOL[name]} "
+                                 f"or dz not bit-equal")
+        if (n, k, need_dh) == (65536, 2048, True):  # 5 of the 6 launches of a step
+            rows[name] = {"max_abs_err": max(errs.values()), "ms": kernel_ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, **b_}
+        if not need_dh:  # the first layer's launch
+            dz_only_ms[name] = kernel_ms
         del args, g, z, dh, dz, dh0, dz0
         torch.cuda.empty_cache()
-    return result, result_dz_only_ms
+    return rows, dz_only_ms
 
 
 def _rnn_cell(cell: str):
@@ -491,6 +543,35 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
     return rows
 
 
+def reset_counts() -> None:
+    """Every kernel's launch counts to 0 (per route too), just before a path
+    is driven."""
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+
+    fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
+    for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route):
+        for route in counts:
+            counts[route] = 0
+    for c in (lstm_bidi.CELL, gru_bidi.CELL):
+        c.fwd_persistent_launches = c.fwd_launches = c.bwd_launches = 0
+
+
+def check_dnn_routes(tag: str, steps: int) -> None:
+    """A DNN training path's kernel-1 and kernel-3 launches by route: every
+    kernel-1 launch (validation, decode) on the TMA route; kernel 3 once per
+    hidden layer per step, layers 1-5 on the TMA route and layer 0 (whose
+    input needs no gradient) on the dz pass alone; no SIMT edge launch."""
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp
+
+    ffn, bn = dict(fused_mlp.launches_by_route), dict(bn_fused_bwd.launches_by_route)
+    log(f"{tag} launches by route: fused_ffn {ffn}, bn_dgrad {bn} ({steps} train steps)")
+    if not (ffn["tma"] > 0 and ffn["simt"] == 0):
+        raise AssertionError(f"{tag}: fused_ffn routes {ffn}, want all on tma")
+    if bn != {"tma": (HIDDEN_LAYERS - 1) * steps, "dz": steps, "simt": 0}:
+        raise AssertionError(f"{tag}: bn_dgrad routes {bn}, want tma {(HIDDEN_LAYERS - 1) * steps}, dz {steps}")
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the paths' kernel call sites to their plain versions."""
@@ -518,7 +599,6 @@ def plain_versions():
 def train_path(card: str) -> tuple[dict, dict]:
     """The training path at full width through the CLI; returns the launch
     counts of its run and the workspace."""
-    import numpy as np
     import torch
 
     from tfkaldi_tpu_torch import synthetic
@@ -537,7 +617,7 @@ def train_path(card: str) -> tuple[dict, dict]:
     log(f"training workspace: {TRAIN_UTTS} + 32 wavs of 2-5.1 s, 440 -> {HIDDEN_LAYERS}x{HIDDEN_UNITS} "
         f"-> {NUM_PDFS}, [nnet] overrides {TRAIN_NNET}: {time.perf_counter() - t0!r} s")
 
-    fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli_main.main(["--config", ws["cfg_path"], "--steps",
@@ -559,39 +639,97 @@ def train_path(card: str) -> tuple[dict, dict]:
     if launches["bn_dgrad"] != HIDDEN_LAYERS * len(steps):
         raise AssertionError(f"bn_dgrad launched {launches['bn_dgrad']} times, want "
                              f"{HIDDEN_LAYERS} x {len(steps)} steps")
-    loss0 = steps[0]["loss"]
-    log(f"step-0 loss {loss0!r} vs ln {NUM_PDFS} = {math.log(NUM_PDFS)!r} (tol 1e-4; exact for the "
-        f"zero output layer); losses {[round(st['loss'], 6) for st in steps]}")
-    if not abs(loss0 - math.log(NUM_PDFS)) <= 1e-4:
-        raise AssertionError(f"step-0 loss {loss0} is not ln {NUM_PDFS}")
-    warm = steps[1:]
-    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
-    frames = sorted(st["num_frames"] for st in warm)[len(warm) // 2]
-    log(f"train step (median of {len(warm)} after the first, host clock, data wait included): "
-        f"{step_s!r} s, {frames / step_s!r} frames/s at ~{frames} real frames per 65,536-row batch; "
-        f"native ark loader (decode stream) in use: {native.available()} [{card}]")
-
-    prior = np.load(os.path.join(savedir, "prior.npy"))
-    if prior.shape != (NUM_PDFS,) or not abs(float(prior.sum()) - 1.0) <= 1e-5:
-        raise AssertionError(f"prior.npy: shape {prior.shape}, sum {prior.sum()}")
-    for name in ("final.pt", os.path.join("training", "step2.pt"), os.path.join("training", "validated.pt")):
-        if not os.path.isfile(os.path.join(savedir, name)):
-            raise AssertionError(f"training wrote no {name}")
-    feats = read_ark(os.path.join(ws["test_featdir"], "feats.scp"))
-    likes = read_ark(os.path.join(savedir, "decode", "feats.scp"))
-    if list(likes) != list(feats):
-        raise AssertionError("test_nnet: the likelihood ark does not cover the test set")
-    for utt, m in likes.items():
-        if m.shape != (feats[utt].shape[0], NUM_PDFS) or not np.isfinite(m).all():
-            raise AssertionError(f"test_nnet {utt}: likelihoods shape {m.shape} or non-finite")
-    log(f"test_nnet decoded the trained final.pt: {len(likes)} utterances, "
-        f"{sum(m.shape[0] for m in likes.values())} frames, all finite")
+    check_dnn_routes("training path", len(steps))
+    check_cli_run(card, "training path", ws, savedir, steps,
+                  f"; native ark loader (decode stream) in use: {native.available()}")
     return launches, ws
 
 
-def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) -> None:
-    """From the step-2 checkpoint, with the kernels and through
-    ``plain_versions()``:
+def check_cli_run(card: str, tag: str, ws: dict, savedir: str, steps: list, note: str = "") -> None:
+    """What a ``train_nnet,test_nnet`` run through the CLI must leave in
+    ``savedir``: a step-0 loss of ln 2000 (the output layer starts at zero),
+    the prior and the checkpoints, and a likelihood ark that covers the test
+    set with finite values of the right shape. Logs the median step on the
+    host clock, with ``note`` appended."""
+    import numpy as np
+
+    loss0 = steps[0]["loss"]
+    log(f"{tag} step-0 loss {loss0!r} vs ln {NUM_PDFS} = {math.log(NUM_PDFS)!r} (tol 1e-4; exact for the "
+        f"zero output layer); losses {[round(st['loss'], 6) for st in steps]}")
+    if not abs(loss0 - math.log(NUM_PDFS)) <= 1e-4:
+        raise AssertionError(f"{tag}: step-0 loss {loss0} is not ln {NUM_PDFS}")
+    warm = steps[1:]
+    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
+    frames = sorted(st["num_frames"] for st in warm)[len(warm) // 2]
+    log(f"{tag} train step (median of {len(warm)} after the first, host clock, data wait included): "
+        f"{step_s!r} s, {frames / step_s!r} frames/s at ~{frames} real frames a batch{note} [{card}]")
+    prior = np.load(os.path.join(savedir, "prior.npy"))
+    if prior.shape != (NUM_PDFS,) or not abs(float(prior.sum()) - 1.0) <= 1e-5:
+        raise AssertionError(f"{tag} prior.npy: shape {prior.shape}, sum {prior.sum()}")
+    for name in ("final.pt", os.path.join("training", "step2.pt"), os.path.join("training", "validated.pt")):
+        if not os.path.isfile(os.path.join(savedir, name)):
+            raise AssertionError(f"{tag}: training wrote no {name}")
+    feats = read_ark(os.path.join(ws["test_featdir"], "feats.scp"))
+    likes = read_ark(os.path.join(savedir, "decode", "feats.scp"))
+    if list(likes) != list(feats):
+        raise AssertionError(f"{tag} test_nnet: the likelihood ark does not cover the test set")
+    for utt, m in likes.items():
+        if m.shape != (feats[utt].shape[0], NUM_PDFS) or not np.isfinite(m).all():
+            raise AssertionError(f"{tag} test_nnet {utt}: likelihoods shape {m.shape} or non-finite")
+    log(f"{tag} test_nnet decoded the trained final.pt: {len(likes)} utterances, "
+        f"{sum(m.shape[0] for m in likes.values())} frames, all finite")
+
+
+def bf16_dnn_path(card: str, ws: dict) -> tuple[dict, object, str]:
+    """bench.py's configuration at full width through the CLI: the
+    workspace's 440 -> 6x2048 relu+BN -> 2000 ``[nnet]`` with
+    ``compute_dtype = bfloat16`` (bench.py:48) and its own savedir, ``cli.main
+    --steps train_nnet,test_nnet`` on the training workspace's features and
+    alignments, the same three keys lowered (6 steps). Counts reset before,
+    read after: kernel 3 launches 6 per train step (layers 1-5 on the TMA
+    route, layer 0 on the dz pass alone), every kernel-1 launch (validation,
+    decode) on the TMA route; the step-0 loss is ln 2000; the ark covers the
+    test set and is finite. Returns the launches, the config and the
+    savedir."""
+    from configparser import ConfigParser
+
+    import torch
+
+    from tfkaldi_tpu_torch.cli import main as cli_main
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp
+
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    for key, value in BF16_DNN_NNET.items():
+        config.set("nnet", key, value)
+    cfg_path = os.path.join(TRAIN_WORK, "config_dnn_bf16.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), BF16_DNN_NNET["name"])
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main bf16 DNN path: rc {rc}")
+    launches = {"fused_ffn": fused_mlp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    log(f"bf16 DNN path launches: {launches}; {len(steps)} train steps (replays after a rollback included); "
+        f"whole run {run_s!r} s")
+    check_dnn_routes("bf16 DNN path", len(steps))  # kernel 3: 6 launches a step
+    check_cli_run(card, "bf16 DNN path", ws, savedir, steps)
+    return launches, config, savedir
+
+
+def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float, config=None,
+                     savedir: str | None = None) -> None:
+    """From the step-2 checkpoint of ``savedir`` (the training path's by
+    default) with ``config``'s ``[nnet]`` (the workspace's by default), with
+    the kernels and through ``plain_versions()``:
 
     - the validation pass (``Trainer.evaluate`` over the run's validation
       batches, whose loss decides a rollback) runs the eval forward, six
@@ -602,7 +740,18 @@ def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) ->
       forward is the same code on both sides, so the loss agrees to f32
       rounding (1e-5 relative). The gradients differ by the summation order
       of dh = dz @ w^T (kernel vs cuBLAS) carried back through six layers
-      and their wgrads: every gradient within 1e-4 of its max|ref|.
+      and their wgrads: every gradient within 1e-4 of its max|ref|, and the
+      BN layers' bias gradients (exactly 0 in exact arithmetic) below
+      BN_BIAS_NOISE of the layer's beta gradient on both sides.
+
+    In bf16 each layer's output is rounded to bf16 on both sides from f32
+    sums taken in another order, so an output can land one bf16 step apart
+    (2^-8 relative) and carry on through the six layers: the validation
+    loss and the eval logits (max|diff| / max|ref|) within BF16_STEP_TOL,
+    and every gradient within BF16_STEP_TOL of its max|ref| (the tolerance
+    of tests/test_torch_cuda_kernels.py's bf16 kernel-vs-plain step). The
+    bias gradients there are sums of 65,536 bf16-rounded dz values on both
+    sides; their ratio to the beta gradient is printed, not bounded.
 
     Then the step is timed by parts (CUDA events)."""
     import torch
@@ -617,7 +766,9 @@ def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) ->
     from tfkaldi_tpu_torch.train import checkpoint as ckpt
     from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    config, featdir = ws["config"], ws["train_featdir"]
+    config = ws["config"] if config is None else config
+    savedir = ws["savedir"] if savedir is None else savedir
+    featdir = ws["train_featdir"]
     with open(os.path.join(featdir, "maxlength")) as f:
         max_length = int(f.read())
     reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
@@ -630,9 +781,12 @@ def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) ->
                    for _ in range(config.getint("nnet", "valid_batches"))]
     batch = dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
     reader.close()
-    trainer = Trainer(DNNConfig.from_config(dict(config.items("nnet")), 440, NUM_PDFS),
-                      TrainerConfig(num_steps=6), device="cuda")
-    state = ckpt.restore_state(os.path.join(ws["savedir"], "training", "step2.pt"), trainer.init_state(0))
+    dcfg = DNNConfig.from_config(dict(config.items("nnet")), 440, NUM_PDFS)
+    bf16 = dcfg.compute_dtype == torch.bfloat16
+    tag = "bf16 DNN" if bf16 else "DNN"
+    loss_tol, grad_tol = (BF16_STEP_TOL, BF16_STEP_TOL) if bf16 else (STEP_LOSS_TOL, STEP_GRAD_TOL)
+    trainer = Trainer(dcfg, TrainerConfig(num_steps=6), device="cuda")
+    state = ckpt.restore_state(os.path.join(savedir, "training", "step2.pt"), trainer.init_state(0))
 
     before = fused_mlp.launches
     val_loss = trainer.evaluate(state, val_batches)
@@ -647,14 +801,18 @@ def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) ->
         raise AssertionError("the kernel side of the validation pass did not launch fused_ffn once per layer")
     val_rel = abs(val_loss - val_loss0) / abs(val_loss0)
     logit_err = (logits - logits0).abs().max().item()
-    log(f"validation pass over {len(val_batches)} batches of [{val_batches[0].inputs.shape[0]}x"
+    logit_tol = LIKE_TOL
+    if bf16:  # relative to the logits' magnitude
+        logit_err /= logits0.abs().max().item()
+        logit_tol = BF16_STEP_TOL
+    log(f"{tag} validation pass over {len(val_batches)} batches of [{val_batches[0].inputs.shape[0]}x"
         f"{val_batches[0].inputs.shape[1]}, 440] from the step-2 checkpoint, kernels vs plain: loss "
-        f"{val_loss!r} vs {val_loss0!r} (rel {val_rel!r}, tol {STEP_LOSS_TOL}); eval logits of the first "
-        f"batch max|diff| {logit_err!r} (tol {LIKE_TOL})")
-    if not val_rel <= STEP_LOSS_TOL:
-        raise AssertionError(f"validation loss differs from the plain versions: rel {val_rel}")
-    if not logit_err <= LIKE_TOL:
-        raise AssertionError(f"eval logits differ from the plain versions: {logit_err}")
+        f"{val_loss!r} vs {val_loss0!r} (rel {val_rel!r}, tol {loss_tol}); eval logits of the first "
+        f"batch max|diff|{' / max|ref|' if bf16 else ''} {logit_err!r} (tol {logit_tol})")
+    if not val_rel <= loss_tol:
+        raise AssertionError(f"{tag} validation loss differs from the plain versions: rel {val_rel}")
+    if not logit_err <= logit_tol:
+        raise AssertionError(f"{tag} eval logits differ from the plain versions: {logit_err}")
     del logits, logits0
 
     before = bn_fused_bwd.launches
@@ -675,16 +833,16 @@ def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) ->
     errs = {name: ((grads[name] - g0).abs().max() / g0.abs().max().clamp(min=1e-30)).item()
             for name, g0 in grads0.items() if not (name.startswith("hidden.") and name.endswith(".b"))}
     worst = max(errs, key=errs.get)
-    log(f"one step at [{batch.inputs.shape[0]}x{batch.inputs.shape[1]}, 440] from the step-2 checkpoint, "
+    log(f"{tag} one step at [{batch.inputs.shape[0]}x{batch.inputs.shape[1]}, 440] from the step-2 checkpoint, "
         f"kernels vs plain: loss {loss.item()!r} vs {loss0.item()!r} (rel {loss_rel!r}, tol "
         f"{STEP_LOSS_TOL}); gradients max|diff|/max|ref| worst {worst} {errs[worst]!r} (tol "
-        f"{STEP_GRAD_TOL}), all {errs!r}; BN-layer bias gradients / max|dbeta| {bias_noise!r} "
-        f"(noise, tol {BN_BIAS_NOISE})")
+        f"{grad_tol}), all {errs!r}; BN-layer bias gradients / max|dbeta| {bias_noise!r} "
+        f"({'printed' if bf16 else f'noise, tol {BN_BIAS_NOISE}'})")
     if not loss_rel <= STEP_LOSS_TOL:
-        raise AssertionError(f"step loss differs from the plain versions: rel {loss_rel}")
-    if not errs[worst] <= STEP_GRAD_TOL:
-        raise AssertionError(f"gradient {worst} differs from the plain versions: {errs[worst]}")
-    if not max(bias_noise.values()) <= BN_BIAS_NOISE:
+        raise AssertionError(f"{tag} step loss differs from the plain versions: rel {loss_rel}")
+    if not errs[worst] <= grad_tol:
+        raise AssertionError(f"{tag} gradient {worst} differs from the plain versions: {errs[worst]}")
+    if not bf16 and not max(bias_noise.values()) <= BN_BIAS_NOISE:
         raise AssertionError(f"a BN-layer bias gradient is not noise-level: {bias_noise}")
 
     # ---- where a step's time goes (CUDA events, 3 calls after 3 warm-ups) ----
@@ -707,10 +865,10 @@ def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float) ->
     )
     bn_total = (HIDDEN_LAYERS - 1) * bn_ms + bn_dz_only_ms
     rest = grad_ms - fwd_ms - bn_total - wgrad_ms
-    log(f"train step at {n} rows ({int(frames.item())} real frames): update {step_ms!r} ms "
+    log(f"{tag} train step at {n} rows ({int(frames.item())} real frames): update {step_ms!r} ms "
         f"({frames.item() / step_ms * 1e3!r} frames/s), of which forward {fwd_ms!r} ms, kernel-3 "
         f"launches {bn_total!r} ms (5 x {bn_ms!r} + dz-only {bn_dz_only_ms!r}), wgrad GEMMs "
-        f"{wgrad_ms!r} ms (cuBLAS f32), other backward (output-layer dgrad, BN pass 1, CE) "
+        f"{wgrad_ms!r} ms (cuBLAS f32{' on widened bf16 values' if bf16 else ''}), other backward (output-layer dgrad, BN pass 1, CE) "
         f"{rest!r} ms, Adam {step_ms - grad_ms!r} ms; forward+backward with the plain kernel-3 "
         f"version {grad_plain_ms!r} ms vs {grad_ms!r} ms with the kernel [{card}]")
 
@@ -732,7 +890,6 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
     launches, the config's path and the model dir."""
     from configparser import ConfigParser
 
-    import numpy as np
     import torch
 
     from tfkaldi_tpu_torch import synthetic
@@ -751,9 +908,7 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
     savedir = os.path.join(config.get("directories", "expdir"), nnet["name"])
 
     cells = (lstm_bidi.CELL, gru_bidi.CELL)
-    for c in cells:
-        c.fwd_persistent_launches = c.fwd_launches = c.bwd_launches = 0
-    fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
@@ -783,29 +938,7 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
                              f"{RNN_LAYERS * len(steps)} of training (validation and decode launch it too)")
     if any(other.values()):
         raise AssertionError(f"the bi{cell} path launched another path's kernels: {other}")
-    loss0 = steps[0]["loss"]
-    log(f"bi{cell} step-0 loss {loss0!r} vs ln {NUM_PDFS} = {math.log(NUM_PDFS)!r} (tol 1e-4); losses "
-        f"{[round(st['loss'], 6) for st in steps]}")
-    if not abs(loss0 - math.log(NUM_PDFS)) <= 1e-4:
-        raise AssertionError(f"bi{cell} step-0 loss {loss0} is not ln {NUM_PDFS}")
-    warm = steps[1:]
-    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
-    frames = sorted(st["num_frames"] for st in warm)[len(warm) // 2]
-    log(f"bi{cell} train step (median of {len(warm)} after the first, host clock, data wait included): "
-        f"{step_s!r} s, {frames / step_s!r} frames/s [{card}]")
-    prior = np.load(os.path.join(savedir, "prior.npy"))
-    if prior.shape != (NUM_PDFS,) or not abs(float(prior.sum()) - 1.0) <= 1e-5:
-        raise AssertionError(f"bi{cell} prior.npy: shape {prior.shape}, sum {prior.sum()}")
-    for name in ("final.pt", os.path.join("training", "step2.pt"), os.path.join("training", "validated.pt")):
-        if not os.path.isfile(os.path.join(savedir, name)):
-            raise AssertionError(f"bi{cell} training wrote no {name}")
-    feats = read_ark(os.path.join(ws["test_featdir"], "feats.scp"))
-    likes = read_ark(os.path.join(savedir, "decode", "feats.scp"))
-    if list(likes) != list(feats):
-        raise AssertionError(f"bi{cell} test_nnet: the likelihood ark does not cover the test set")
-    for utt, m in likes.items():
-        if m.shape != (feats[utt].shape[0], NUM_PDFS) or not np.isfinite(m).all():
-            raise AssertionError(f"bi{cell} test_nnet {utt}: likelihoods shape {m.shape} or non-finite")
+    check_cli_run(card, f"bi{cell} path", ws, savedir, steps)
     return launches, cfg_path, savedir
 
 
@@ -1034,6 +1167,7 @@ def main() -> int:
     ffn = check_ffn(card)
     framing = check_framing(card)
     bn, bn_dz_only_ms = check_bn_dgrad(card)
+    log(f"ptxas (-Xptxas -v) of the build: {os.path.relpath(_build.ptxas_report_path(_build.library_path()), ROOT)}")
     rnn_rows = {cell: check_rnn_kernels(card, cell) for cell in ("lstm", "gru")}
     log(f"phase kernels vs plain: {time.perf_counter() - t0!r} s")
 
@@ -1049,8 +1183,7 @@ def main() -> int:
     spool_out = os.path.join(WORK, "spool", "out")
     log(f"workspace: {cfg_path} (440 -> {HIDDEN_LAYERS}x{HIDDEN_UNITS} -> {NUM_PDFS}, batchnorm)")
 
-    fused_mlp.launches = 0
-    fp.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli_main.main(["--config", cfg_path, "--steps", "dnn_train_features,dnn_test_features"])
@@ -1158,8 +1291,14 @@ def main() -> int:
     # ---- training path at full width ----
     t0 = time.perf_counter()
     train_launches, train_ws = train_path(card)
-    check_train_step(card, train_ws, bn["ms"], bn_dz_only_ms)
+    check_train_step(card, train_ws, bn["float32"]["ms"], bn_dz_only_ms["float32"])
     log(f"phase training path: {time.perf_counter() - t0!r} s")
+
+    # ---- bench.py's bf16 DNN at full width ----
+    t0 = time.perf_counter()
+    bf16_launches, bf16_config, bf16_savedir = bf16_dnn_path(card, train_ws)
+    check_train_step(card, train_ws, bn["bfloat16"]["ms"], bn_dz_only_ms["bfloat16"], bf16_config, bf16_savedir)
+    log(f"phase bf16 DNN path: {time.perf_counter() - t0!r} s")
 
     # ---- the BiLSTM and BiGRU hybrid paths at full width ----
     rnn_launches = {}
@@ -1170,15 +1309,20 @@ def main() -> int:
         rnn_launches.update(cell_launches)
         log(f"phase bi{cell} path: {time.perf_counter() - t0!r} s")
 
-    # launches: the served path's and the training path's runs together
+    # launches: f32, the served path's and the training path's runs
+    # together; bf16, the bf16 DNN path's run
     total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
     kernels = [
-        dict(name="fused_ffn", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
-             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=total["fused_ffn"], **ffn),
+        dict(name="fused_ffn_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
+             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=total["fused_ffn"], **ffn["float32"]),
+        dict(name="fused_ffn_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
+             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=bf16_launches["fused_ffn"], **ffn["bfloat16"]),
         dict(name="frame_preemph", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/frame_preemph.cu",
              replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=total["frame_preemph"], **framing),
-        dict(name="bn_dgrad", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
-             replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=total["bn_dgrad"], **bn),
+        dict(name="bn_dgrad_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
+             replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=total["bn_dgrad"], **bn["float32"]),
+        dict(name="bn_dgrad_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
+             replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=bf16_launches["bn_dgrad"], **bn["bfloat16"]),
     ]
     for cell, kernel_file, lines in (("lstm", "pallas_lstm.py", (103, 255)), ("gru", "pallas_gru.py", (71, 212))):
         for part, line in zip(("fwd", "bwd"), lines):

@@ -14,6 +14,13 @@ bit-equal (both round ``x - c*prev`` twice in f64, no FMA). BN backward
 (kernel 3): dz bit-equal (the same f32 operations in the same order, no
 FMA contraction), dh within 1e-5 of max|ref| in f32 (sums in another
 order) and one bf16 step (2^-7 of max|ref|) in bf16.
+
+Kernels 1 and 3 run their products on the GEMM core of
+``csrc/gemm_sm90.cuh``; each case names the route ``ops.gemm_plan`` gives
+its shape (``tma``: TMA + wgmma for bf16, TMA + FMA for f32; ``simt``: the
+edge route for row pitches that are not multiples of 16 bytes, or
+misaligned views) and asserts that the launch was counted on it. Kernel 1
+reads w as an MN-major B, kernel 3 reads w as a K-major B.
 """
 
 import dataclasses
@@ -49,19 +56,41 @@ def _ffn_operands(seed, n, k, m, device):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
-@pytest.mark.parametrize("n,k,m", [(300, 440, 257), (129, 7, 5), (1024, 2048, 2000)])
+@pytest.mark.parametrize("n,k,m,route", [
+    (300, 440, 257, "simt"), (129, 7, 5, "simt"),
+    (1024, 2048, 2000, "tma"),  # ragged N: 2000 columns of 128- / 256-wide tiles
+    (1000, 440, 2048, "tma"),  # ragged rows and depth (440 = 6.9 bf16 / 13.75 f32 stages)
+    (128, 64, 256, "tma"),  # one tile, one stage
+])
 @pytest.mark.parametrize("affine,relu", [(True, True), (False, False)])
-def test_fused_ffn_matches_plain(cuda, dtype, tol, n, k, m, affine, relu):
+def test_fused_ffn_matches_plain(cuda, dtype, tol, n, k, m, route, affine, relu):
     x, w, b, scale, shift = _ffn_operands(n + k + m, n, k, m, cuda)
     x, w = x.to(dtype), w.to(dtype)
     if not affine:
         scale = shift = None
-    before = fused_mlp.launches
+    before, by_route = fused_mlp.launches, dict(fused_mlp.launches_by_route)
     got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=relu)
     want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=relu)
     torch.cuda.synchronize()
     assert fused_mlp.launches == before + 1
+    assert fused_mlp.launches_by_route == {**by_route, route: by_route[route] + 1}
     assert got.dtype == dtype and got.shape == (n, m)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
+def test_fused_ffn_misaligned_view_takes_simt(cuda, dtype, tol):
+    """x starting 2 elements into its buffer cannot be a TMA base address:
+    the same product runs on the SIMT route and agrees."""
+    x, w, b, scale, shift = _ffn_operands(7, 256, 64, 256, cuda)
+    buf = torch.empty(256 * 64 + 2, device=cuda, dtype=dtype)
+    view = buf[2:].view(256, 64)
+    view.copy_(x)
+    before = fused_mlp.launches_by_route["simt"]
+    got = fused_mlp.fused_ffn_block(view, w.to(dtype), b, scale, shift)
+    want = fused_mlp.fused_ffn_block_ref(x.to(dtype), w.to(dtype), b, scale, shift)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches_by_route["simt"] == before + 1
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
@@ -141,15 +170,23 @@ def _bn_operands(n, h, k, dtype, device, seed):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
-@pytest.mark.parametrize("n,h,k", [(300, 257, 129), (131, 7, 5), (1024, 2048, 440), (512, 256, 2048)])
+@pytest.mark.parametrize("n,h,k,route", [
+    (300, 257, 129, "simt"), (131, 7, 5, "simt"),
+    (1024, 2048, 440, "tma"),  # ragged N: 440 columns of dh
+    (512, 256, 2048, "tma"),
+    (1000, 64, 256, "tma"),  # ragged rows, one stage
+])
 @pytest.mark.parametrize("need_dh", [True, False])
-def test_bn_dgrad_matches_plain(cuda, dtype, tol, n, h, k, need_dh):
+def test_bn_dgrad_matches_plain(cuda, dtype, tol, n, h, k, route, need_dh):
     args = _bn_operands(n, h, k, dtype, cuda, n + h + k)
-    before = bn_fused_bwd.launches
+    if not need_dh and route == "tma":
+        route = "dz"  # the vector dz pass alone
+    before, by_route = bn_fused_bwd.launches, dict(bn_fused_bwd.launches_by_route)
     dh, dz = bn_fused_bwd.bn_dgrad(*args, need_dh=need_dh)
     dh0, dz0 = bn_fused_bwd.bn_dgrad_ref(*args, dtype, need_dh=need_dh)
     torch.cuda.synchronize()
     assert bn_fused_bwd.launches == before + 1
+    assert bn_fused_bwd.launches_by_route == {**by_route, route: by_route[route] + 1}
     assert dz.dtype == dtype and torch.equal(dz, dz0)
     if not need_dh:
         assert dh is None

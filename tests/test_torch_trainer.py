@@ -289,3 +289,78 @@ def test_unsupported_losses_and_specaugment_raise(tmp_path):
         Nnet(config(loss="ctc"), 4, 5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Nnet(config(specaugment="True"), 4, 5, device="cpu").train(dispenser=None)
+
+
+# bench.py's DNN (440 -> 6x2048 relu+BN -> 2000, compute_dtype bfloat16) at
+# a width the CPU runs
+BENCH_SMALL = dict(input_dim=20, num_labels=9, num_hidden_layers=3, num_hidden_units=32, nonlin="relu",
+                   batch_norm=True)
+BF16_RATIO = 2.0  # the rule of tests/test_torch_rnn.py
+
+
+def _rel(a, ref):
+    return float(np.abs(np.asarray(a, np.float64) - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_trajectory_matches_jax(seed):
+    """bench.py's configuration (relu+BN, ``compute_dtype`` bfloat16) at
+    small width: four steps of the port's ``Trainer`` against the JAX
+    ``Trainer`` from one converted state, dropout 1. Both round the products'
+    operands, the pre-activations and the backward's dz to bf16, but sum in
+    another order, so a bf16 rounding can land one step apart and travel on.
+    The yardstick is the bf16 rounding itself: against the JAX f32 run of the
+    same start and batches, every step loss, parameter and Adam slot of the
+    port lies within BF16_RATIO of the JAX bf16 run's own distance (+ 1e-5,
+    the f32 tolerance, for a value the rounding leaves as it is). The hidden
+    biases of the BN layers have an exactly-zero gradient, so their Adam
+    steps follow rounding noise: they only stay within 4 steps of lr
+    (4 lr·√(1−β2)/(1−β1)·4) of the start."""
+    runs = {}
+    for name, cd in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
+        model = JaxDNN(JaxDNNConfig(**BENCH_SMALL, compute_dtype=cd))
+        jtrainer = JaxTrainer(model, JaxTrainerConfig(init_learning_rate=1e-3, num_steps=50))
+        jstate = jtrainer.init_state(jax.random.PRNGKey(seed))
+        rng = np.random.default_rng(seed)
+        params = jax.tree.map(np.asarray, jstate.params)
+        params["out"]["w"] = (rng.standard_normal(params["out"]["w"].shape) * 0.3).astype(np.float32)
+        jstate = dataclasses.replace(jstate, params=jax.tree.map(jnp.asarray, params))
+        runs[name] = [jtrainer, jstate, []]
+    cfg = DNNConfig(**BENCH_SMALL, compute_dtype=torch.bfloat16)
+    state = train_state_from_jax(jax.tree.map(np.asarray, runs["bf16"][1]), cfg)
+    trainer = Trainer(cfg, TrainerConfig(init_learning_rate=1e-3, num_steps=50), device="cpu")
+    rng = np.random.default_rng(10 + seed)
+    losses = []
+    for step in range(4):
+        arrays = _batch(rng, b=4, t=16, f=20, labels=9, lengths=rng.integers(8, 17, 4))
+        for run in runs.values():
+            run[1], jloss = run[0].update(run[1], JaxPaddedBatch(arrays[0], arrays[1], arrays[2], arrays[2]))
+            run[2].append(float(jloss))
+        state, loss = trainer.update(state, _torch(arrays))
+        losses.append(loss.item())
+    f32_cfg = DNNConfig(**BENCH_SMALL)
+    want = {n: train_state_from_jax(jax.tree.map(np.asarray, r[1]), f32_cfg) for n, r in runs.items()}
+    mine, theirs = _rel(losses, np.asarray(runs["f32"][2])), _rel(runs["bf16"][2], np.asarray(runs["f32"][2]))
+    print(f"bf16 step losses: port {mine!r}, JAX {theirs!r} from the f32 run")  # shown with -s
+    assert mine <= BF16_RATIO * theirs + 1e-5, (mine, theirs)
+    assert theirs > 0  # the JAX run did round to bf16
+    got_params = dict(state.model.named_parameters())
+    for name, p in dict(want["f32"].model.named_parameters()).items():
+        got = got_params[name].detach().numpy()
+        jbf = dict(want["bf16"].model.named_parameters())[name].detach().numpy()
+        if name.startswith("hidden.") and name.endswith(".b"):
+            assert np.abs(got).max() <= 4 * 4 * 1e-3 and np.abs(jbf).max() <= 4 * 4 * 1e-3, name
+            continue
+        ref = p.detach().numpy()
+        mine, theirs = _rel(got, ref), _rel(jbf, ref)
+        assert mine <= BF16_RATIO * theirs + 1e-5, (name, mine, theirs)
+        for slot in ("adam_m", "adam_v"):
+            ref = getattr(want["f32"], slot)[name].numpy()
+            mine = _rel(getattr(state, slot)[name].numpy(), ref)
+            theirs = _rel(getattr(want["bf16"], slot)[name].numpy(), ref)
+            assert mine <= BF16_RATIO * theirs + 1e-5, (slot, name, mine, theirs)
+    for name in ("bn_mean", "bn_var"):
+        ref = getattr(want["f32"].model, name).numpy()
+        mine = _rel(getattr(state.model, name).numpy(), ref)
+        theirs = _rel(getattr(want["bf16"].model, name).numpy(), ref)
+        assert mine <= BF16_RATIO * theirs + 1e-5, (name, mine, theirs)

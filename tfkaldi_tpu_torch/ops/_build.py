@@ -39,11 +39,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
-    "tk_fused_ffn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tk_fused_ffn_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # kernels 1 and 3: (..., shape, route (1 = TMA, 0 = SIMT edge), stream)
+    "tk_fused_ffn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tk_fused_ffn_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tk_gemm_smem": [_I],
     "tk_frame_preemph_f64": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_double, _P],
-    "tk_bn_dgrad_f32": [_P] * 11 + [_I, _I, _I, _P],
-    "tk_bn_dgrad_bf16": [_P] * 11 + [_I, _I, _I, _P],
+    "tk_bn_dgrad_f32": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "tk_bn_dgrad_bf16": [_P] * 11 + [_I, _I, _I, _I, _P],
     # the recurrences: (pointer block, mask, dirs, T, B, H[, residuals], stream)
     **{f"tk_{cell}_fwd_{dt}": [_P, _P, _I, _I, _I, _I, _I, _P]
        for cell in ("lstm", "gru") for dt in ("f32", "bf16")},
@@ -87,13 +89,18 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libtk_kernels_{digest.hexdigest()[:16]}.so")
 
 
+def ptxas_report_path(lib_path: str) -> str:
+    """Where the build keeps ``nvcc -Xptxas -v``'s output for a library."""
+    return f"{lib_path}.ptxas.txt"
+
+
 def _compile(lib_path: str) -> None:
     """One ``nvcc -c`` per source, all started together, then one link."""
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.tmp.{os.getpid()}"
     nvcc = _nvcc()
-    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     t0 = time.perf_counter()
     jobs = []
     for src in _sources():
@@ -102,11 +109,15 @@ def _compile(lib_path: str) -> None:
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     objs = []
     failed = []
+    report = []
     for cmd, obj, proc in jobs:
         out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        report.append(f"== {os.path.basename(cmd[-1])}\n{out}{err}")
         objs.append(obj)
+    with open(ptxas_report_path(lib_path), "w") as f:  # registers, shared memory, spills per kernel
+        f.write("\n".join(report))
     try:
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -140,6 +151,10 @@ def load() -> ctypes.CDLL:
 
 
 def check(code: int, name: str) -> None:
-    """Raise if a C entry reported a CUDA error for its launch."""
+    """Raise if a C entry reported a CUDA error for its launch (a negative
+    code: ``cuTensorMapEncodeTiled`` refused a TMA tensor map, ``-CUresult``,
+    or -1000 when its entry point is missing)."""
+    if code < 0:
+        raise RuntimeError(f"{name}: TMA tensor map refused (code {code})")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")

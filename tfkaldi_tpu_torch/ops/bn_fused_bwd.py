@@ -12,9 +12,10 @@ Port of :mod:`tfkaldi_tpu.ops.bn_fused_bwd`. :class:`BnReluLayer` is the
   recomputed from ``bn`` rounded to the compute dtype, ``S1``, ``S2``,
   ``c1 = r·S1/n``, ``c2 = r³·S2/n``, ``dbeta = S1``);
 - backward pass 2: :func:`bn_dgrad`, which on a CUDA tensor launches the
-  hand-written kernel ``csrc/bn_dgrad.cu`` (``dz`` in the prologue of
-  ``dh = dz @ wᵀ``) and on a CPU tensor runs :func:`bn_dgrad_ref`, the plain
-  version that defines its numerics;
+  hand-written kernel ``csrc/bn_dgrad.cu`` (an elementwise ``dz`` pass, then
+  ``dh = dz @ wᵀ`` on the GEMM core of ``csrc/gemm_sm90.cuh``) and on a CPU
+  tensor runs :func:`bn_dgrad_ref`, the plain version that defines its
+  numerics;
 - then ``db = Σdz`` and ``dW = hᵀ @ dz`` (a ``torch.matmul``, as the JAX
   package leaves it to XLA).
 
@@ -28,8 +29,13 @@ import torch
 
 from tfkaldi_tpu_torch.layers import affine, batchnorm, masked_moments
 from tfkaldi_tpu_torch.ops import _build
+from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan, tma_ok
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke.py)
+launches = 0  # wrapper calls that launched the kernel since the last reset (read by chip_smoke.py)
+# the same calls by route: "tma" (vector dz pass + the TMA product), "dz"
+# (vector dz pass alone: need_dh=False), "simt" (scalar dz pass + the SIMT
+# product, or alone): the edge route for rows TMA cannot describe
+launches_by_route = {"tma": 0, "dz": 0, "simt": 0}
 
 _ENTRY = {torch.float32: "tk_bn_dgrad_f32", torch.bfloat16: "tk_bn_dgrad_bf16"}
 
@@ -56,7 +62,11 @@ def bn_dgrad_ref(g, z, mask, w, mean, r, beta, c1, c2, compute_dtype=None, *, ne
 def bn_dgrad(g, z, mask, w, mean, r, beta, c1, c2, *, need_dh: bool = True):
     """``dz`` and (with ``need_dh``) ``dh = dz @ wᵀ`` of a relu+BN layer;
     the compute dtype is ``z.dtype`` (float32 or bfloat16, f32
-    accumulation, never TF32). Shapes as :func:`bn_dgrad_ref`."""
+    accumulation, never TF32). Shapes as :func:`bn_dgrad_ref`. The route
+    comes from :func:`~tfkaldi_tpu_torch.ops.gemm_plan.gemm_plan` of the
+    product ``dz [N, H] @ wᵀ`` (B K-major) on the pointers of g, z and w
+    (dz is a fresh, aligned allocation); without ``need_dh`` the same
+    alignment rule picks the vector or the scalar dz pass."""
     if g.device.type == "cpu":
         return bn_dgrad_ref(g, z, mask, w, mean, r, beta, c1, c2, z.dtype, need_dh=need_dh)
     if g.device.type != "cuda":
@@ -82,16 +92,22 @@ def bn_dgrad(g, z, mask, w, mean, r, beta, c1, c2, *, need_dh: bool = True):
     mask = mask.to(device=g.device, dtype=torch.float32).contiguous()
     dz = torch.empty_like(z)
     dh = torch.empty((n, k), dtype=g.dtype, device=g.device) if need_dh else None
+    ptrs = (g.data_ptr(), z.data_ptr(), w.data_ptr())
+    if need_dh:
+        route = gemm_plan(n, h, k, cd, "k", ptrs).route
+    else:  # the dz pass alone: 16-byte loads wherever g and z could be a TMA operand
+        route = "dz" if tma_ok(n, h, h, cd, "k", ptrs) else "simt"
     lib = _build.load()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, _ENTRY[cd])(
             g.data_ptr(), z.data_ptr(), mask.data_ptr(), w.data_ptr(),
             *(v.data_ptr() for v in vecs),
-            None if dh is None else dh.data_ptr(), dz.data_ptr(), n, h, k, stream,
+            None if dh is None else dh.data_ptr(), dz.data_ptr(), n, h, k, int(route != "simt"), stream,
         )
     _build.check(code, _ENTRY[cd])
     launches += 1
+    launches_by_route[route] += 1
     return dh, dz
 
 
@@ -129,7 +145,7 @@ class BnReluLayer(torch.autograd.Function):
         c1 = r * s1 / count
         c2 = r * r * r * s2 / count
         del zf, xhat, bn, dpre
-        # pass 2: the kernel (dz in the dgrad prologue, dz emitted for the wgrad)
+        # pass 2: the kernel (the dz pass, then dh = dz @ wᵀ; dz feeds the wgrad)
         dh, dz = bn_dgrad(g, z, mask, w, mean, r, beta, c1, c2, need_dh=ctx.needs_input_grad[0])
         dzf = dz.float()
         db = dzf.sum(0)

@@ -4,176 +4,51 @@
 // by _fused_ffn_block): the eval-mode forward of every DNN hidden layer, with
 // the batchnorm inference affine and the relu folded into the epilogue.
 //
-// What bounds it on an H100: at the flagship shapes ([N,440]x[440,2048] and
-// [N,2048]x[2048,2048], N in the thousands) the product does 2*N*K*M
-// operations on (N*K + K*M + N*M) elements, i.e. hundreds of operations per
-// byte, so it is bound by arithmetic, not by HBM. For f32 operands the
-// reference contracts at full f32 precision (fused_mlp.py:48-53, HIGHEST), so
-// the tensor cores (TF32 keeps 10 mantissa bits) are not allowed: the ceiling
-// is the 67 TFLOP/s of the f32 FMA units, and the kernel has to keep them fed
-// from registers.
+// What bounds it on an H100: at the recipe's shapes ([N,440]x[440,2048] and
+// [N,2048]x[2048,2048], N = 8,192 decode .. 65,536 validation rows) the
+// product does 2*N*K*M operations on (N*K + K*M + N*M) elements, hundreds
+// of operations per byte, so it is bound by arithmetic: the tensor cores
+// for bf16 (989 TFLOP/s), the f32 FMA units for f32 (67 TFLOP/s; the
+// reference contracts f32 at HIGHEST, fused_mlp.py:48-53, so no TF32).
 //
-// What the design does about it: a register-blocked SGEMM. A block of 256
-// threads owns a 128x128 output tile and walks K in steps of 8, staging a
-// 128x8 slab of x (transposed) and an 8x128 slab of w in shared memory. Each
-// thread keeps an 8x8 accumulator: rows ty*4+{0..3} and 64+ty*4+{0..3},
-// columns tx*4+{0..3} and 64+tx*4+{0..3}, so each step reads its operands as
-// four 16-byte shared loads (conflict-free: a warp reads 16 consecutive
-// float4 of w and two broadcast float4 of x) for 64 FMAs. The next slab is
-// loaded from global memory into registers while the current one is
-// multiplied, into the other of two shared buffers, so there is one barrier
-// per step. Global loads are scalar and masked (zeros past N, K, M), so any
-// shape and any alignment works. The epilogue applies bias, scale/shift and
-// relu to the accumulator before the one store, so the pre-activation never
-// reaches HBM. The bf16 instantiation widens operands to f32 while staging
-// them (a bf16 x bf16 product is exact in f32), accumulates in f32 and stores
-// bf16. It does not use the tensor cores yet: wgmma/TMA tiles are later work.
+// What the design does about it: the product runs on the GEMM core of
+// gemm_sm90.cuh with x as the K-major A operand and w [K, M] as an
+// MN-major B (read as it lies, no transpose): TMA loads into a 4-stage
+// swizzled ring, wgmma for bf16, FMAs straight from shared memory for f32.
+// The epilogue applies bias, scale/shift and relu to the f32 accumulator
+// and rounds once to x's dtype, so the pre-activation never reaches HBM.
+// Shapes the TMA cannot describe take the core's SIMT edge route
+// (ops/gemm_plan.py decides; `route` is 1 for TMA, 0 for SIMT).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // rows of x / out per block
-constexpr int BN = 128;  // columns of w / out per block
-constexpr int BK = 8;    // depth staged per step
-constexpr int THREADS = 256;
-constexpr int X_PER_THREAD = BM * BK / THREADS;  // 4: one row, 4 consecutive k
-constexpr int W_PER_THREAD = BK * BN / THREADS;  // 4: one k, 4 consecutive columns
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fused_ffn_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const float* __restrict__ bias, const float* __restrict__ scale,
-                 const float* __restrict__ shift, T* __restrict__ out,
-                 int n, int k, int m, int relu) {
-  __shared__ __align__(16) float xs[2][BK][BM];  // x slab, transposed: xs[kk][row]
-  __shared__ __align__(16) float ws[2][BK][BN];  // w slab: ws[kk][col]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * BN;
-
-  // this thread's share of each slab load
-  const int x_row = tid / (BK / X_PER_THREAD);                 // 0..127
-  const int x_k = (tid % (BK / X_PER_THREAD)) * X_PER_THREAD;  // 0 or 4
-  const int w_k = tid / (BN / W_PER_THREAD);                   // 0..7
-  const int w_col = (tid % (BN / W_PER_THREAD)) * W_PER_THREAD;
-  const bool x_row_ok = row0 + x_row < n;
-  const T* x_ptr = x + (row0 + x_row) * k;
-
-  float x_reg[X_PER_THREAD];
-  float w_reg[W_PER_THREAD];
-  auto load_slab = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < X_PER_THREAD; ++i) {
-      const int g_k = k0 + x_k + i;
-      x_reg[i] = (x_row_ok && g_k < k) ? to_f32(x_ptr[g_k]) : 0.0f;
-    }
-    const int g_k = k0 + w_k;
-#pragma unroll
-    for (int j = 0; j < W_PER_THREAD; ++j) {
-      const int64_t g_col = col0 + w_col + j;
-      w_reg[j] = (g_k < k && g_col < m) ? to_f32(w[static_cast<int64_t>(g_k) * m + g_col]) : 0.0f;
-    }
-  };
-  auto store_slab = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < X_PER_THREAD; ++i) xs[buf][x_k + i][x_row] = x_reg[i];
-    *reinterpret_cast<float4*>(&ws[buf][w_k][w_col]) =
-        make_float4(w_reg[0], w_reg[1], w_reg[2], w_reg[3]);
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  load_slab(0);
-  store_slab(0);
-  __syncthreads();
-
-  int buf = 0;
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    const bool more = k0 + BK < k;
-    if (more) load_slab(k0 + BK);  // in flight while this slab is multiplied
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&xs[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&ws[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-
-    if (more) store_slab(buf ^ 1);  // the other buffer: nobody reads it now
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  // epilogue: bias, eval-BN affine, relu on the f32 accumulator
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int64_t col = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-    if (col >= m) continue;
-    const float bj = bias[col];
-    const float sj = scale ? scale[col] : 1.0f;
-    const float hj = shift ? shift[col] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int64_t row = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-      if (row >= n) continue;
-      float v = (acc[i][j] + bj) * sj + hj;
-      if (relu) v = fmaxf(v, 0.0f);
-      store(out + row * m + col, v);
-    }
-  }
-}
-
-template <typename T>
-int launch(const T* x, const T* w, const float* bias, const float* scale,
-           const float* shift, T* out, int n, int k, int m, int relu,
-           cudaStream_t stream) {
-  if (n > 0 && m > 0) {
-    dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-    fused_ffn_kernel<T><<<grid, THREADS, 0, stream>>>(x, w, bias, scale, shift, out, n, k,
-                                                      m, relu);
-  }
-  return static_cast<int>(cudaGetLastError());
+int launch(const void* x, const void* w, const void* bias, const void* scale, const void* shift,
+           void* out, int n, int k, int m, int relu, int route, void* stream) {
+  const tkgemm::FfnEpi<T> epi{static_cast<T*>(out), m, static_cast<const float*>(bias),
+                              static_cast<const float*>(scale), static_cast<const float*>(shift), relu};
+  return tkgemm::launch<T, false>(route, static_cast<const T*>(x), static_cast<const T*>(w), n, m, k, epi,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-extern "C" int tk_fused_ffn_f32(const void* x, const void* w, const void* bias,
-                                const void* scale, const void* shift, void* out,
-                                int n, int k, int m, int relu, void* stream) {
-  return launch<float>(static_cast<const float*>(x), static_cast<const float*>(w),
-                       static_cast<const float*>(bias), static_cast<const float*>(scale),
-                       static_cast<const float*>(shift), static_cast<float*>(out), n, k, m,
-                       relu, static_cast<cudaStream_t>(stream));
+extern "C" int tk_fused_ffn_f32(const void* x, const void* w, const void* bias, const void* scale,
+                                const void* shift, void* out, int n, int k, int m, int relu, int route,
+                                void* stream) {
+  return launch<float>(x, w, bias, scale, shift, out, n, k, m, relu, route, stream);
 }
 
-extern "C" int tk_fused_ffn_bf16(const void* x, const void* w, const void* bias,
-                                 const void* scale, const void* shift, void* out,
-                                 int n, int k, int m, int relu, void* stream) {
-  return launch<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(out), n, k, m, relu,
-      static_cast<cudaStream_t>(stream));
+extern "C" int tk_fused_ffn_bf16(const void* x, const void* w, const void* bias, const void* scale,
+                                 const void* shift, void* out, int n, int k, int m, int relu, int route,
+                                 void* stream) {
+  return launch<__nv_bfloat16>(x, w, bias, scale, shift, out, n, k, m, relu, route, stream);
+}
+
+// dynamic shared memory of the TMA route for a dtype (0 = f32, 1 = bf16),
+// read by ops/gemm_plan.py's users to hold the plan to the source
+extern "C" int tk_gemm_smem(int bf16) {
+  return bf16 ? tkgemm::TmaLayout<__nv_bfloat16>::SMEM : tkgemm::TmaLayout<float>::SMEM;
 }

@@ -4,8 +4,10 @@ Port of :mod:`tfkaldi_tpu.ops.fused_mlp`. The eval-mode forward of a DNN
 hidden layer, with the batchnorm inference affine (``scale =
 rsqrt(var + eps)``, ``shift = beta - mean * scale``) and the relu in the
 epilogue. On a CUDA tensor :func:`fused_ffn_block` launches the hand-written
-kernel ``csrc/fused_ffn.cu``; on a CPU tensor it runs
-:func:`fused_ffn_block_ref`, the plain version that defines the numerics.
+kernel ``csrc/fused_ffn.cu`` (the GEMM core of ``csrc/gemm_sm90.cuh`` with
+the FFN epilogue, on the route :func:`~tfkaldi_tpu_torch.ops.gemm_plan.gemm_plan`
+picks); on a CPU tensor it runs :func:`fused_ffn_block_ref`, the plain
+version that defines the numerics.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from __future__ import annotations
 import torch
 
 from tfkaldi_tpu_torch.ops import _build
+from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke.py)
+launches_by_route = {"tma": 0, "simt": 0}  # the same launches by route
 
 _ENTRY = {torch.float32: "tk_fused_ffn_f32", torch.bfloat16: "tk_fused_ffn_bf16"}
 
@@ -61,14 +65,16 @@ def fused_ffn_block(x, w, b, scale=None, shift=None, *, relu: bool = True):
     x = x.contiguous()
     w = w.contiguous()
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    plan = gemm_plan(n, k, m, x.dtype, "mn", (x.data_ptr(), w.data_ptr()))
     lib = _build.load()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, _ENTRY[x.dtype])(
             x.data_ptr(), w.data_ptr(), ptr(vecs[0]), ptr(vecs[1]), ptr(vecs[2]),
-            out.data_ptr(), n, k, m, int(relu), stream,
+            out.data_ptr(), n, k, m, int(relu), plan.code, stream,
         )
     _build.check(code, _ENTRY[x.dtype])
     launches += 1
+    launches_by_route[plan.route] += 1
     return out
