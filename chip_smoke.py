@@ -21,8 +21,10 @@ paths.
    BiLSTM/BiGRU, T 512, B 128, H 512, f32 and bf16, ragged lengths of
    204-512 frames with garbage in the padding: every output and residual,
    the backward alone on the plain residuals, and their times beside
-   cuDNN's packed bidirectional LSTM/GRU; the forward's route (persistent,
-   one launch per call), grid and time a step (``check_rnn_kernels``).
+   cuDNN's packed bidirectional LSTM/GRU (see ``check_rnn_kernels`` for
+   the library yardstick); the forward's and the backward's routes
+   (persistent, one launch per call), grids and time a step, and the
+   backward's step route on the same inputs.
 4. Drives the served path at full width (440 -> 6x2048 -> 2000, batchnorm)
    on a seeded synthetic workspace (32 + 32 wavs of 1-8 s, 4 speakers):
    ``cli.main --steps dnn_train_features,dnn_test_features``, then
@@ -56,8 +58,9 @@ paths.
    under frame CE (2 x 512 bidirectional, context 2, bf16, batch 128,
    dropout 0.8) and only num_epochs, valid_frequency and check_freq
    lowered. Counts reset before, read after: the backward kernel launches
-   2 x T_pad per train step, the forward kernel once per layer call on the
-   persistent route (training, validation and decode); step-0 loss ln 2000; the ark covers the test set and
+   once per layer in each train step and the forward kernel once per layer
+   call (training, validation and decode), both on the persistent route;
+   step-0 loss ln 2000; the ark covers the test set and
    matches the plain versions' decode; one step from the step-2 checkpoint
    with the kernels and with the plain versions agrees; and the step is
    timed by parts (``rnn_train_path``, ``check_rnn_step``).
@@ -153,6 +156,16 @@ def ms_per_call(fn, iters: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def ms_median(fn, calls: int = 20, windows: int = 3) -> float:
+    """ms a call: the median over ``windows`` windows of ``calls`` calls each
+    (CUDA events around each window), after 3 warm-up calls. The
+    recurrences and their library yardstick are timed so: a single short
+    window let cuDNN's bf16 backward wander from run to run."""
+    import statistics
+
+    return statistics.median(ms_per_call(fn, iters=calls) for _ in range(windows))
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32) -> dict:
@@ -354,6 +367,47 @@ def _rnn_cell(cell: str):
     return lstm_bidi.CELL if cell == "lstm" else gru_bidi.CELL
 
 
+def cudnn_rnn(cell: str, width: int, h: int, cd, *, flat: bool = True):
+    """cuDNN's bidirectional LSTM/GRU (``width`` inputs, ``h`` units) in the
+    compute dtype ``cd``, its weights compacted once into cuDNN's flat
+    buffer. ``flatten_parameters`` skips bf16, which is not in
+    ``torch.backends.cudnn.CUDNN_TENSOR_DTYPES`` though cuDNN runs it, and
+    a module so left re-compacts its weights on every call (RNN.cpp's
+    UserWarning); the same torch call ``flatten_parameters`` makes, without
+    that dtype gate, compacts them here. ``flat=False`` leaves them as they
+    are, the yardstick this harness had before."""
+    import torch
+    from torch.backends.cudnn import rnn as cudnn
+
+    lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(width, h, bidirectional=True).to("cuda", cd)
+    if flat:
+        with torch.no_grad():
+            torch._cudnn_rnn_flatten_weight(lib._flat_weights, 4, lib.input_size, cudnn.get_cudnn_mode(lib.mode),
+                                            lib.hidden_size, lib.proj_size, lib.num_layers, lib.batch_first,
+                                            bool(lib.bidirectional))
+    return lib
+
+
+def cudnn_times(lib, x, lengths) -> tuple[float, float, bool]:
+    """(forward ms, backward ms, whether a call re-compacts the weights) of
+    a cuDNN module on a packed batch, by ``ms_median``; the backward is one
+    ``torch.autograd.grad`` call for the input and every weight."""
+    import warnings
+
+    import torch
+
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lengths, enforce_sorted=False)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        out = lib(packed)[0].data
+    compacts = any("contiguous chunk" in str(w.message) for w in seen)
+    fwd_ms = ms_median(lambda: lib(packed))
+    cot = torch.randn_like(out)
+    wrt = [x, *lib.parameters()]
+    bwd_ms = ms_median(lambda: torch.autograd.grad(out, wrt, cot, retain_graph=True))
+    return fwd_ms, bwd_ms, compacts
+
+
 def _rnn_chain(cell: str, gxs, whs, mask, dys, cd, *, kernel: bool, residuals=None) -> dict:
     """Forward with residuals, backward and dW_h of both directions, through
     the kernels or their plain versions; with ``residuals`` given, only the
@@ -412,18 +466,21 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
     - The backward alone, on the plain forward's residuals (so kernel 5 or 7
       sees the plain version's inputs): the same rules.
 
-    Times (CUDA events): the kernels, the plain versions, and the library
-    call, cuDNN's bidirectional ``torch.nn.LSTM``/``GRU`` on a packed batch
-    of the same lengths, whose forward includes its own input projection
+    Times (CUDA events; the kernels and the library call by ``ms_median``,
+    the plain versions over 2 calls): the kernels, the plain versions, and
+    the library call, cuDNN's bidirectional LSTM/GRU on a packed batch of
+    the same lengths, whose forward includes its own input projection
     (input 1024 wide, the second layer's) and whose backward (one
     ``torch.autograd.grad`` call) its input and weight gradients. The
-    forward must take the persistent route (one launch per call); its
-    route, grid and shared memory are printed with its time at T 1 and the
-    time a step after it. Returns the bf16 rows (the recipe's compute
-    dtype) of both kernels."""
+    forward and the backward must take the persistent route (one launch
+    per call); each route, grid and shared memory is printed with its time
+    at T 1 and the time a step after it, and the backward's step route
+    (``STEP_BWD``, one launch per time step) is timed on the
+    same inputs. Returns the bf16 rows (the recipe's compute dtype) of both
+    kernels."""
     import torch
 
-    from tfkaldi_tpu_torch.ops.rnn_bidi import fwd_plan
+    from tfkaldi_tpu_torch.ops.rnn_bidi import STEP_BWD, bwd_plan, fwd_plan
 
     c = _rnn_cell(cell)
     gates = c.gates
@@ -487,28 +544,30 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
         # times at the recipe's shapes, residuals on (the training forward)
         whs_cd = [w.to(cd) for w in whs]
         res = got["_residuals"]
-        plan = fwd_plan(b, h, gates, cd, 2)
-        if plan.route != "persistent":
-            raise AssertionError(f"{cell} {name}: the recipe's shape takes the {plan.route} route")
-        fwd_ms = ms_per_call(lambda: c.fwd(gxs, whs_cd, mask, residuals=True), iters=5)
-        eval_ms = ms_per_call(lambda: c.fwd(gxs, whs_cd, mask, residuals=False), iters=5)
+        plan, bplan = fwd_plan(b, h, gates, cd, 2), bwd_plan(b, h, gates, cd, 2)
+        if (plan.route, bplan.route) != ("persistent", "persistent"):
+            raise AssertionError(f"{cell} {name}: the recipe's shape takes the {plan.route} forward and the "
+                                 f"{bplan.route} backward")
+        fwd_ms = ms_median(lambda: c.fwd(gxs, whs_cd, mask, residuals=True))
+        eval_ms = ms_median(lambda: c.fwd(gxs, whs_cd, mask, residuals=False))
         # a persistent call at T 1 (launch, W_h slice load, one step without
         # product or barrier), and the time a step after it
-        one_ms = ms_per_call(lambda: c.fwd([x[:1] for x in gxs], whs_cd, mask[:1], residuals=True), iters=5)
+        one_ms = ms_median(lambda: c.fwd([x[:1] for x in gxs], whs_cd, mask[:1], residuals=True))
         step_us = (fwd_ms - one_ms) / (t - 1) * 1e3
-        bwd_ms = ms_per_call(lambda: c.bwd(dys, res, mask, whs_cd), iters=5)
+        bwd_ms = ms_median(lambda: c.bwd(dys, res, mask, whs_cd))
+        res1 = [tuple(x_[:1] for x_ in r) for r in res]
+        bwd_one_ms = ms_median(lambda: c.bwd([d[:1] for d in dys], res1, mask[:1], whs_cd))
+        bwd_step_us = (bwd_ms - bwd_one_ms) / (t - 1) * 1e3
+        # the step route's library entry on the same inputs, one launch per time step
+        bwd_steps_ms = ms_median(lambda: c.bwd(dys, res, mask, whs_cd, plan=STEP_BWD))
         plain_fwd_ms = ms_per_call(lambda: c.fwd_ref(gxs, whs_cd, mask, residuals=True), iters=2)
         plain_bwd_ms = ms_per_call(lambda: c.bwd_ref(dys, res, mask, whs_cd), iters=2)
-        lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(2 * h, h, bidirectional=True)
-        lib = lib.to("cuda", cd)
-        lib.flatten_parameters()
         x = torch.randn(t, b, 2 * h, device="cuda", dtype=cd, requires_grad=True)
-        packed = torch.nn.utils.rnn.pack_padded_sequence(x, lengths, enforce_sorted=False)
-        lib_fwd_ms = ms_per_call(lambda: lib(packed), iters=5)
-        out = lib(packed)[0].data
-        cot = torch.randn_like(out)
-        wrt = [x, *lib.parameters()]
-        lib_bwd_ms = ms_per_call(lambda: torch.autograd.grad(out, wrt, cot, retain_graph=True), iters=5)
+        lib_fwd_ms, lib_bwd_ms, compacts = cudnn_times(cudnn_rnn(cell, 2 * h, h, cd), x, lengths)
+        if compacts:
+            raise AssertionError(f"cuDNN {cell} {name}: the flattened module still re-compacts its weights")
+        # the yardstick as it was: bf16 weights left where the module made them
+        loose = cudnn_times(cudnn_rnn(cell, 2 * h, h, cd, flat=False), x, lengths) if cd == torch.bfloat16 else None
         peak = PEAK_F32 if cd == torch.float32 else PEAK_BF16
         # the work these lengths need: the recurrent product and the gate math
         # of the real frames of both directions; the forward writes every
@@ -524,9 +583,16 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
             f"(eval, no residuals, {eval_ms!r}), plain {plain_fwd_ms!r} ms, cuDNN {lib_fwd_ms!r} ms, bound "
             f"{fwd_b['bound_ms']!r} ms by {fwd_b['bound_by']}; backward {bwd_ms!r} ms, plain {plain_bwd_ms!r} "
             f"ms, cuDNN {lib_bwd_ms!r} ms, bound {bwd_b['bound_ms']!r} ms by {bwd_b['bound_by']} [{card}]")
-        log(f"{cell} forward route {plan.route}: {plan.ctas} CTAs ({plan.row_ctas} row CTAs x "
-            f"{plan.tiles_per_cta} tile(s) of 64 rows per direction and 16-unit tile), {plan.smem_bytes} B of "
-            f"shared memory a CTA; T 1 call {one_ms!r} ms, {step_us!r} us a step after it [{card}]")
+        if loose is not None:
+            log(f"cuDNN {cell} {name} with its weights left unflattened (re-compacted each call: "
+                f"{loose[2]!r}): forward {loose[0]!r} ms, backward {loose[1]!r} ms [{card}]")
+        for way, p_, one, per_step in (("forward", plan, one_ms, step_us), ("backward", bplan, bwd_one_ms,
+                                                                            bwd_step_us)):
+            log(f"{cell} {name} {way} route {p_.route}: {p_.ctas} CTAs ({p_.row_ctas} row CTAs x "
+                f"{p_.tiles_per_cta} tile(s) of 64 rows per direction and 16-unit tile), {p_.smem_bytes} B of "
+                f"shared memory a CTA; T 1 call {one!r} ms, {per_step!r} us a step after it [{card}]")
+        log(f"{cell} {name} backward, persistent route {bwd_ms!r} ms vs the step route ({t} launches) "
+            f"{bwd_steps_ms!r} ms on the same inputs [{card}]")
         if cd == torch.bfloat16:
             def max_abs(names):
                 return max((g.float() - r.float()).abs().max().item()
@@ -534,11 +600,12 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
 
             rows = {
                 "fwd": {"max_abs_err": max_abs(("ys", "acts", "cs", "hs", "h_cd", "gh_n")), "ms": fwd_ms,
-                        "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms, **fwd_b},
+                        "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms, **fwd_b, "plan_route": plan.route},
                 "bwd": {"max_abs_err": max_abs(("dgx", "dgh", "dW_h")), "ms": bwd_ms,
-                        "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms, **bwd_b},
+                        "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms, **bwd_b, "plan_route": bplan.route,
+                        "step_route_ms": bwd_steps_ms},
             }
-        del got, plain, res, lib, x, packed, out, cot, wrt
+        del got, plain, res, x
         torch.cuda.empty_cache()
     return rows
 
@@ -554,7 +621,7 @@ def reset_counts() -> None:
         for route in counts:
             counts[route] = 0
     for c in (lstm_bidi.CELL, gru_bidi.CELL):
-        c.fwd_persistent_launches = c.fwd_launches = c.bwd_launches = 0
+        c.reset_counts()
 
 
 def check_dnn_routes(tag: str, steps: int) -> None:
@@ -880,9 +947,9 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
     (the ``[nnet]`` of config_AURORA4_ctc.cfg under frame CE: 2 x 512
     bidirectional, context 2, bf16, batch 128, dropout 0.8, valid_batches
     4) and only num_epochs, valid_frequency and check_freq lowered. Counts
-    reset before, read after: the backward kernel launches once per time
-    step of each layer in each train step (2 x T_pad), the forward kernel
-    once per layer call on the persistent route (never on the step route):
+    reset before, read after: the backward kernel once per layer in each
+    train step (replays included), the forward kernel once per layer call,
+    both on the persistent route (never on the step route): the forward
     per layer in each train step and once more per layer of every
     validation and decode batch; no kernel of the DNN paths launches; the
     step-0 loss is
@@ -918,18 +985,20 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
         raise RuntimeError(f"cli.main bi{cell} path: rc {rc}")
     this = _rnn_cell(cell)
     routes = {"persistent": this.fwd_persistent_launches, "step": this.fwd_launches}
-    launches = {f"{cell}_fwd": sum(routes.values()), f"{cell}_bwd": this.bwd_launches}
+    bwd_routes = {"persistent": this.bwd_persistent_launches, "step": this.bwd_launches}
+    launches = {f"{cell}_fwd": sum(routes.values()), f"{cell}_bwd": sum(bwd_routes.values())}
     other = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
     other.update({f"{c.name}_{k}": getattr(c, f"{k}_launches") for c in cells
-                  if c is not this for k in ("fwd_persistent", "fwd", "bwd")})
+                  if c is not this for k in ("fwd_persistent", "fwd", "bwd_persistent", "bwd")})
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
-    padded = sum(st["padded_length"] for st in steps)
-    log(f"bi{cell} path launches: {launches}, the forward's by route {routes} (other kernels {other}); "
-        f"{len(steps)} train steps at T_pad {[st['padded_length'] for st in steps]} (replays after a rollback "
-        f"included); whole run {run_s!r} s")
-    if launches[f"{cell}_bwd"] != RNN_LAYERS * padded:
-        raise AssertionError(f"{cell}_bwd launched {launches[f'{cell}_bwd']} times, want {RNN_LAYERS} x {padded}")
+    log(f"bi{cell} path launches: {launches}, the forward's by route {routes}, the backward's {bwd_routes} "
+        f"(other kernels {other}); {len(steps)} train steps at T_pad {[st['padded_length'] for st in steps]} "
+        f"(replays after a rollback included); whole run {run_s!r} s")
+    # the backward: one persistent launch per layer in each train step, never the step route
+    if bwd_routes != {"persistent": RNN_LAYERS * len(steps), "step": 0}:
+        raise AssertionError(f"{cell}_bwd launches by route {bwd_routes}, want persistent "
+                             f"{RNN_LAYERS} x {len(steps)} and step 0")
     # the forward: one persistent launch per layer call, in training, validation and decode alike
     if routes["step"] != 0:
         raise AssertionError(f"{cell}_fwd took the step route {routes['step']} times on the bi{cell} path")
@@ -1048,10 +1117,11 @@ def check_rnn_step(card: str, cell: str, cfg_path: str, savedir: str, ws: dict) 
             grads, loss, frames = tr.gradients(s, batch, tr.dropout_generator(s))  # the same masks each time
         return grads, loss.item(), frames.item()
 
-    before = c.bwd_launches
+    before = (c.bwd_persistent_launches, c.bwd_launches)
     g_k, loss_k, frames = gradients(trainer, state, False)
-    if c.bwd_launches != before + RNN_LAYERS * t_pad:
-        raise AssertionError(f"the kernel side of the step did not launch {cell}_bwd once per step of each layer")
+    if (c.bwd_persistent_launches, c.bwd_launches) != (before[0] + RNN_LAYERS, before[1]):
+        raise AssertionError(f"the kernel side of the step did not launch {cell}_bwd once per layer on the "
+                             f"persistent route")
     g_p, loss_p, _ = gradients(trainer, state, True)
     g_32, loss_32, _ = gradients(trainer32, state32, True) if bf16 else (g_p, loss_p, None)
     torch.cuda.synchronize()

@@ -73,12 +73,22 @@ def _rel(a, b):
 
 
 def _counts(c):
-    return c.fwd_persistent_launches, c.fwd_launches, c.bwd_launches
+    return c.fwd_persistent_launches, c.fwd_launches, c.bwd_persistent_launches, c.bwd_launches
+
+
+def _launched(plan, t):
+    """(persistent, step) launches of one call on ``plan``'s route."""
+    return (1, 0) if plan.route == "persistent" else (0, t)
 
 
 # (6, 300, 512, 2): B beyond the grid's 2 row CTAs, so each CTA loops over
-# 3 row tiles; (1, 8, 128, 2): T 1; (5, 6, 720, 2): f32 takes the step route
-# (the LSTM's f32 W_h slice does not fit), bf16 the persistent one
+# 3 row tiles; (1, 8, 128, 2): T 1; (5, 6, 720, 2): the LSTM's f32 forward
+# and backward take the step route (their W_h slices do not fit); (7, 5,
+# 33, 2) and (9, 37, 70, 1): dgates rows that are not whole 16-byte pieces
+# send some backwards to the step route
+PERSISTENT_BOTH_WAYS = {(512, 128, 512, 2), (16, 8, 128, 2)}
+
+
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("t,b,h,dirs", [(16, 8, 128, 2), (7, 5, 33, 2), (9, 37, 70, 1), (512, 128, 512, 2),
                                         (6, 300, 512, 2), (1, 8, 128, 2), (12, 70, 256, 1), (5, 6, 720, 2)])
@@ -86,16 +96,26 @@ def test_kernels_match_plain(cuda, cell, t, b, h, dirs):
     c = CELLS[cell]
     gxs, whs, mask, dys = _case(c.gates, t, b, h, dirs, cuda, seed=t + b + h)
     ref32 = _chain(cell, gxs, whs, mask, dys, torch.float32, kernel=False)
-    plan = rnn_bidi.fwd_plan(b, h, c.gates, torch.float32, dirs)
+    for cd in (torch.float32, torch.bfloat16):
+        routes = (rnn_bidi.fwd_plan(b, h, c.gates, cd, dirs).route, rnn_bidi.bwd_plan(b, h, c.gates, cd, dirs).route)
+        if (t, b, h, dirs) in PERSISTENT_BOTH_WAYS:
+            assert routes == ("persistent", "persistent"), (cd, routes)
+    fplan = rnn_bidi.fwd_plan(b, h, c.gates, torch.float32, dirs)
+    bplan = rnn_bidi.bwd_plan(b, h, c.gates, torch.float32, dirs)
     before = _counts(c)
     got32 = _chain(cell, gxs, whs, mask, dys, torch.float32, kernel=True)
     torch.cuda.synchronize()
-    # one persistent launch per call, or one step launch per time step; the backward one per step
-    want = (1, 0) if plan.route == "persistent" else (0, t)
-    assert _counts(c) == (before[0] + want[0], before[1] + want[1], before[2] + t), plan
+    # one persistent launch per call, or one step launch per time step, each way
+    want = (*_launched(fplan, t), *_launched(bplan, t))
+    assert _counts(c) == tuple(x + y for x, y in zip(before, want)), (fplan, bplan)
     for name in ref32:
         assert _rel(got32[name], ref32[name]) <= 1e-5, name
+    before = _counts(c)
     got = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=True)
+    torch.cuda.synchronize()
+    want = (*_launched(rnn_bidi.fwd_plan(b, h, c.gates, torch.bfloat16, dirs), t),
+            *_launched(rnn_bidi.bwd_plan(b, h, c.gates, torch.bfloat16, dirs), t))
+    assert _counts(c) == tuple(x + y for x, y in zip(before, want))
     plain = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=False)
     # the same bf16 weights in f32: only the roundings of h and dgates are missing
     unrounded = _chain(cell, gxs, [w.bfloat16().float() for w in whs], mask, dys, torch.float32, kernel=False)
@@ -124,12 +144,44 @@ def test_persistent_forward_repeats(cuda, cell, cd):
     second = c.fwd(gxs, whs_cd, mask, residuals=True)
     evals = c.fwd(gxs, whs_cd, mask, residuals=False)
     torch.cuda.synchronize()
-    assert _counts(c) == (before[0] + 3, before[1], before[2])
+    assert _counts(c) == (before[0] + 3, *before[1:])
     for (ys1, res1), (ys2, res2), (ys3, res3) in zip(first, second, evals):
         assert res3 is None
         assert torch.equal(ys1, ys2) and torch.equal(ys1, ys3)
         for a, b in zip(res1, res2):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_persistent_backward_repeats(cuda, cell, cd):
+    """The same persistent backward twice gives identical results (each call
+    starts its barrier counters at zero and writes every exchange slot it
+    reads), counted once per call; the step route on the same inputs agrees
+    with it (f32: within the summation-order tolerance; bf16: both within
+    2x of each other's distance from the f32 chain)."""
+    c = CELLS[cell]
+    t, b, h = 64, 128, 512
+    gxs, whs, mask, dys = _case(c.gates, t, b, h, 2, cuda, seed=12)
+    whs_cd = [w.to(cd) for w in whs]
+    res = [r for _, r in c.fwd(gxs, whs_cd, mask, residuals=True)]
+    assert rnn_bidi.bwd_plan(b, h, c.gates, cd, 2).route == "persistent"
+    before = _counts(c)
+    first = c.bwd(dys, res, mask, whs_cd)
+    second = c.bwd(dys, res, mask, whs_cd)
+    torch.cuda.synchronize()
+    assert _counts(c) == (*before[:2], before[2] + 2, before[3])
+    step = c.bwd(dys, res, mask, whs_cd, plan=rnn_bidi.STEP_BWD)
+    torch.cuda.synchronize()
+    assert _counts(c) == (*before[:2], before[2] + 2, before[3] + t)
+    ref32 = c.bwd_ref(dys, res, mask, [w.float() for w in whs_cd]) if cd == torch.bfloat16 else None
+    for (g1, w1), (g2, w2), (g3, w3), ref in zip(first, second, step, ref32 or [None] * 2):
+        assert torch.equal(g1, g2) and torch.equal(w1, w2)
+        if cd == torch.float32:
+            assert _rel([g1, w1], [g3, w3]) <= 1e-5
+        else:
+            mine, theirs = _rel([g1, w1], list(ref)), _rel([g3, w3], list(ref))
+            assert mine <= 2.0 * theirs + 1e-5 and theirs <= 2.0 * mine + 1e-5, (mine, theirs)
 
 
 @pytest.mark.parametrize("h", [33, 512, 704, 1056])
@@ -141,6 +193,7 @@ def test_plan_smem_matches_kernel_library(cuda, gates, cd, h):
 
     lib = _build.load()
     assert rnn_bidi.persistent_smem(gates, h, cd) == lib.tk_rnn_fwd_smem(gates, h, int(cd == torch.bfloat16))
+    assert rnn_bidi.persistent_bwd_smem(gates, h, cd) == lib.tk_rnn_bwd_smem(gates, h, int(cd == torch.bfloat16))
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])

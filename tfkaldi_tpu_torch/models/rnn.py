@@ -12,9 +12,8 @@ copies them as they are. Per layer and direction:
 - the recurrence through :func:`tfkaldi_tpu_torch.ops.rnn_bidi.run` with
   the LSTM's cell (kernels 4 and 5) or the GRU's (kernels 6 and 7), both
   directions of a bidirectional layer in one kernel: one persistent
-  launch per layer call for the forward, one launch per time step for
-  the backward; a unidirectional layer passes one direction to the same
-  kernels;
+  launch per layer call for the forward and for the backward; a
+  unidirectional layer passes one direction to the same kernels;
 - dropout between layers in training only, masks drawn from the trainer's
   generator (the bits are the port's own; JAX's threefry stream does not
   carry over).

@@ -7,8 +7,9 @@ wrappers that run the plain PyTorch version on CPU tensors.
   ``BnReluLayer``)
 - :mod:`tfkaldi_tpu_torch.ops.lstm_bidi`: ``CELL.fwd``, ``CELL.bwd`` (both
   directions of a (Bi)LSTM layer, behind ``lstm_scan_bidi``: the forward
-  one persistent launch per layer call, the backward one launch per time
-  step); the plain numerics in
+  and the backward each one persistent launch per layer call where the
+  launch plan takes the shape, else one launch per time step); the plain
+  numerics in
   :mod:`~tfkaldi_tpu_torch.ops.lstm_scan`
 - :mod:`tfkaldi_tpu_torch.ops.gru_bidi`: the same for the GRU, behind
   ``gru_scan_bidi``; plain numerics in
@@ -18,5 +19,6 @@ wrappers that run the plain PyTorch version on CPU tensors.
 
 Each of the first three modules keeps its kernel's launch count in a
 module global ``launches``; a recurrence keeps ``fwd_persistent_launches``,
-``fwd_launches`` (the step route) and ``bwd_launches`` on its ``CELL``.
+``bwd_persistent_launches``, ``fwd_launches`` and ``bwd_launches`` (the step
+routes) on its ``CELL``.
 """

@@ -10,8 +10,8 @@ library is loaded with ``ctypes``; every pointer and the stream pass as
 ``c_void_p``. Each C entry returns ``cudaGetLastError()`` after its launch
 (the step kernels of the recurrences: after the first launch that fails,
 of the one launch per time step their C entry makes; the persistent
-forward: the error of its co-residency check or of its one cooperative
-launch), and :func:`check` raises on a non-zero code.
+forward and backward: the error of the co-residency check or of the one
+cooperative launch), and :func:`check` raises on a non-zero code.
 
 A failed build raises: there is no fallback from a kernel to plain code.
 """
@@ -55,6 +55,10 @@ _SIGNATURES = {
     **{f"tk_{cell}_fwd_persistent_{dt}": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
        for cell in ("lstm", "gru") for dt in ("f32", "bf16")},
     "tk_rnn_fwd_smem": [_I, _I, _I],
+    # the persistent backward: (pointer block, mask, dirs, T, B, H, row CTAs, barrier counters, stream)
+    **{f"tk_{cell}_bwd_persistent_{dt}": [_P, _P, _I, _I, _I, _I, _I, _P, _P]
+       for cell in ("lstm", "gru") for dt in ("f32", "bf16")},
+    "tk_rnn_bwd_smem": [_I, _I, _I],
 }
 
 _lock = threading.Lock()

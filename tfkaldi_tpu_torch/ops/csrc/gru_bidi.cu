@@ -6,9 +6,13 @@
 //     kernel (rnn_step.cuh::persistent_fwd with GruCell, one cooperative
 //     launch per layer call) or, on the shapes the launch plan refuses
 //     (ops/rnn_bidi.py::fwd_plan), gru_fwd_step, one launch per time step;
-//   kernel 7, gru_bwd_step: dh = dh_carry + round_cd(dgh_prev) @ W_h^T, then
-//     the elementwise backward of this step -> dgx and dgh (whose n block
-//     carries the reset-gate factor r), and the dh carry.
+//   kernel 7, the backward: dh = dh_carry + round_cd(dgh_prev) @ W_h^T,
+//     then the elementwise backward of this step -> dgx and dgh (whose n
+//     block carries the reset-gate factor r), and the dh carry. The
+//     persistent kernel (rnn_step.cuh::persistent_bwd with GruBwdCell, one
+//     cooperative launch per layer call) or, on the shapes
+//     ops/rnn_bidi.py::bwd_plan refuses, gru_bwd_step, one launch per time
+//     step.
 //
 // Replaces the TPU kernels tfkaldi_tpu/ops/pallas_gru.py::_make_fwd_kernel
 // (launched by _fwd_call) and ::_make_bwd_kernel (launched by _bwd_call),
@@ -17,6 +21,9 @@
 // gate blocks instead of four: 0.40 GFLOP a step for both directions at
 // B = 128, H = 512 (0.41 us at the bf16 tensor-core rate, 6.1 us at the f32
 // FMA rate); a persistent CTA holds a W_h slice of 512 x 48 (48 KB bf16,
+// 96 KB f32). The backward's product is [B, 3H] x [3H, H]: a persistent
+// CTA stages the published round_cd(dgh) of its 64 rows, [64, 1536], 192
+// KB in bf16 each step, and holds W_h's 16 rows [16, 1536] (48 KB bf16,
 // 96 KB f32). The weight gradient (h_cd^T @ dgh) stays outside, as one
 // torch.matmul.
 
@@ -41,6 +48,33 @@ struct GruCell {
     act[0] = gr, act[1] = gz, act[2] = gn;
     state = h;
     (void)c;
+  }
+};
+
+// The elementwise backward of one (row, j) pair for persistent_bwd; the op
+// order and roundings of gru_bwd_step. dh is the carry (before this step's
+// product is added); prev: hs_{t_in}; dc and state are unused.
+struct GruBwdCell {
+  static constexpr int G = 3;
+  static __device__ __forceinline__ void step(const float (&act)[3], float dy, float state, float prev, float ghn,
+                                              float m, float acc, float& dh_c, float& dc_c, float (&dgx)[3],
+                                              float (&dgw)[3]) {
+    const float gr = act[0], gz = act[1], gn = act[2];
+    const float dh = add(dh_c, acc);
+    const float dh_cand = mul(m, add(dh, dy));
+    float dh_prev = mul(sub(1.0f, m), dh);
+    const float dn = mul(sub(1.0f, gz), dh_cand);
+    const float dz = mul(sub(prev, gn), dh_cand);
+    dh_prev = add(dh_prev, mul(gz, dh_cand));
+    const float dpre_n = mul(sub(1.0f, mul(gn, gn)), dn);
+    const float dr = mul(dpre_n, ghn);
+    const float dpre_r = mul(mul(gr, sub(1.0f, gr)), dr);
+    const float dpre_z = mul(mul(gz, sub(1.0f, gz)), dz);
+    dgx[0] = dpre_r, dgx[1] = dpre_z, dgx[2] = dpre_n;
+    dgw[0] = dpre_r, dgw[1] = dpre_z, dgw[2] = mul(dpre_n, gr);
+    dh_c = dh_prev;
+    (void)dc_c;
+    (void)state;
   }
 };
 
@@ -112,7 +146,7 @@ gru_bwd_step(BwdDir d0, BwdDir d1, const float* __restrict__ mask, int t_len, in
     const int64_t bh = static_cast<int64_t>(row) * H + j;
     const int64_t q = bt * 3 * H + j;
     const float m = mask[bt];
-    const float dh = s > 0 ? add(d.dh[bh], acc[r]) : 0.0f;
+    const float dh = s > 0 ? add(static_cast<const float*>(d.dh)[bh], acc[r]) : 0.0f;
     const float gr = d.acts[q], gz = d.acts[q + H], gn = d.acts[q + 2 * H];
     const float hp = has_prev ? d.state[(static_cast<int64_t>(t_in) * B + row) * H + j] : 0.0f;
     // the op order of gru_scan._backward
@@ -131,7 +165,7 @@ gru_bwd_step(BwdDir d0, BwdDir d1, const float* __restrict__ mask, int t_len, in
     d.dgh[q] = dpre_r;
     d.dgh[q + H] = dpre_z;
     d.dgh[q + 2 * H] = mul(dpre_n, gr);
-    d.dh[bh] = dh_prev;  // only this thread reads or writes dh[row, j]
+    static_cast<float*>(d.dh)[bh] = dh_prev;  // only this thread reads or writes dh[row, j]
   }
 }
 
@@ -163,6 +197,18 @@ extern "C" int tk_gru_fwd_bf16(const void* const* ptrs, const void* mask, int di
   return tk_rnn::run_fwd(gru_fwd_step<__nv_bfloat16, true>, gru_fwd_step<__nv_bfloat16, false>,
                          ptrs, mask, dirs, t_len, b, h, residuals, stream);
 }
+// The persistent backward: dh slot of each block the [2, B, 3H] exchange
+// slots in the compute dtype; row_ctas and bar as for the forward.
+extern "C" int tk_gru_bwd_persistent_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                         int b, int h, int row_ctas, void* bar, void* stream) {
+  return tk_rnn::run_persistent_bwd<GruBwdCell, float>(ptrs, mask, dirs, t_len, b, h, row_ctas, bar, stream);
+}
+extern "C" int tk_gru_bwd_persistent_bf16(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                          int b, int h, int row_ctas, void* bar, void* stream) {
+  return tk_rnn::run_persistent_bwd<GruBwdCell, __nv_bfloat16>(ptrs, mask, dirs, t_len, b, h, row_ctas, bar,
+                                                               stream);
+}
+// The step route of the backward: one launch per time step.
 extern "C" int tk_gru_bwd_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
                               int b, int h, void* stream) {
   return tk_rnn::run_bwd(gru_bwd_step<float>, ptrs, mask, dirs, t_len, b, h, stream);

@@ -8,9 +8,13 @@
 //     launch per layer call), or, where the W_h slice does not fit in
 //     shared memory or the grid could not be co-resident, lstm_fwd_step,
 //     one launch per time step;
-//   kernel 5, lstm_bwd_step: the reverse-time LSTM backward of both
+//   kernel 5, the backward: the reverse-time LSTM backward of both
 //     directions: dh = dh_carry + round_cd(dgates_prev) @ W_h^T, then the
 //     elementwise backward of this step -> dgates (= dgx), dh/dc carries.
+//     Two routes, picked by ops/rnn_bidi.py::bwd_plan: the persistent
+//     kernel (rnn_step.cuh::persistent_bwd with LstmBwdCell, one
+//     cooperative launch per layer call), or lstm_bwd_step, one launch per
+//     time step.
 //
 // Replaces the TPU kernels tfkaldi_tpu/ops/pallas_lstm.py::_make_fwd_kernel
 // (launched by _fwd_call) and ::_make_bwd_kernel (launched by _bwd_call),
@@ -35,6 +39,16 @@
 // while the CTA waits at the barrier; a step costs a barrier per direction
 // instead of a launch. At the recipe's shape the grid is 2 directions x 2
 // row tiles of 64 x 32 tiles of 16 units = 128 CTAs, one per SM.
+// The backward does the same work (its product is [B, 4H] x [4H, H]) and
+// adds one cost the forward does not have: every CTA needs the whole
+// published round_cd(dgates) of its 64 rows, [64, 2048], 256 KB in bf16
+// (512 KB in f32) from L2 each step, 32 MB a step over the 128 CTAs, where
+// the forward stages 64 KB a CTA. The persistent backward keeps W_h's 16
+// rows of a CTA in shared memory (64 KB bf16 / 128 KB f32), dh and dc in
+// registers, streams the dgates tile by TMA through a ring of 8 (bf16) / 5
+// (f32) chunks so the copy of the next chunks overlaps the product of the
+// one that has landed, and splits the depth of 2048 across its 8 warps so
+// each warp runs 8 independent mma chains (see rnn_step.cuh).
 //
 // Any T, B, H: the loaders and the epilogue mask every edge.
 
@@ -62,6 +76,39 @@ struct LstmCell {
     act[0] = gi, act[1] = gf, act[2] = gg, act[3] = go;
     state = c;
     ghn = 0.0f;
+  }
+};
+
+// The elementwise backward of one (row, j) pair for persistent_bwd; the op
+// order and roundings of lstm_bwd_step. dh and dc are the carries (dh
+// before this step's product is added); state: cs_t; prev: cs_{t_in}.
+struct LstmBwdCell {
+  static constexpr int G = 4;
+  static __device__ __forceinline__ void step(const float (&act)[4], float dy, float state, float prev, float ghn,
+                                              float m, float acc, float& dh_c, float& dc_c, float (&dgx)[4],
+                                              float (&dgw)[4]) {
+    const float i = act[0], f = act[1], g = act[2], o = act[3];
+    const float dh = add(dh_c, acc);
+    const float dc = dc_c;
+    const float dh_cand = mul(m, add(dh, dy));
+    const float dh_prev = mul(sub(1.0f, m), dh);
+    float dc_cand = mul(m, dc);
+    float dc_prev = mul(sub(1.0f, m), dc);
+    const float tc = tanhf(state);
+    const float do_gate = mul(tc, dh_cand);
+    dc_cand = add(dc_cand, mul(mul(o, sub(1.0f, mul(tc, tc))), dh_cand));
+    const float df_gate = mul(prev, dc_cand);
+    dc_prev = add(dc_prev, mul(f, dc_cand));
+    const float di_gate = mul(g, dc_cand);
+    const float dg_gate = mul(i, dc_cand);
+    dgx[0] = mul(mul(i, sub(1.0f, i)), di_gate);
+    dgx[1] = mul(mul(f, sub(1.0f, f)), df_gate);
+    dgx[2] = mul(sub(1.0f, mul(g, g)), dg_gate);
+    dgx[3] = mul(mul(o, sub(1.0f, o)), do_gate);
+    for (int q = 0; q < 4; ++q) dgw[q] = dgx[q];
+    dh_c = dh_prev;
+    dc_c = dc_prev;
+    (void)ghn;
   }
 };
 
@@ -139,7 +186,7 @@ lstm_bwd_step(BwdDir d0, BwdDir d1, const float* __restrict__ mask, int t_len, i
     const int64_t bh = static_cast<int64_t>(row) * H + j;
     const int64_t q = bt * 4 * H + j;
     const float m = mask[bt];
-    const float dh = s > 0 ? add(d.dh[bh], acc[r]) : 0.0f;
+    const float dh = s > 0 ? add(static_cast<const float*>(d.dh)[bh], acc[r]) : 0.0f;
     const float dc = s > 0 ? d.dc[bh] : 0.0f;
     const float i = d.acts[q], f = d.acts[q + H], g = d.acts[q + 2 * H], o = d.acts[q + 3 * H];
     const float cp = has_prev ? d.state[(static_cast<int64_t>(t_in) * B + row) * H + j] : 0.0f;
@@ -159,7 +206,7 @@ lstm_bwd_step(BwdDir d0, BwdDir d1, const float* __restrict__ mask, int t_len, i
     d.dgx[q + H] = mul(mul(f, sub(1.0f, f)), df_gate);
     d.dgx[q + 2 * H] = mul(sub(1.0f, mul(g, g)), dg_gate);
     d.dgx[q + 3 * H] = mul(mul(o, sub(1.0f, o)), do_gate);
-    d.dh[bh] = dh_prev;  // only this thread reads or writes dh[row, j], dc[row, j]
+    static_cast<float*>(d.dh)[bh] = dh_prev;  // only this thread reads or writes dh[row, j], dc[row, j]
     d.dc[bh] = dc_prev;
   }
 }
@@ -197,6 +244,23 @@ extern "C" int tk_lstm_fwd_bf16(const void* const* ptrs, const void* mask, int d
   return tk_rnn::run_fwd(lstm_fwd_step<__nv_bfloat16, true>, lstm_fwd_step<__nv_bfloat16, false>,
                          ptrs, mask, dirs, t_len, b, h, residuals, stream);
 }
+// The persistent backward: dh slot of each block the [2, B, 4H] exchange
+// slots in the compute dtype; row_ctas and bar as for the forward.
+extern "C" int tk_lstm_bwd_persistent_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                          int b, int h, int row_ctas, void* bar, void* stream) {
+  return tk_rnn::run_persistent_bwd<LstmBwdCell, float>(ptrs, mask, dirs, t_len, b, h, row_ctas, bar, stream);
+}
+extern "C" int tk_lstm_bwd_persistent_bf16(const void* const* ptrs, const void* mask, int dirs, int t_len,
+                                           int b, int h, int row_ctas, void* bar, void* stream) {
+  return tk_rnn::run_persistent_bwd<LstmBwdCell, __nv_bfloat16>(ptrs, mask, dirs, t_len, b, h, row_ctas, bar,
+                                                                stream);
+}
+// Dynamic shared memory of a persistent backward CTA (bytes), for the wrapper's plan.
+extern "C" int tk_rnn_bwd_smem(int gates, int h, int bf16) {
+  return static_cast<int>(bf16 ? tk_rnn::persistent_bwd_smem<__nv_bfloat16>(gates, h)
+                               : tk_rnn::persistent_bwd_smem<float>(gates, h));
+}
+// The step route of the backward: one launch per time step.
 extern "C" int tk_lstm_bwd_f32(const void* const* ptrs, const void* mask, int dirs, int t_len,
                                int b, int h, void* stream) {
   return tk_rnn::run_bwd(lstm_bwd_step<float>, ptrs, mask, dirs, t_len, b, h, stream);

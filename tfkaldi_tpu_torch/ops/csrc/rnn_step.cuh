@@ -1,8 +1,9 @@
 // Shared parts of the bidirectional recurrence kernels (lstm_bidi.cu,
-// gru_bidi.cu): the persistent forward (kernels 4 and 6), the per-step
-// forward and backward products, the pointer blocks of a direction, the
-// host loop that launches one step after another, and the host side of
-// each entry (run_persistent_fwd, run_fwd, run_bwd).
+// gru_bidi.cu): the persistent forward (kernels 4 and 6) and backward
+// (kernels 5 and 7), the per-step forward and backward products, the
+// pointer blocks of a direction, the host loop that launches one step
+// after another, and the host side of each entry (run_persistent_fwd,
+// run_persistent_bwd, run_fwd, run_bwd).
 //
 // THE PERSISTENT FORWARD (persistent_fwd; replaces the one-launch-per-step
 // forward wherever the wrapper's launch plan, ops/rnn_bidi.py::fwd_plan,
@@ -38,8 +39,38 @@
 // cudaLaunchCooperativeKernel, which refuses a grid that does not fit;
 // either raises in the wrapper.
 //
-// THE STEP KERNELS (the backward, kernels 5 and 7, and the forward on the
-// shapes the persistent plan refuses). One launch is one time step of BOTH
+// THE PERSISTENT BACKWARD (persistent_bwd; wherever ops/rnn_bidi.py::bwd_plan
+// takes the shape, as the forward's plan does). The same machinery in
+// reverse time: one cooperative launch per layer call, both directions,
+// all T steps. A CTA owns P_UNITS = 16 hidden units j of one direction and
+// one or more 64-row tiles; per step and tile it computes dh = dh_carry +
+// round_cd(dg_prev) @ W_h^T for its [64, 16] block, then the cell's
+// elementwise backward, which yields the G gate cotangents of each of its
+// (row, j) pairs. Its W_h rows [16, G*H] (W_h^T's columns, k contiguous,
+// the mma B operand as ldmatrix reads it) are loaded into shared memory
+// once a call; the f32 carries dh (and dc) stay in registers. The product's
+// depth is K = G*H (2048 for the LSTM at H 512), so the staged operand, the
+// published round_cd(dg_prev) of the tile's 64 rows, is [64, K]: 4x the
+// forward's, 256 KB in bf16 each step. It streams through a ring of
+// K-chunks (bf16 128 columns, f32 64), each two 2-d TMA boxes of 64 rows x
+// 128 bytes with the 128-byte swizzle, issued by one thread and awaited on
+// an mbarrier a stage, NST - 1 chunks in flight while the CTA multiplies
+// the chunk that has landed (TMA rather than cp.async: a step of 16-byte
+// cp.async copies is bound in each SM, not by what L2 serves). The output
+// block is only [64, 16], so the 8 warps split K rather than the output:
+// warp w takes columns [w*KW, (w+1)*KW) of every chunk and holds a partial sum of the
+// whole block (bf16: 4 x 2 mma tiles, 8 independent accumulator chains;
+// f32: 8 rows x 4 units of exact FMAs a thread); the 8 partial blocks are
+// summed through shared memory (the ring, which is free by then), and
+// each thread takes 4 adjacent units of one row for the elementwise step,
+// so its inputs and outputs move as 16-byte vectors. Only round_cd(dg_t)
+// of the CTA's [rows, G x 16] columns leaves it: it is published first to
+// one of two [B, G*H] compute-dtype exchange slots, then the CTA arrives at
+// its direction's counter barrier, stores dgx (and dgh) and loads the next
+// step's dy, acts, state, gh_n and mask while it waits.
+//
+// THE STEP KERNELS (the forward and the backward on the shapes the
+// persistent plans refuse). One launch is one time step of BOTH
 // directions of a layer (blockIdx.z is the direction), as the TPU kernels
 // interleave them; the launch boundary is the step's grid-wide barrier. A
 // block owns BM batch rows x BJ hidden units j. Each thread owns RPT = 4
@@ -63,6 +94,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"  // tkgemm: tensor maps, TMA loads and mbarrier waits
 
 namespace tk_rnn {
 
@@ -119,8 +152,10 @@ struct BwdDir {
   const void* wh;      // [H, G*H] compute dtype
   float* dgx;          // [T, B, G*H]
   float* dgh;          // [T, B, G*H] (GRU)
-  float* dh;           // [B, H] carry: dh before the next step's product
-  float* dc;           // [B, H] cell carry (LSTM)
+  void* dh;            // step kernels: f32 [B, H] carry, dh before the next step's product;
+                       // persistent kernel: [2, B, G*H] compute-dtype exchange slots of
+                       // round_cd(dg) (no initial value needed)
+  float* dc;           // [B, H] cell carry (LSTM, step kernels)
 };
 
 inline FwdDir fwd_dir(const void* const* p) {
@@ -131,7 +166,7 @@ inline FwdDir fwd_dir(const void* const* p) {
 inline BwdDir bwd_dir(const void* const* p) {
   return BwdDir{static_cast<const float*>(p[0]), static_cast<const float*>(p[1]),
                 static_cast<const float*>(p[2]), static_cast<const float*>(p[3]), p[4],
-                (float*)p[5], (float*)p[6], (float*)p[7], (float*)p[8]};
+                (float*)p[5], (float*)p[6], (void*)p[7], (float*)p[8]};
 }
 
 // acc[r][g] += sum_k round_cd(h[row0 + rg*RPT + r, k]) * w[k, g*H + j0 + jl]
@@ -612,23 +647,16 @@ persistent_fwd(FwdDir d0, FwdDir d1, const float* __restrict__ mask, int t_len, 
   }
 }
 
-// The host side of a persistent forward entry: checks that the grid
-// (ceil(H/16), row_ctas, dirs) can be co-resident, then one cooperative
-// launch. bar: 2 zeroed counters (one per direction). Returns a CUDA error
-// code (cudaErrorCooperativeLaunchTooLarge when the grid cannot be resident).
-template <class Cell, typename T>
-int run_persistent_fwd(const void* const* p, const void* mask, int dirs, int t_len, int b, int h,
-                       int residuals, int row_ctas, void* bar, void* stream) {
-  if (dirs < 1 || dirs > 2 || row_ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (t_len <= 0 || b <= 0 || h <= 0) return static_cast<int>(cudaGetLastError());
+// The host side shared by the persistent entries: checks the row split,
+// that the grid (ceil(H/16), row_ctas, dirs) can be co-resident with
+// `smem` bytes a CTA, then one cooperative launch of `kernel` with `args`.
+// Returns a CUDA error code (cudaErrorCooperativeLaunchTooLarge when the
+// grid cannot be resident).
+inline int launch_persistent(const void* kernel, size_t smem, int dirs, int b, int h, int row_ctas, void** args,
+                             void* stream) {
   const int tiles = (b + P_ROWS - 1) / P_ROWS;
   if (row_ctas > tiles || (tiles + row_ctas - 1) / row_ctas > P_MAXR)
     return static_cast<int>(cudaErrorInvalidValue);
-  FwdDir d0 = fwd_dir(p);
-  FwdDir d1 = dirs > 1 ? fwd_dir(p + PTRS) : d0;
-  void (*kernel)(FwdDir, FwdDir, const float*, int, int, int, unsigned*) =
-      residuals ? persistent_fwd<Cell, T, true> : persistent_fwd<Cell, T, false>;
-  const size_t smem = persistent_smem<T>(Cell::G, h);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -641,13 +669,400 @@ int run_persistent_fwd(const void* const* p, const void* mask, int dirs, int t_l
   const dim3 grid((h + P_UNITS - 1) / P_UNITS, row_ctas, dirs);
   if (static_cast<int64_t>(per_sm) * sms < static_cast<int64_t>(grid.x) * grid.y * grid.z)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  err = cudaLaunchCooperativeKernel(kernel, grid, dim3(P_THREADS), args, smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The host side of a persistent forward entry. bar: 2 zeroed counters (one
+// per direction).
+template <class Cell, typename T>
+int run_persistent_fwd(const void* const* p, const void* mask, int dirs, int t_len, int b, int h,
+                       int residuals, int row_ctas, void* bar, void* stream) {
+  if (dirs < 1 || dirs > 2 || row_ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (t_len <= 0 || b <= 0 || h <= 0) return static_cast<int>(cudaGetLastError());
+  FwdDir d0 = fwd_dir(p);
+  FwdDir d1 = dirs > 1 ? fwd_dir(p + PTRS) : d0;
+  void (*kernel)(FwdDir, FwdDir, const float*, int, int, int, unsigned*) =
+      residuals ? persistent_fwd<Cell, T, true> : persistent_fwd<Cell, T, false>;
   const float* m = static_cast<const float*>(mask);
   unsigned* counters = static_cast<unsigned*>(bar);
   void* args[] = {&d0, &d1, &m, &t_len, &b, &h, &counters};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid, dim3(P_THREADS), args, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(reinterpret_cast<const void*>(kernel), persistent_smem<T>(Cell::G, h), dirs, b, h,
+                           row_ctas, args, stream);
+}
+
+
+// ---------------------------------------------------------------------------
+// The persistent backward (see the note at the top). Its tiling constants
+// are mirrored by ops/rnn_bidi.py::bwd_plan; tk_rnn_bwd_smem reports the
+// shared-memory size so a card test can hold the two together.
+// ---------------------------------------------------------------------------
+
+constexpr int P_WARPS = P_THREADS / 32;                       // 8
+constexpr int RED_FLOATS = P_WARPS * P_ROWS * P_UNITS;        // the warps' partial [64, 16] blocks
+
+// The staging of round_cd(dg_prev): K-chunks of KC = 8 warps x KW columns
+// in a ring of NST stages, each chunk two TMA boxes of [64 rows, 128
+// bytes] side by side, 128-byte swizzle (the 16-byte piece q of row r lies
+// at q ^ (r % 8), so the ldmatrix and float4 reads of 8 rows hit 8
+// different bank groups); W_h's rows padded by PADN elements for the same
+// reason.
+template <typename T>
+struct BwdPipe;
+template <>
+struct BwdPipe<__nv_bfloat16> {
+  static constexpr int KC = 128, KW = 16, NST = 8, PADN = 8;
+};
+template <>
+struct BwdPipe<float> {
+  static constexpr int KC = 64, KW = 8, NST = 5, PADN = 4;
+};
+constexpr int BOX_BYTES = P_ROWS * 128;     // one TMA box: 64 rows of 128 bytes
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;  // a chunk: two boxes side by side
+static_assert(BwdPipe<float>::NST * STAGE_BYTES >= RED_FLOATS * 4, "the ring holds the partial sums");
+
+// Dynamic shared memory of a backward CTA: W_h rows [16][KR + PADN], KR =
+// G*H rounded up to KC, up to 1 KB to align the ring, the ring (which also
+// holds the partial sums) and one mbarrier per stage.
+template <typename T>
+inline size_t persistent_bwd_smem(int gates, int h) {
+  using Pp = BwdPipe<T>;
+  const size_t kr = static_cast<size_t>((gates * h + Pp::KC - 1) / Pp::KC) * Pp::KC;
+  return P_UNITS * (kr + Pp::PADN) * sizeof(T) + 1024 + static_cast<size_t>(Pp::NST) * (STAGE_BYTES + 8);
+}
+
+// ws[jj][k] = w[u0 + jj, k] for k < KR (zero where k >= K or u0 + jj >= H):
+// the CTA's W_h rows, loaded once per call.
+template <typename T>
+__device__ void stage_wt(T* ws, const T* __restrict__ w, int H, int K, int KR, int u0, bool vec) {
+  const int np = KR + BwdPipe<T>::PADN;
+  if (vec) {  // K % EPP == 0: a piece is all in or all out
+    constexpr int EPP = 16 / sizeof(T);
+    const int ppr = KR / EPP;
+    for (int e = threadIdx.x; e < P_UNITS * ppr; e += P_THREADS) {
+      const int jj = e / ppr, k = (e % ppr) * EPP, j = u0 + jj;
+      const bool ok = j < H && k < K;
+      cp_async16(ws + jj * np + k, ok ? w + static_cast<int64_t>(j) * K + k : w, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    for (int e = threadIdx.x; e < P_UNITS * KR; e += P_THREADS) {
+      const int jj = e / KR, k = e % KR, j = u0 + jj;
+      ws[jj * np + k] = (j < H && k < K) ? w[static_cast<int64_t>(j) * K + k] : from_f32<T>(0.0f);
+    }
+  }
+  __syncthreads();
+}
+
+// One warp's share of a staged K-chunk, and its partial [64, 16] block.
+template <typename T>
+struct BwdWarp;
+
+// bf16: columns [w*16, w*16 + 16) of the chunk, mma.sync m16n8k16: A (the
+// ring, 4 row tiles of 16) by ldmatrix, B (W_h^T, 2 unit tiles of 8) by one
+// ldmatrix.x4 from the resident rows; acc[mt*2 + nt] is the mma tile (mt, nt).
+template <>
+struct BwdWarp<__nv_bfloat16> {
+  static __device__ __forceinline__ void chunk(const unsigned char* as, const __nv_bfloat16* ws, int np, int k0,
+                                               float (&acc)[8][4]) {
+    using Pp = BwdPipe<__nv_bfloat16>;
+    const int lane = threadIdx.x % 32, kk = (threadIdx.x / 32) * Pp::KW;
+    unsigned b[4];  // (units 0-7, k 0-7), (units 0-7, k 8-15), (units 8-15, k 0-7), (units 8-15, k 8-15)
+    ldsm_x4(b, ws + (lane % 8 + 8 * (lane / 16)) * np + k0 + kk + 8 * ((lane / 8) % 2));
+    const unsigned b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+    // columns kk + (lane / 16) * 8 of the chunk: box kk / 64, 16-byte piece (kk % 64) / 8 + lane / 16
+    const unsigned char* box = as + (kk / 64) * BOX_BYTES;
+    const int piece = (kk % 64) / 8 + lane / 16;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      unsigned a[4];
+      const int r = mt * 16 + lane % 16;
+      ldsm_x4(a, box + r * 128 + ((piece ^ (r % 8)) << 4));
+      mma_bf16(acc[mt * 2], a, b0);
+      mma_bf16(acc[mt * 2 + 1], a, b1);
+    }
+  }
+  // the warp's partial block into red [64][16]
+  static __device__ __forceinline__ void partials(float* red, const float (&acc)[8][4]) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float* at = red + (mt * 16 + lane / 4) * P_UNITS + nt * 8 + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(at) = make_float2(acc[mt * 2 + nt][0], acc[mt * 2 + nt][1]);
+        *reinterpret_cast<float2*>(at + 8 * P_UNITS) = make_float2(acc[mt * 2 + nt][2], acc[mt * 2 + nt][3]);
+      }
+    }
+  }
+};
+
+// f32: columns [w*8, w*8 + 8) of the chunk, exact FMAs (TF32 off); a thread
+// holds rows rg + 8i (i < 8) x units ug + 4q (q < 4), rg = lane / 4, ug =
+// lane % 4, in acc[i][q], and reads them as float4 along k.
+template <>
+struct BwdWarp<float> {
+  static __device__ __forceinline__ void chunk(const unsigned char* as, const float* ws, int np, int k0,
+                                               float (&acc)[8][4]) {
+    using Pp = BwdPipe<float>;
+    const int lane = threadIdx.x % 32, kk = (threadIdx.x / 32) * Pp::KW;
+    // rows lane / 4 + 8i (all with r % 8 = lane / 4) of box kk / 32
+    const unsigned char* a0 = as + (kk / 32) * BOX_BYTES + (lane / 4) * 128;
+    const float* b0 = ws + (lane % 4) * np + k0 + kk;
+#pragma unroll
+    for (int kq = 0; kq < Pp::KW; kq += 4) {
+      float4 a[8], b[4];
+      const int at = (((kk % 32 + kq) / 4) ^ (lane / 4)) << 4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(a0 + 8 * i * 128 + at);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) b[q] = *reinterpret_cast<const float4*>(b0 + 4 * q * np + kq);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[i][q] = fmaf(a[i].x, b[q].x, acc[i][q]);
+          acc[i][q] = fmaf(a[i].y, b[q].y, acc[i][q]);
+          acc[i][q] = fmaf(a[i].z, b[q].z, acc[i][q]);
+          acc[i][q] = fmaf(a[i].w, b[q].w, acc[i][q]);
+        }
+      }
+    }
+  }
+  static __device__ __forceinline__ void partials(float* red, const float (&acc)[8][4]) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) red[(lane / 4 + 8 * i) * P_UNITS + lane % 4 + 4 * q] = acc[i][q];
+    }
+  }
+};
+
+// 4 adjacent values of an f32 stream, zero past the n valid ones.
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int64_t i, int n, bool vec) {
+  if (vec && n >= 4) return __ldg(reinterpret_cast<const float4*>(p + i));
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (n > 0) v.x = p[i];
+  if (n > 1) v.y = p[i + 1];
+  if (n > 2) v.z = p[i + 2];
+  if (n > 3) v.w = p[i + 3];
+  return v;
+}
+__device__ __forceinline__ float at4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+// base[i + e] = v[e] for the n valid ones, in the element type of base;
+// one 16-byte (bf16: 8-byte) store when vec and all 4 are valid.
+__device__ __forceinline__ void put4(float* base, int64_t i, const float (&v)[4], int n, bool vec) {
+  if (vec && n >= 4) {
+    *reinterpret_cast<float4*>(base + i) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int e = 0; e < n && e < 4; ++e) base[i + e] = v[e];
+  }
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* base, int64_t i, const float (&v)[4], int n, bool vec) {
+  if (vec && n >= 4) {
+    __nv_bfloat162 pair[2] = {__floats2bfloat162_rn(v[0], v[1]), __floats2bfloat162_rn(v[2], v[3])};
+    *reinterpret_cast<uint2*>(base + i) = *reinterpret_cast<const uint2*>(pair);
+  } else {
+    for (int e = 0; e < n && e < 4; ++e) base[i + e] = __float2bfloat16_rn(v[e]);
+  }
+}
+
+// Cell: G and step(act[G], dy, state, state_prev, ghn, m, acc, dh, dc,
+// dgx[G], dgw[G]), the elementwise backward of one (row, j) pair
+// (lstm_bidi.cu, gru_bidi.cu); dgw is what the next step's product and the
+// weight gradient take (dgh for the GRU, dgx for the LSTM).
+// Grid (ceil(H/16), row CTAs, dirs), P_THREADS threads, persistent_bwd_smem
+// bytes; map0 / map1: each direction's two exchange slots as one [2B, G*H]
+// tensor, boxes of [64 rows, 128 bytes].
+template <class Cell, typename T>
+__global__ void __launch_bounds__(P_THREADS, 1)
+persistent_bwd(BwdDir d0, BwdDir d1, const __grid_constant__ CUtensorMap map0,
+               const __grid_constant__ CUtensorMap map1, const float* __restrict__ mask, int t_len, int B,
+               int H, unsigned* __restrict__ bar) {
+  constexpr int G = Cell::G;
+  using Pp = BwdPipe<T>;
+  constexpr int EPP = 16 / sizeof(T);
+  constexpr int BOX = 128 / sizeof(T);  // columns of a box
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dir = blockIdx.z;
+  const BwdDir d = dir == 0 ? d0 : d1;
+  const CUtensorMap* map = dir == 0 ? &map0 : &map1;
+  const T* w = static_cast<const T*>(d.wh);
+  T* slots = static_cast<T*>(d.dh);  // the two published round_cd(dg) slots [2, B, K]
+  const int K = G * H;
+  const int KR = (K + Pp::KC - 1) / Pp::KC * Pp::KC;
+  const int nchunks = KR / Pp::KC;
+  const int np = KR + Pp::PADN;
+  T* ws = reinterpret_cast<T*>(smem_raw);
+  // the ring, 1024-byte aligned as the 128-byte swizzle wants, then a full mbarrier per stage
+  const unsigned raw = smem_addr(smem_raw);
+  const unsigned ring_at = (raw + P_UNITS * np * static_cast<unsigned>(sizeof(T)) + 1023) & ~1023u;
+  unsigned char* ring = smem_raw + (ring_at - raw);
+  float* red = reinterpret_cast<float*>(ring);  // the partial sums, once the ring is drained
+  const unsigned full0 = ring_at + Pp::NST * STAGE_BYTES;
+  const int u0 = blockIdx.x * P_UNITS;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < Pp::NST; ++st) tkgemm::mbar_init(full0 + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  stage_wt<T>(ws, w, H, K, KR, u0, K % EPP == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0);
+
+  // the elementwise step's pairs: row r_own of a tile, units j_own .. j_own + 3
+  const int r_own = threadIdx.x / 4;
+  const int j_own = u0 + (threadIdx.x % 4) * 4;
+  const int nj = H - j_own;  // units of the 4 that exist (<= 0: none)
+  // f32 streams as float4 (the bf16 slot as 8 bytes) when H % 4 == 0 and aligned
+  const bool vec4 = H % 4 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(d.dy) | reinterpret_cast<uintptr_t>(d.acts) |
+                      reinterpret_cast<uintptr_t>(d.state) | reinterpret_cast<uintptr_t>(d.ghn) |
+                      reinterpret_cast<uintptr_t>(d.dgx) | reinterpret_cast<uintptr_t>(d.dgh) |
+                      reinterpret_cast<uintptr_t>(slots)) & 15) == 0;
+  const int tiles = (B + P_ROWS - 1) / P_ROWS;
+  const int row_ctas = static_cast<int>(gridDim.y);
+  const int mine = (tiles - static_cast<int>(blockIdx.y) + row_ctas - 1) / row_ctas;
+  const unsigned ctas = gridDim.x * gridDim.y;  // CTAs of this direction
+
+  float dhc[P_MAXR][4] = {}, dcc[P_MAXR][4] = {};  // the f32 carries of units j_own + e
+  // the inputs of the next work item
+  float4 dyr, actr[G], str, prevr, ghnr;
+  float mr;
+
+  // cotangents flow against each direction
+  auto step_t = [&](int s) { return dir == 0 ? t_len - 1 - s : s; };
+  auto fetch = [&](int s, int i) {
+    const int t = step_t(s), tp = dir == 0 ? t - 1 : t + 1;  // tp: the step whose state t consumed
+    const int row = (blockIdx.y + i * gridDim.y) * P_ROWS + r_own;
+    const int n = row < B ? nj : 0;
+    const int64_t tb = static_cast<int64_t>(t) * B + row;
+    dyr = load4(d.dy, tb * H + j_own, n, vec4);
+#pragma unroll
+    for (int g = 0; g < G; ++g) actr[g] = load4(d.acts, tb * K + g * H + j_own, n, vec4);
+    str = G == 4 ? load4(d.state, tb * H + j_own, n, vec4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    prevr = load4(d.state, (static_cast<int64_t>(tp) * B + row) * H + j_own, tp >= 0 && tp < t_len ? n : 0,
+                  vec4);
+    ghnr = G == 3 ? load4(d.ghn, tb * H + j_own, n, vec4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    mr = row < B ? mask[tb] : 0.0f;
+  };
+
+  unsigned q0 = 0;  // ring uses so far
+  fetch(0, 0);
+  for (int s = 0; s < t_len; ++s) {
+    const int t = step_t(s);
+    T* g_out = s + 1 < t_len ? slots + static_cast<int64_t>((s + 1) & 1) * B * K : nullptr;
+#pragma unroll 1
+    for (int i = 0; i < P_MAXR; ++i) {
+      if (i < mine) {
+        const int row0 = (blockIdx.y + i * gridDim.y) * P_ROWS;
+        float4 dsum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // the product at this thread's 4 pairs
+        if (s > 0) {  // dg_{-1} = 0: the first step has no product
+          float acc[8][4] = {};
+          // chunk c of the tile's rows of the published slot into ring use q: two boxes, one barrier
+          const int slot_row = (s & 1) * B + row0;
+          auto issue = [&](unsigned q, int c) {
+            const unsigned st = q % Pp::NST, dst = ring_at + st * STAGE_BYTES, full = full0 + 8 * st;
+            tkgemm::mbar_arrive_expect_tx(full, STAGE_BYTES);  // the whole boxes, even where they clip
+            tkgemm::tma_load_2d(dst, map, full, c * Pp::KC, slot_row);
+            tkgemm::tma_load_2d(dst + BOX_BYTES, map, full, c * Pp::KC + BOX, slot_row);
+          };
+          __syncthreads();  // the ring's readers of the previous tile are done
+          if (threadIdx.x == 0) {
+            // the slot was written by other CTAs' stores (the generic proxy) and is read by the TMA
+            asm volatile("fence.proxy.async.global;\n" ::: "memory");
+            for (int c = 0; c < Pp::NST - 1 && c < nchunks; ++c) issue(q0 + c, c);
+          }
+          for (int c = 0; c < nchunks; ++c) {
+            const unsigned q = q0 + c;
+            tkgemm::mbar_wait(full0 + 8 * (q % Pp::NST), (q / Pp::NST) & 1);
+            __syncthreads();  // chunk c is in; every warp is done with chunk c - 1's stage
+            if (threadIdx.x == 0 && c + Pp::NST - 1 < nchunks) issue(q + Pp::NST - 1, c + Pp::NST - 1);
+            BwdWarp<T>::chunk(ring + (q % Pp::NST) * STAGE_BYTES, ws, np, c * Pp::KC, acc);
+          }
+          q0 += nchunks;
+          __syncthreads();  // the ring is drained: it takes the warps' partial blocks
+          BwdWarp<T>::partials(red + (threadIdx.x / 32) * P_ROWS * P_UNITS, acc);
+          __syncthreads();
+#pragma unroll
+          for (int wp = 0; wp < P_WARPS; ++wp) {
+            const float4 p = *reinterpret_cast<const float4*>(red + wp * P_ROWS * P_UNITS + r_own * P_UNITS +
+                                                              (threadIdx.x % 4) * 4);
+            dsum.x = add(dsum.x, p.x);
+            dsum.y = add(dsum.y, p.y);
+            dsum.z = add(dsum.z, p.z);
+            dsum.w = add(dsum.w, p.w);
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // red's stores, before the next boxes
+        }
+        float dgx[G][4], dgw[G][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float act[G], ox[G], ow[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) act[g] = at4(actr[g], e);
+          Cell::step(act, at4(dyr, e), at4(str, e), at4(prevr, e), at4(ghnr, e), mr, at4(dsum, e), dhc[0][e],
+                     dcc[0][e], ox, ow);
+#pragma unroll
+          for (int g = 0; g < G; ++g) dgx[g][e] = ox[g], dgw[g][e] = ow[g];
+        }
+        const int row = row0 + r_own;
+        const int n = row < B ? nj : 0;
+        // publish round_cd(dg_t) first: it is all the next step waits for
+        if (g_out != nullptr) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) put4(g_out, static_cast<int64_t>(row) * K + g * H + j_own, dgw[g], n, vec4);
+        }
+        if (s + 1 < t_len && i + 1 == mine) dir_arrive(bar + dir);  // the CTA's last tile of the step
+        const int64_t at_g = (static_cast<int64_t>(t) * B + row) * K + j_own;  // [T, B, G*H] streams
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          put4(d.dgx, at_g + g * H, dgx[g], n, vec4);
+          if (G == 3) put4(d.dgh, at_g + g * H, dgw[g], n, vec4);
+        }
+        if (i + 1 < mine) {
+          fetch(s, i + 1);
+        } else if (s + 1 < t_len) {
+          fetch(s + 1, 0);  // in flight while this CTA waits at the barrier
+        }
+      }
+      rotate(dhc);
+      rotate(dcc);
+    }
+    if (s + 1 < t_len) dir_wait(bar + dir, (s + 1u) * ctas);
+  }
+}
+
+// The host side of a persistent backward entry (BwdDir order; dh: the
+// exchange slots, [2, B, G*H] in the compute dtype, 16-byte aligned with
+// rows of whole 16-byte pieces, as the TMA wants; dc unused): a tensor map
+// per direction, then the shared launch. Returns a CUDA error code, or a
+// negative one when cuTensorMapEncodeTiled refuses a map.
+template <class Cell, typename T>
+int run_persistent_bwd(const void* const* p, const void* mask, int dirs, int t_len, int b, int h, int row_ctas,
+                       void* bar, void* stream) {
+  if (dirs < 1 || dirs > 2 || row_ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (t_len <= 0 || b <= 0 || h <= 0) return static_cast<int>(cudaGetLastError());
+  if ((Cell::G * h * sizeof(T)) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  BwdDir d0 = bwd_dir(p);
+  BwdDir d1 = dirs > 1 ? bwd_dir(p + PTRS) : d0;
+  CUtensorMap map0, map1;
+  const int64_t k = static_cast<int64_t>(Cell::G) * h;
+  int code = tkgemm::encode_2d(&map0, static_cast<const T*>(d0.dh), k, 2 * static_cast<int64_t>(b),
+                               128 / static_cast<int>(sizeof(T)), P_ROWS);
+  if (code == 0)
+    code = tkgemm::encode_2d(&map1, static_cast<const T*>(d1.dh), k, 2 * static_cast<int64_t>(b),
+                             128 / static_cast<int>(sizeof(T)), P_ROWS);
+  if (code != 0) return code;
+  void (*kernel)(BwdDir, BwdDir, const CUtensorMap, const CUtensorMap, const float*, int, int, int, unsigned*) =
+      persistent_bwd<Cell, T>;
+  const float* m = static_cast<const float*>(mask);
+  unsigned* counters = static_cast<unsigned*>(bar);
+  void* args[] = {&d0, &d1, &map0, &map1, &m, &t_len, &b, &h, &counters};
+  return launch_persistent(reinterpret_cast<const void*>(kernel), persistent_bwd_smem<T>(Cell::G, h), dirs, b, h,
+                           row_ctas, args, stream);
 }
 
 }  // namespace tk_rnn

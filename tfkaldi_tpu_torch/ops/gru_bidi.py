@@ -9,7 +9,9 @@ of :mod:`tfkaldi_tpu_torch.ops.lstm_bidi`. :data:`CELL` is the GRU's
   launch plan refuses); ``CELL.fwd_ref`` runs one
   :func:`tfkaldi_tpu_torch.ops.gru_scan.forward` per direction; residuals
   ``acts``, ``hs``, ``h_cds`` and ``gh_n``;
-- ``CELL.bwd`` launches kernel 7 (``gru_bwd_step``) or runs
+- ``CELL.bwd`` launches kernel 7 (the persistent backward with
+  ``gru_bidi.cu::GruBwdCell``, or ``gru_bwd_step`` on the shapes
+  :func:`~tfkaldi_tpu_torch.ops.rnn_bidi.bwd_plan` refuses) or runs
   ``CELL.bwd_ref``, each emitting ``dgx`` and ``dgh``; ``dW_h`` contracts
   ``dgh``.
 """

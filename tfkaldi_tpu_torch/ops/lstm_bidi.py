@@ -11,7 +11,9 @@ VJP and the two Pallas kernels). :data:`CELL` is the LSTM's
   kernel ``lstm_fwd_step``; its plain version ``CELL.fwd_ref`` runs one
   :func:`tfkaldi_tpu_torch.ops.lstm_scan.forward` per direction; residuals
   ``acts``, ``cs`` and ``h_cds``;
-- ``CELL.bwd`` launches kernel 5 (``lstm_bwd_step``), ``CELL.bwd_ref`` one
+- ``CELL.bwd`` launches kernel 5 (the persistent backward with
+  ``lstm_bidi.cu::LstmBwdCell``, or ``lstm_bwd_step`` on the shapes
+  :func:`~tfkaldi_tpu_torch.ops.rnn_bidi.bwd_plan` refuses), ``CELL.bwd_ref`` one
   ``lstm_scan.backward_scan`` per direction; ``dW_h`` contracts ``dgx``.
 """
 

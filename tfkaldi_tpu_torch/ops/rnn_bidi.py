@@ -29,10 +29,27 @@ their plain versions and their launch counts:
   (the C side checks the occupancy calculator against the grid and
   launches with ``cudaLaunchCooperativeKernel``, which refuses a grid that
   cannot be co-resident) raises.
-- :meth:`Cell.bwd` launches ``tk_{name}_bwd_*`` (one launch per step,
-  ``bwd_launches``) or runs :meth:`Cell.bwd_ref` (one
-  ``scan.backward_scan`` per direction, each shifting its own carry
-  stream, as the JAX package's custom VJPs do).
+- :meth:`Cell.bwd` (kernel 5 / 7) runs :meth:`Cell.bwd_ref` on CPU tensors
+  (one ``scan.backward_scan`` per direction, each shifting its own carry
+  stream, as the JAX package's custom VJPs do) and on CUDA tensors takes
+  the route :func:`bwd_plan` picks, the same way:
+
+  - ``"persistent"``: ``tk_{name}_bwd_persistent_{f32,bf16}``
+    (``csrc/rnn_step.cuh::persistent_bwd``), ONE cooperative launch per
+    layer call, both directions and all T steps, each CTA's 16 rows of W_h
+    resident in shared memory, dh (and dc) in registers, the dgates tile
+    of the step before streamed by the TMA through a ring into the bf16
+    tensor cores or exact f32 FMAs. Counted in ``bwd_persistent_launches``.
+    Taken where a CTA's shared memory (W_h rows [16, G·H] plus the ring)
+    fits in 232,448 bytes, the grid fits as for the forward and a dgates
+    row fills whole 16-byte pieces. At the recipe's shape both dtypes and
+    both cells take it (128 CTAs).
+  - ``"step"``: ``tk_{name}_bwd_{f32,bf16}``, one launch per time step,
+    elsewhere (e.g. H > 768 in bf16 or H > 576 in f32 for the LSTM, or an
+    odd H in bf16).
+    Counted in ``bwd_launches`` (one per step).
+
+  A refused cooperative launch raises here too.
 
 :class:`BidiScan` is the ``torch.autograd.Function`` around them, with
 ``dW_h = h_cdᵀ @ round_cd(dg)`` per direction as one ``torch.matmul``
@@ -55,10 +72,14 @@ from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
 _DT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PTRS = 9  # pointers per direction, in the order of csrc/rnn_step.cuh FwdDir / BwdDir
 
-# The persistent forward's tiling, as csrc/rnn_step.cuh sets it: P_ROWS,
-# P_UNITS, P_MAXR, and Pipe<T> (KC, NST, PADK, PADN) per compute dtype.
+# The persistent kernels' tiling, as csrc/rnn_step.cuh sets it: P_ROWS,
+# P_UNITS, P_MAXR, per compute dtype Pipe<T> (the forward: KC, NST, PADK,
+# PADN) and BwdPipe<T> (the backward: KC, NST, PADN), and the backward's
+# ring stage: two TMA boxes of 64 rows x 128 bytes.
 P_ROWS, P_UNITS, P_MAXR = 64, 16, 4
 _PIPE = {torch.bfloat16: (64, 8, 8, 8), torch.float32: (32, 4, 4, 4)}
+_BWD_PIPE = {torch.bfloat16: (128, 8, 8), torch.float32: (64, 5, 4)}
+_STAGE_BYTES = 2 * P_ROWS * 128
 SMS = 132  # streaming multiprocessors of an H100 (SXM); one persistent CTA on each at most
 SMEM_PER_CTA = 232_448  # the most shared memory a Hopper block may use
 
@@ -77,14 +98,45 @@ class FwdPlan:
     smem_bytes: int
 
 
+class BwdPlan(FwdPlan):
+    """The backward's route and grid, with the fields of :class:`FwdPlan`."""
+
+
+STEP_BWD = BwdPlan("step", 0, 0, 0, 0)  # the backward's step route, for a harness that times it
+
+
+def _size(compute_dtype) -> int:
+    return torch.empty((), dtype=compute_dtype).element_size()
+
+
 def persistent_smem(gates: int, h: int, compute_dtype) -> int:
-    """Shared memory of a persistent CTA: the W_h slice ``[KR, 16·G +
-    PADN]`` and the h ring ``[NST, 64, KC + PADK]``, KR = H rounded up to
+    """Shared memory of a persistent forward CTA: the W_h slice ``[KR, 16·G
+    + PADN]`` and the h ring ``[NST, 64, KC + PADK]``, KR = H rounded up to
     KC (``csrc/rnn_step.cuh::persistent_smem``)."""
     kc, nst, padk, padn = _PIPE[compute_dtype]
-    size = torch.empty((), dtype=compute_dtype).element_size()
     kr = -(-h // kc) * kc
-    return (kr * (gates * P_UNITS + padn) + nst * P_ROWS * (kc + padk)) * size
+    return (kr * (gates * P_UNITS + padn) + nst * P_ROWS * (kc + padk)) * _size(compute_dtype)
+
+
+def persistent_bwd_smem(gates: int, h: int, compute_dtype) -> int:
+    """Shared memory of a persistent backward CTA: W_h's 16 rows ``[16, KR +
+    PADN]``, KR = G·H rounded up to KC, 1 KB to align the ring, the ring of
+    NST stages of 16 KB (it also holds the warps' partial sums) and an
+    8-byte mbarrier per stage (``csrc/rnn_step.cuh::persistent_bwd_smem``)."""
+    kc, nst, padn = _BWD_PIPE[compute_dtype]
+    kr = -(-(gates * h) // kc) * kc
+    return P_UNITS * (kr + padn) * _size(compute_dtype) + 1024 + nst * (_STAGE_BYTES + 8)
+
+
+def _plan(cls, smem: int, b: int, h: int, dirs: int):
+    """The persistent route where ``smem`` fits a CTA, the grid fits one CTA
+    per SM and no CTA loops over more than P_MAXR row tiles; else the step
+    route."""
+    tiles = -(-b // P_ROWS)
+    row_ctas = min(tiles, SMS // (dirs * -(-h // P_UNITS)))
+    if smem > SMEM_PER_CTA or row_ctas < 1 or -(-tiles // row_ctas) > P_MAXR:
+        return cls("step", 0, 0, 0, 0)
+    return cls("persistent", dirs * -(-h // P_UNITS) * row_ctas, row_ctas, -(-tiles // row_ctas), smem)
 
 
 def fwd_plan(b: int, h: int, gates: int, compute_dtype, dirs: int) -> FwdPlan:
@@ -92,12 +144,16 @@ def fwd_plan(b: int, h: int, gates: int, compute_dtype, dirs: int) -> FwdPlan:
     ``gates`` gate blocks, ``dirs`` directions, from the shape and the
     compute dtype alone (T does not enter: the persistent kernel loops over
     it)."""
-    smem = persistent_smem(gates, h, compute_dtype)
-    tiles = -(-b // P_ROWS)
-    row_ctas = min(tiles, SMS // (dirs * -(-h // P_UNITS)))
-    if smem > SMEM_PER_CTA or row_ctas < 1 or -(-tiles // row_ctas) > P_MAXR:
-        return FwdPlan("step", 0, 0, 0, 0)
-    return FwdPlan("persistent", dirs * -(-h // P_UNITS) * row_ctas, row_ctas, -(-tiles // row_ctas), smem)
+    return _plan(FwdPlan, persistent_smem(gates, h, compute_dtype), b, h, dirs)
+
+
+def bwd_plan(b: int, h: int, gates: int, compute_dtype, dirs: int) -> BwdPlan:
+    """The backward's route, as :func:`fwd_plan` decides the forward's; the
+    persistent route also needs a dgates row of ``gates·h`` values to fill
+    whole 16-byte pieces, as the TMA reads it."""
+    if gates * h * _size(compute_dtype) % 16:
+        return STEP_BWD
+    return _plan(BwdPlan, persistent_bwd_smem(gates, h, compute_dtype), b, h, dirs)
 
 
 def _check(name, gxs, whs_cd, mask, gates: int) -> tuple[int, int, int]:
@@ -144,15 +200,18 @@ class Cell:
     contracts ``dgx`` itself. Residuals per direction: ``(acts, state,
     h_cds)`` plus ``gh_n`` for the GRU, ``state`` being ``cs`` (LSTM) or
     ``hs`` (GRU). The launch counts since the last reset, per route:
-    ``fwd_persistent_launches`` (one per call on the persistent route),
-    ``fwd_launches`` (one per time step on the step route) and
-    ``bwd_launches`` (one per time step)."""
+    ``fwd_persistent_launches`` and ``bwd_persistent_launches`` (one per
+    call on the persistent route), ``fwd_launches`` and ``bwd_launches``
+    (one per time step on the step route)."""
 
     def __init__(self, name: str, gates: int, scan, *, gh_n: bool):
         self.name, self.gates, self.scan, self.gh_n = name, gates, scan, gh_n
-        self.fwd_persistent_launches = 0
-        self.fwd_launches = 0
-        self.bwd_launches = 0
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        """Every launch count to 0."""
+        self.fwd_persistent_launches = self.fwd_launches = 0
+        self.bwd_persistent_launches = self.bwd_launches = 0
 
     def fwd_ref(self, gxs, whs_cd, mask, *, residuals: bool = True):
         """Plain version of the forward kernel: ``[(ys, residuals or None),
@@ -212,13 +271,17 @@ class Cell:
             out.append(grads if self.gh_n else (grads, grads))
         return out
 
-    def bwd(self, dys, residuals, mask, whs_cd):
-        """The backward kernel on CUDA tensors, :meth:`bwd_ref` on CPU
-        tensors."""
+    def bwd(self, dys, residuals, mask, whs_cd, *, plan: BwdPlan | None = None):
+        """The backward kernel on CUDA tensors, on the route :func:`bwd_plan`
+        picks (``plan`` overrides it: a harness times the step route with
+        :data:`STEP_BWD`); :meth:`bwd_ref` on CPU tensors."""
         if dys[0].device.type == "cpu":
             return self.bwd_ref(dys, residuals, mask, whs_cd)
         t, b, h = _check(f"{self.name}_bwd", [r[0] for r in residuals], whs_cd, mask, self.gates)
         cd = whs_cd[0].dtype
+        dev = dys[0].device
+        plan = plan or bwd_plan(b, h, self.gates, cd, len(dys))
+        persistent = plan.route == "persistent"
         out, blocks = [], []
         for dy, (acts, state, _, *ghn), wh in zip(dys, residuals, whs_cd):
             for x in (dy, state, *ghn):
@@ -227,13 +290,22 @@ class Cell:
                                      f"[{t}, {b}, {h}]")
             dgx = torch.empty_like(acts)
             dgh = torch.empty_like(acts) if self.gh_n else None
-            carry_dc = None if self.gh_n else torch.zeros(b, h, device=dy.device)
+            if persistent:  # two exchange slots of round_cd(dg); the carries stay in registers
+                carry_dh, carry_dc = torch.empty(2, b, self.gates * h, dtype=cd, device=dev), None
+            else:
+                carry_dh = torch.zeros(b, h, device=dev)
+                carry_dc = None if self.gh_n else torch.zeros(b, h, device=dev)
             blocks.append((dy.contiguous(), acts.contiguous(), state.contiguous(),
-                           ghn[0].contiguous() if ghn else None, wh.contiguous(), dgx, dgh,
-                           torch.zeros(b, h, device=dy.device), carry_dc))
+                           ghn[0].contiguous() if ghn else None, wh.contiguous(), dgx, dgh, carry_dh, carry_dc))
             out.append((dgx, dgx if dgh is None else dgh))
-        _launch(f"tk_{self.name}_bwd_{_DT[cd]}", blocks, mask, len(dys), t, b, h)
-        self.bwd_launches += t
+        if persistent:
+            counters = torch.zeros(2, dtype=torch.int32, device=dev)  # one barrier counter per direction
+            _launch(f"tk_{self.name}_bwd_persistent_{_DT[cd]}", blocks, mask, len(dys), t, b, h, plan.row_ctas,
+                    counters.data_ptr())
+            self.bwd_persistent_launches += 1
+        else:
+            _launch(f"tk_{self.name}_bwd_{_DT[cd]}", blocks, mask, len(dys), t, b, h)
+            self.bwd_launches += t
         return out
 
 

@@ -1,30 +1,36 @@
-"""Where a step of the persistent recurrence forward (kernels 4 and 6) goes,
-on one GPU: builds with parts of the kernel switched off, timed side by
-side.
+"""Where a step of the persistent recurrences goes (the forward, kernels 4
+and 6, and the backward, kernels 5 and 7), on one GPU: builds with parts of
+the kernels switched off, timed side by side.
 
-    python -m tfkaldi_tpu_torch.profile_rnn_fwd [--out split.json]
+    python -m tfkaldi_tpu_torch.profile_rnn [--out split.json]
 
-Copies ``ops/csrc/{rnn_step.cuh,lstm_bidi.cu,gru_bidi.cu}`` under
-``build/profile_rnn_fwd`` and compiles each cell's source in six variants
-of ``persistent_fwd`` (a variant's outputs are wrong; only its time is
-read):
+Copies ``ops/csrc/{rnn_step.cuh,gemm_sm90.cuh,lstm_bidi.cu,gru_bidi.cu}`` under
+``build/profile_rnn`` and compiles each cell's source in six variants of
+``persistent_fwd`` and ``persistent_bwd`` (a variant's outputs are wrong;
+only its time is read):
 
-- ``full``: the kernel as shipped;
+- ``full``: the kernels as shipped;
 - ``no_barrier``: the direction barrier replaced by a block sync;
-- ``no_product``: neither the staging of h nor the product;
-- ``no_mma``: the staging of h without the product;
-- ``no_stage``: the product on whatever the h ring holds, no staging;
+- ``no_product``: neither the staging of h (forward) or of the published
+  dgates (backward) nor the product (nor, in the backward, the sum of the
+  warps' partial blocks);
+- ``no_mma``: the staging without the product;
+- ``no_stage``: the product on whatever the ring holds, no staging (the
+  backward issues no TMA load and waits for none);
 - ``epilogue_only``: no barrier and no product.
 
 Times each (CUDA events, 5 calls after 2) at one layer of the recipe's
 BiLSTM / BiGRU, T 512, B 128, H 512, both directions, every frame real, in
-bf16 and f32, with residuals (the training forward) and without (eval),
-and reports µs a step. The parts, by difference: barrier = full −
-no_barrier, staging + product = full − no_product, staging = no_mma −
-no_product, product = no_stage − no_product (the last two overlap in
-``full``, so they need not add up). Prints the card as ``nvidia-smi`` names
-it and the result as one JSON object on the last line (also written to
-``--out``). Needs one CUDA device and ``nvcc``.
+bf16 and f32: the forward with residuals (the training forward) and
+without (eval), and the backward on the full build's residuals, also on
+one direction alone (64 CTAs doing what each of the 128 does: whether the
+staging is bound by what L2 serves all SMs or by each SM); reports µs a
+step. The parts, by difference: barrier = full − no_barrier,
+staging + product = full − no_product, staging = no_mma − no_product,
+product = no_stage − no_product (the last two overlap in ``full``, so they
+need not add up). Prints the card as ``nvidia-smi`` names it and the
+result as one JSON object on the last line (also written to ``--out``).
+Needs one CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 
 import torch
@@ -41,10 +48,12 @@ from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.ops import _build, gru_bidi, lstm_bidi
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORK = os.path.join(ROOT, "build", "profile_rnn_fwd")
+WORK = os.path.join(ROOT, "build", "profile_rnn")
 T, B, H = 512, 128, 512
-# the statements of rnn_step.cuh::persistent_fwd a variant switches, each by a macro
+# the statements of rnn_step.cuh::persistent_fwd and ::persistent_bwd a
+# variant switches, each by a macro
 SWITCHES = {
+    # persistent_fwd
     "if (s + 1 < t_len) dir_wait(bar + dir, static_cast<unsigned>(s + 1) * ctas);":
         "if (s + 1 < t_len) { if (TK_BARRIER) dir_wait(bar + dir, static_cast<unsigned>(s + 1) * ctas);"
         " else __syncthreads(); }",
@@ -54,6 +63,19 @@ SWITCHES = {
     "if (c < nchunks) stage_h<T>(": "if (TK_STAGE && c < nchunks) stage_h<T>(",
     "if (n < nchunks) stage_h<T>(": "if (TK_STAGE && n < nchunks) stage_h<T>(",
     "chunk_product<G>(hs + (c % Pp::NST)": "if (TK_MMA) chunk_product<G>(hs + (c % Pp::NST)",
+    # persistent_bwd
+    "if (s + 1 < t_len) dir_wait(bar + dir, (s + 1u) * ctas);":
+        "if (s + 1 < t_len) { if (TK_BARRIER) dir_wait(bar + dir, (s + 1u) * ctas); else __syncthreads(); }",
+    "if (s + 1 < t_len && i + 1 == mine) dir_arrive(bar + dir);":
+        "if (TK_BARRIER && s + 1 < t_len && i + 1 == mine) dir_arrive(bar + dir);",
+    "if (s > 0) {  // dg_{-1} = 0": "if (TK_PRODUCT && s > 0) {  // dg_{-1} = 0",
+    "for (int c = 0; c < Pp::NST - 1 && c < nchunks; ++c) issue(":
+        "for (int c = 0; TK_STAGE && c < Pp::NST - 1 && c < nchunks; ++c) issue(",
+    "if (threadIdx.x == 0 && c + Pp::NST - 1 < nchunks) issue(":
+        "if (TK_STAGE && threadIdx.x == 0 && c + Pp::NST - 1 < nchunks) issue(",
+    "tkgemm::mbar_wait(full0 + 8 * (q % Pp::NST), (q / Pp::NST) & 1);":
+        "if (TK_STAGE) tkgemm::mbar_wait(full0 + 8 * (q % Pp::NST), (q / Pp::NST) & 1);",
+    "BwdWarp<T>::chunk(ring": "if (TK_MMA) BwdWarp<T>::chunk(ring",
 }
 # (barrier, product, stage, mma)
 VARIANTS = {"full": (1, 1, 1, 1), "no_barrier": (0, 1, 1, 1), "no_product": (1, 0, 1, 1),
@@ -67,14 +89,12 @@ def _sources() -> None:
         src = f.read()
     for old, new in SWITCHES.items():
         if src.count(old) != 1:
-            raise RuntimeError(f"profile_rnn_fwd: rnn_step.cuh no longer holds exactly one {old!r}")
+            raise RuntimeError(f"profile_rnn: rnn_step.cuh no longer holds exactly one {old!r}")
         src = src.replace(old, new)
     with open(os.path.join(WORK, "rnn_step.cuh"), "w") as f:
         f.write(src)
-    for cell in CELLS:
-        with open(os.path.join(_build.CSRC_DIR, f"{cell}_bidi.cu")) as f, \
-                open(os.path.join(WORK, f"{cell}_bidi.cu"), "w") as g:
-            g.write(f.read())
+    for name in [f"{cell}_bidi.cu" for cell in CELLS] + ["gemm_sm90.cuh"]:  # the sources, and the header rnn_step.cuh takes
+        shutil.copy(os.path.join(_build.CSRC_DIR, name), os.path.join(WORK, name))
 
 
 def _build_variants() -> dict:
@@ -132,21 +152,30 @@ def main(argv=None) -> int:
         for cell, c in CELLS.items():
             gxs = [torch.randn(T, B, c.gates * H, generator=gen).cuda() for _ in range(2)]
             whs = [(torch.randn(H, c.gates * H, generator=gen) / H ** 0.5).cuda() for _ in range(2)]
+            dys = [torch.randn(T, B, H, generator=gen).cuda() for _ in range(2)]
             mask = torch.ones(T, B, 1, device="cuda")
             for cd in (torch.bfloat16, torch.float32):
                 whs_cd = [w.to(cd) for w in whs]
-                for residuals in (True, False):
+                _build._lib = libs[(cell, "full")]
+                res = [r for _, r in c.fwd(gxs, whs_cd, mask, residuals=True)]
+                runs = {"fwd residuals": lambda: c.fwd(gxs, whs_cd, mask, residuals=True),
+                        "fwd eval": lambda: c.fwd(gxs, whs_cd, mask, residuals=False),
+                        "bwd": lambda: c.bwd(dys, res, mask, whs_cd),
+                        # half the grid, the same work a CTA: half the bytes staged from L2 a step
+                        "bwd one direction": lambda: c.bwd(dys[:1], res[:1], mask, whs_cd[:1])}
+                for part, fn in runs.items():
                     times = {}
                     for name in VARIANTS:
                         _build._lib = libs[(cell, name)]
-                        times[name] = _ms(lambda: c.fwd(gxs, whs_cd, mask, residuals=residuals)) * 1e3 / T
+                        times[name] = _ms(fn) * 1e3 / T
                     parts = {"barrier": times["full"] - times["no_barrier"],
                              "staging+product": times["full"] - times["no_product"],
                              "staging": times["no_mma"] - times["no_product"],
                              "product": times["no_stage"] - times["no_product"]}
-                    key = f"{cell} {str(cd).replace('torch.', '')} {'residuals' if residuals else 'eval'}"
+                    key = f"{cell} {str(cd).replace('torch.', '')} {part}"
                     result["us_per_step"][key] = {"variants": times, "parts": parts}
                     print(f"{key}: us a step {times!r}; parts {parts!r} [{card}]", flush=True)
+                del res
     finally:
         _build._lib = saved
     line = json.dumps(result)
