@@ -13,7 +13,10 @@ paths.
    (``library_ms``): fused FFN [N,440]x[440,2048] and
    [N,2048]x[2048,2048], N 8192 (the served path's decode batches) and
    65,536 (the training paths' validation batches), f32 and bf16; framing
-   16 x 5 s at 16 kHz, bit-equal; BN backward (kernel 3) [65536,2048] with
+   (kernel 2) 16 x 5 s and 16 x 8 s at 16 kHz, bit-equal on the bulk
+   route and on the edge route (a misaligned view), each timed by its own
+   device time (torch.profiler) beside the wrapper's time; BN backward
+   (kernel 3) [65536,2048] with
    w [2048,2048] and [440,2048] and the dz-only launch of the first layer,
    f32 and bf16, and a bf16 case at N = 8192. Kernels 1 and 3 must take
    the TMA route of the GEMM core at all these shapes; each row prints its
@@ -30,7 +33,8 @@ paths.
    ``cli.main --steps dnn_train_features,dnn_test_features``, then
    ``cli.main --steps test_nnet``, then ``cli.serve --once`` answering 3
    spool jobs. The kernels' launch counts are reset just before and read
-   just after; the path's kernels must each be > 0.
+   just after; the path's kernels must each be > 0, kernel 2's all on the
+   bulk route.
 5. Checks the outputs: every ark finite and of the right shape, features
    against the numpy oracle of the reference (tests/reference_port) and
    against the plain framing, likelihoods against the plain versions of
@@ -44,9 +48,9 @@ paths.
    lowered. Counts reset before, read after: bn_dgrad launches = 6 per
    train step; the step-0 loss is ln 2000 (zero output layer); the ark
    covers the test set; kernel 3's launches are on the TMA route (layer 0: the dz pass
-   alone), kernel 1's all on the TMA route. Then, from the step-2
-   checkpoint, with the kernels and with the plain versions: the
-   validation loss over the validation batches (the number that decides a
+   alone), kernel 1's all on the TMA route, kernel 2's all on the bulk
+   route. Then, from the step-2 checkpoint, with the kernels and with the
+   plain versions: the validation loss over the validation batches (the number that decides a
    rollback) and the eval logits agree; one full-width step on one batch
    gives the same loss and gradients; and the step is timed by parts.
    The same again for bench.py's configuration, the DNN in bf16
@@ -255,31 +259,80 @@ def check_ffn(card: str) -> dict:
 
 
 def check_framing(card: str) -> dict:
-    """Kernel vs plain framing on 16 x 5 s at 16 kHz: bit-equal, since both
-    round x - c*prev twice in f64 with no FMA."""
+    """Kernel 2 vs its plain version, bit-equal (both round x - c*prev twice
+    in f64, no FMA), at ``profile_frame.SHAPES``: 16 x 5 s at 16 kHz (the
+    row of the kernels line) and 16 x 8 s, the longest bucket the served
+    run pads to. At each shape: route ``bulk`` as planned, and route
+    ``edge`` on the same samples one float into their buffer (a view the
+    bulk copy cannot read); each launch counted on its route, and each
+    plan's shared memory the source's (``tk_frame_smem``). Times: each
+    route's own device time (``profile_frame.device_ms``: torch.profiler's
+    events of the kernel over 20 calls, summed, over their count); the
+    wrapper's (CUDA events around 20 calls, the median of 3 windows; where
+    the host enqueues more slowly than the card runs, that is the host's
+    time); the plain version's; the bound. Returns the first shape's row
+    (``ms`` is the device time of the planned route), the other shape's
+    readings under ``shapes``."""
     import torch
 
+    from tfkaldi_tpu_torch import profile_frame as pf
+    from tfkaldi_tpu_torch.ops import _build
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
 
-    gen = torch.Generator().manual_seed(1)
-    b, s, wl, ws = 16, 5 * 16000, 400, 160
-    sig = (torch.randn(b, s, generator=gen) * 3000).round().cuda()
-    eff = torch.tensor([s - 97 * i for i in range(b)], dtype=torch.int32).cuda()
-    t_max = 1 + (s - wl) // ws
-    args = dict(preemph=0.97, frame_step=ws, frame_len=wl, t_max=t_max)
-    got = fp.frame_preemph(sig, eff, **args)
-    want = fp.frame_preemph_ref(sig, eff, **args)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    kernel_ms = ms_per_call(lambda: fp.frame_preemph(sig, eff, **args))
-    plain_ms = ms_per_call(lambda: fp.frame_preemph_ref(sig, eff, **args))
-    b_ = bound(2 * b * s, nbytes(sig, eff, got), PEAK_F64)
-    log(f"frame_preemph [{b},{s}] -> [{b},{t_max},{wl}] f64: max|diff| {err!r}, bit-equal "
-        f"{torch.equal(got, want)}, kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, "
-        f"bound {b_['bound_ms']!r} ms by {b_['bound_by']}, launches {fp.launches} [{card}]")
-    if not torch.equal(got, want):
-        raise AssertionError(f"frame_preemph differs from the plain version (max|diff| {err})")
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, **b_}
+    lib = _build.load()
+    rows = []
+    for b, s in pf.SHAPES:
+        sig, eff, args = pf.inputs(b, s)
+        t_max, wl, ws = args["t_max"], args["frame_len"], args["frame_step"]
+        want = fp.frame_preemph_ref(sig, eff, **args)
+        shifted = torch.empty(b * s + 1, device="cuda")
+        shifted[1:].copy_(sig.reshape(-1))
+        views = {"bulk": sig, "edge": shifted[1:].view(b, s)}
+        plans = {name: fp.plan_for(x, want, t_max, wl, ws) for name, x in views.items()}
+        if [p.route for p in plans.values()] != list(plans):
+            raise AssertionError(f"frame_plan at [{b},{s}]: {plans}")
+        device, errs = {}, {}
+        for name, plan in plans.items():
+            if plan.smem_bytes != lib.tk_frame_smem(wl, ws, plan.frames, plan.code):
+                raise AssertionError(f"frame_plan's shared memory {plan.smem_bytes} B is not the source's: {plan}")
+            x = views[name]
+            before = dict(fp.launches_by_route)
+            got = fp.frame_preemph(x, eff, **args)
+            torch.cuda.synchronize()
+            if fp.launches_by_route != {**before, plan.route: before[plan.route] + 1}:
+                raise AssertionError(f"frame_preemph {name}: launch not counted on route {plan.route}")
+            errs[name] = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"frame_preemph {name} [{b},{s}] differs from the plain version "
+                                     f"(max|diff| {errs[name]})")
+            device[name], _ = pf.device_ms(lambda: fp.frame_preemph(x, eff, **args))
+            log(f"frame_preemph [{b},{s}] -> [{b},{t_max},{wl}] f64, {name}: bit-equal, device "
+                f"{device[name]!r} ms; route {plan.route}, {plan.frames} frames a tile, "
+                f"{plan.tiles} tiles on {plan.grid} CTAs of {plan.threads}, {plan.smem_bytes} B of shared memory "
+                f"[{card}]")
+        wrapper_ms = ms_median(lambda: fp.frame_preemph(sig, eff, **args))
+        plain_ms = ms_median(lambda: fp.frame_preemph_ref(sig, eff, **args))
+        b_ = bound(2 * b * s, nbytes(sig, eff, want), PEAK_F64)
+        log(f"frame_preemph [{b},{s}]: device {device['bulk']!r} ms ({b_['bound_ms'] / device['bulk']!r} of the "
+            f"bound), wrapper {wrapper_ms!r} ms, plain {plain_ms!r} ms, bound {b_['bound_ms']!r} ms by "
+            f"{b_['bound_by']}; edge route {device['edge']!r} ms [{card}]")
+        rows.append({"max_abs_err": max(errs.values()), "ms": device["bulk"], "plain_ms": plain_ms, "library_ms": None,
+                     **b_, "wrapper_ms": wrapper_ms, "edge_ms": device["edge"], "shape": [b, s, t_max, wl]})
+        del sig, eff, want, got, shifted, views
+        torch.cuda.empty_cache()
+    return {**rows[0], "shapes": rows[1:]}
+
+
+def check_frame_routes(tag: str) -> dict:
+    """A feature path's kernel-2 launches by route: prepare_data pads to
+    whole seconds, so every launch takes the bulk route."""
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+
+    routes = dict(fp.launches_by_route)
+    log(f"{tag}: frame_preemph launches by route {routes}")
+    if not (routes["bulk"] > 0 and routes["edge"] == 0):
+        raise AssertionError(f"{tag}: frame_preemph routes {routes}, want all on bulk")
+    return routes
 
 
 def check_bn_dgrad(card: str) -> tuple[dict, dict]:
@@ -617,7 +670,7 @@ def reset_counts() -> None:
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
 
     fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
-    for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route):
+    for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route, fp.launches_by_route):
         for route in counts:
             counts[route] = 0
     for c in (lstm_bidi.CELL, gru_bidi.CELL):
@@ -663,9 +716,9 @@ def plain_versions():
             del c.fwd, c.bwd
 
 
-def train_path(card: str) -> tuple[dict, dict]:
+def train_path(card: str) -> tuple[dict, dict, dict]:
     """The training path at full width through the CLI; returns the launch
-    counts of its run and the workspace."""
+    counts of its run, kernel 2's by route, and the workspace."""
     import torch
 
     from tfkaldi_tpu_torch import synthetic
@@ -707,9 +760,10 @@ def train_path(card: str) -> tuple[dict, dict]:
         raise AssertionError(f"bn_dgrad launched {launches['bn_dgrad']} times, want "
                              f"{HIDDEN_LAYERS} x {len(steps)} steps")
     check_dnn_routes("training path", len(steps))
+    frame_routes = check_frame_routes("training path")
     check_cli_run(card, "training path", ws, savedir, steps,
                   f"; native ark loader (decode stream) in use: {native.available()}")
-    return launches, ws
+    return launches, frame_routes, ws
 
 
 def check_cli_run(card: str, tag: str, ws: dict, savedir: str, steps: list, note: str = "") -> None:
@@ -1281,6 +1335,7 @@ def main() -> int:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    frame_routes = check_frame_routes("served path")
 
     # ---- outputs ----
     feats = {kind: read_ark(os.path.join(d, "feats.scp")) for kind, d in (("train", train_featdir), ("test", test_featdir))}
@@ -1360,7 +1415,7 @@ def main() -> int:
 
     # ---- training path at full width ----
     t0 = time.perf_counter()
-    train_launches, train_ws = train_path(card)
+    train_launches, train_frame_routes, train_ws = train_path(card)
     check_train_step(card, train_ws, bn["float32"]["ms"], bn_dz_only_ms["float32"])
     log(f"phase training path: {time.perf_counter() - t0!r} s")
 
@@ -1388,7 +1443,8 @@ def main() -> int:
         dict(name="fused_ffn_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
              replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=bf16_launches["fused_ffn"], **ffn["bfloat16"]),
         dict(name="frame_preemph", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/frame_preemph.cu",
-             replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=total["frame_preemph"], **framing),
+             replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=total["frame_preemph"],
+             launches_by_route={r: frame_routes[r] + train_frame_routes[r] for r in frame_routes}, **framing),
         dict(name="bn_dgrad_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
              replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=total["bn_dgrad"], **bn["float32"]),
         dict(name="bn_dgrad_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",

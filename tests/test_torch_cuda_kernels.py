@@ -20,7 +20,10 @@ Kernels 1 and 3 run their products on the GEMM core of
 its shape (``tma``: TMA + wgmma for bf16, TMA + FMA for f32; ``simt``: the
 edge route for row pitches that are not multiples of 16 bytes, or
 misaligned views) and asserts that the launch was counted on it. Kernel 1
-reads w as an MN-major B, kernel 3 reads w as a K-major B.
+reads w as an MN-major B, kernel 3 reads w as a K-major B. Kernel 2's
+cases name the route ``ops.frame_preemph.frame_plan`` gives them (``bulk``:
+cp.async.bulk staging and 16-byte stores; ``edge``: odd frame length, odd
+S, a misaligned view) and assert the launch was counted on it.
 """
 
 import dataclasses
@@ -100,18 +103,62 @@ def test_fused_ffn_rejects_mixed_dtypes(cuda):
         fused_mlp.fused_ffn_block(x, w.bfloat16(), b)
 
 
-@pytest.mark.parametrize("b,s,t_max,preemph", [(4, 4000, 23, 0.97), (2, 1000, 5, 0.97), (2, 2000, 11, 0.0)])
-def test_frame_preemph_bit_equal_to_plain(cuda, b, s, t_max, preemph):
+FRAME_CASES = {
+    # name: (b, s, wl, ws, t_max, preemph, eff lengths (None: s - 137 i), route, forced plan fields)
+    "bulk": (4, 4000, 400, 160, 23, 0.97, None, "bulk", {}),
+    "bulk_past_end": (2, 1000, 400, 160, 5, 0.97, None, "bulk", {}),
+    "bulk_preemph_zero": (2, 2000, 400, 160, 11, 0.0, None, "bulk", {}),
+    "bulk_eff_len_zero": (3, 4000, 400, 160, 23, 0.97, [0, 4000, 17], "bulk", {}),
+    "bulk_s_below_wl": (2, 300, 400, 160, 1, 0.97, [300, 251], "bulk", {}),
+    "bulk_t_max_one": (2, 400, 400, 160, 1, 0.97, [400, 399], "bulk", {}),
+    "bulk_odd_step": (2, 4000, 400, 147, 25, 0.97, [4000, 1234], "bulk", {}),
+    # many tiles a block: both staging buffers and their mbarrier phases turn over
+    "bulk_persistent": (16, 80000, 400, 160, 498, 0.97, None, "bulk", {"frames": 1, "grid": 7}),
+    "bulk_odd_frames": (4, 4000, 400, 160, 23, 0.97, None, "bulk", {"frames": 3}),
+    "bulk_odd_frames_persistent": (16, 80000, 400, 160, 498, 0.97, None, "bulk", {"frames": 3, "grid": 5}),
+    "edge_odd_wl": (2, 3000, 551, 220, 11, 0.97, [3000, 2013], "edge", {}),
+    "edge_odd_s": (2, 4001, 400, 160, 23, 0.97, None, "edge", {}),
+    "edge_offset_view": (4, 4000, 400, 160, 23, 0.97, None, "edge", {}),
+    "edge_t_max_one": (2, 301, 400, 160, 1, 0.97, [301, 0], "edge", {}),
+    "edge_persistent": (3, 4001, 400, 160, 23, 0.97, None, "edge", {"frames": 2, "grid": 2}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FRAME_CASES))
+def test_frame_preemph_bit_equal_to_plain(cuda, name):
+    """Kernel 2 on both routes at the plan's edge shapes, bit-equal to the
+    plain version; the launch is counted on the route the plan names."""
+    b, s, wl, ws, t_max, preemph, eff, route, force = FRAME_CASES[name]
     rng = np.random.default_rng(s)
-    sig = torch.from_numpy(np.round(rng.standard_normal((b, s)) * 800).astype(np.float32)).to(cuda)
-    eff = torch.tensor([s - 137 * i for i in range(b)], dtype=torch.int32, device=cuda)
-    args = dict(preemph=preemph, frame_step=160, frame_len=400, t_max=t_max)
-    before = fp.launches
-    got = fp.frame_preemph(sig, eff, **args)
+    host = np.round(rng.standard_normal(b * s + 1) * 800).astype(np.float32)
+    if name == "edge_offset_view":  # one sample into an aligned buffer
+        sig = torch.from_numpy(host).to(cuda)[1:].view(b, s)
+    else:
+        sig = torch.from_numpy(host[: b * s]).to(cuda).view(b, s)
+    eff = torch.tensor(eff if eff is not None else [s - 137 * i for i in range(b)], dtype=torch.int32, device=cuda)
+    args = dict(preemph=preemph, frame_step=ws, frame_len=wl, t_max=t_max)
+    force = dict(force)
+    grid = force.pop("grid", None)
+    plan = fp.plan_for(sig, torch.empty(b, t_max, wl, dtype=torch.float64, device=cuda), t_max, wl, ws, **force)
+    if grid is not None:
+        plan = dataclasses.replace(plan, grid=grid)
+    assert plan.route == route
+    before, by_route = fp.launches, dict(fp.launches_by_route)
+    got = fp.frame_preemph(sig, eff, **args, plan=plan if force or grid else None)
     want = fp.frame_preemph_ref(sig, eff, **args)
     torch.cuda.synchronize()
     assert fp.launches == before + 1
+    assert fp.launches_by_route == {**by_route, route: by_route[route] + 1}
+    assert got.shape == (b, t_max, wl) and got.dtype == torch.float64
     assert torch.equal(got, want)
+
+
+def test_frame_preemph_refuses_a_plan_of_another_route(cuda):
+    sig = torch.zeros(2, 4001, device=cuda)
+    eff = torch.full((2,), 4001, dtype=torch.int32, device=cuda)
+    bulk = fp.frame_plan(2, 4000, 23, 400, 160, (0, 0))
+    with pytest.raises(ValueError, match="route"):
+        fp.frame_preemph(sig, eff, preemph=0.97, frame_step=160, frame_len=400, t_max=23, plan=bulk)
 
 
 @pytest.mark.parametrize("feature_type,dynamic", [("fbank", "nodelta"), ("mfcc", "ddelta")])

@@ -2,7 +2,8 @@
 wrappers that run the plain PyTorch version on CPU tensors.
 
 - :mod:`tfkaldi_tpu_torch.ops.fused_mlp`: ``fused_ffn_block``
-- :mod:`tfkaldi_tpu_torch.ops.frame_preemph`: ``frame_preemph``
+- :mod:`tfkaldi_tpu_torch.ops.frame_preemph`: ``frame_preemph`` (tiles of
+  frames on a persistent grid, on the route ``frame_plan`` picks)
 - :mod:`tfkaldi_tpu_torch.ops.bn_fused_bwd`: ``bn_dgrad`` (the backward of
   ``BnReluLayer``)
 - :mod:`tfkaldi_tpu_torch.ops.lstm_bidi`: ``CELL.fwd``, ``CELL.bwd`` (both
@@ -18,7 +19,8 @@ wrappers that run the plain PyTorch version on CPU tensors.
   Function and the launch both recurrences share
 
 Each of the first three modules keeps its kernel's launch count in a
-module global ``launches``; a recurrence keeps ``fwd_persistent_launches``,
+module global ``launches``, and the same launches by route in
+``launches_by_route``; a recurrence keeps ``fwd_persistent_launches``,
 ``bwd_persistent_launches``, ``fwd_launches`` and ``bwd_launches`` (the step
 routes) on its ``CELL``.
 """

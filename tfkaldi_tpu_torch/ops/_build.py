@@ -43,7 +43,9 @@ _SIGNATURES = {
     "tk_fused_ffn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tk_fused_ffn_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tk_gemm_smem": [_I],
-    "tk_frame_preemph_f64": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_double, _P],
+    # kernel 2: (..., shape, c, route, frames a tile, grid: ops/frame_preemph.py::frame_plan, stream)
+    "tk_frame_preemph_f64": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_double, _I, _I, _I, _P],
+    "tk_frame_smem": [_I, _I, _I, _I],
     "tk_bn_dgrad_f32": [_P] * 11 + [_I, _I, _I, _I, _P],
     "tk_bn_dgrad_bf16": [_P] * 11 + [_I, _I, _I, _I, _P],
     # the recurrences: (pointer block, mask, dirs, T, B, H[, residuals], stream)
