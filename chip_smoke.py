@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, the served
-path, the training path in f32 and in bf16, then the BiLSTM and BiGRU
-paths.
+path, the training path in f32 and in bf16, the BiLSTM and BiGRU paths,
+then the character-CTC recipe.
 
     python3 chip_smoke.py
 
@@ -68,8 +68,22 @@ paths.
    matches the plain versions' decode; one step from the step-2 checkpoint
    with the kernels and with the plain versions agrees; and the step is
    timed by parts (``rnn_train_path``, ``check_rnn_step``).
-8. Prints one JSON line of per-kernel results (all seven), then the final
-   JSON line.
+8. Drives the character-CTC recipe at full width on the training
+   workspace's features and seeded transcripts: ``cli.main --steps
+   train_nnet,test_nnet`` with the ``[nnet]`` of config_AURORA4_ctc.cfg as
+   written (loss ctc, aurora4 normaliser, beam 16, the same BiLSTM) and the
+   same three keys lowered. Counts reset before, read after: kernels 4 and
+   5 as on the BiLSTM path, no other kernel, the CTC loss on its
+   F.ctc_loss route, the beam on the native beam; the step-0 loss is the
+   uniform-posterior value over 36 classes; the text decode covers the
+   test set; CER and WER are printed. Then, kernels against the plain
+   versions: the test set's log-posteriors, the greedy transcripts, one
+   CTC step from the step-2 checkpoint, and the CTC loss's F.ctc_loss
+   route against its plain recursion at the step's shape; greedy and
+   beam-16 decode timed, and the step by parts with the CTC loss as its
+   own part (``ctc_path``, ``check_ctc_step``).
+9. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
+   count the BiLSTM and the CTC paths), then the final JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
 """
@@ -117,6 +131,13 @@ RNN_TRAIN_NNET = {"num_epochs": 1, "valid_frequency": 2, "check_freq": 2}
 RNN_F32_TOL = 1e-5
 RNN_BF16_RATIO = 2.0
 RNN_LOSS_TOL = 1e-4
+# the character-CTC recipe (config_AURORA4_ctc.cfg as written, the same three keys lowered):
+# 35 characters + the blank; the step-0 loss against the uniform-posterior value (relative);
+# the CTC loss's F.ctc_loss route against its plain recursion (per-row loss relative, logit
+# gradient absolute)
+CTC_CLASSES = 36
+CTC_STEP0_TOL = 1e-4
+CTC_LOSS_TOL = 1e-5
 
 
 def bf16_close(mine: float, theirs: float) -> bool:
@@ -664,13 +685,16 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch counts to 0 (per route too), just before a path
-    is driven."""
+    """Every kernel's launch counts to 0 (per route too), and the CTC loss's
+    routes and the beam searches' runs, just before a path is driven."""
+    from tfkaldi_tpu_torch.decode import ctc as ctc_decode
     from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
+    from tfkaldi_tpu_torch.train import ctc
 
     fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
-    for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route, fp.launches_by_route):
+    for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route, fp.launches_by_route,
+                   ctc.launches_by_route, ctc_decode.beam_runs):
         for route in counts:
             counts[route] = 0
     for c in (lstm_bidi.CELL, gru_bidi.CELL):
@@ -1095,10 +1119,7 @@ def check_rnn_step(card: str, cell: str, cfg_path: str, savedir: str, ws: dict) 
     from tfkaldi_tpu_torch.decode.decoder import Decoder
     from tfkaldi_tpu_torch.io import ArkWriter
     from tfkaldi_tpu_torch.models import RNNConfig, build_model
-    from tfkaldi_tpu_torch.layers import product
-    from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
-    from tfkaldi_tpu_torch.train import checkpoint as ckpt
-    from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from tfkaldi_tpu_torch.train.trainer import TrainerConfig
 
     c = _rnn_cell(cell)
     config = ConfigParser()
@@ -1158,26 +1179,47 @@ def check_rnn_step(card: str, cell: str, cfg_path: str, savedir: str, ws: dict) 
         dispenser.skip_batch()
     batch = dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
     reader.close()
-    t_pad, b = batch.inputs.shape[1], batch.inputs.shape[0]
-    path = os.path.join(savedir, "training", "step2.pt")
-    trainer = Trainer(rcfg, TrainerConfig(num_steps=6), device="cuda")
-    trainer32 = Trainer(rcfg32, TrainerConfig(num_steps=6), device="cuda")
+    trainer, state = compare_rnn_step(f"bi{cell}", c, rcfg, TrainerConfig(num_steps=6),
+                                      os.path.join(savedir, "training", "step2.pt"), batch)
+    time_rnn_step(card, f"bi{cell}", c, trainer, state, batch, NUM_PDFS)
+
+
+def compare_rnn_step(tag: str, c, rcfg, tcfg, path: str, batch):
+    """One full-width training step of a recurrent model from the checkpoint
+    ``path`` on ``batch``, with the same dropout masks, with the kernels and
+    with the plain versions (and, in bf16, the plain versions in f32
+    compute): the backward kernel launched once per layer on the persistent
+    route; every gradient by the bf16 rule of check_rnn_kernels (f32: within
+    RNN_F32_TOL of max|ref|), the loss within RNN_LOSS_TOL (relative) of the
+    plain version's. Returns the kernels' trainer and state."""
+    import dataclasses
+
+    import torch
+
+    from tfkaldi_tpu_torch.train import checkpoint as ckpt
+    from tfkaldi_tpu_torch.train.trainer import Trainer
+
+    bf16 = rcfg.compute_dtype == torch.bfloat16
+    rcfg32 = dataclasses.replace(rcfg, compute_dtype=torch.float32)
+    b, t_pad, input_dim = batch.inputs.shape
+    trainer = Trainer(rcfg, tcfg, device="cuda")
+    trainer32 = Trainer(rcfg32, tcfg, device="cuda")
     state = ckpt.restore_state(path, trainer.init_state(0))
     state32 = ckpt.restore_state(path, trainer32.init_state(0))
 
     def gradients(tr, st, plain_path):
         s = ckpt.device_snapshot(st)
         with plain_versions() if plain_path else contextlib.nullcontext():
-            grads, loss, frames = tr.gradients(s, batch, tr.dropout_generator(s))  # the same masks each time
-        return grads, loss.item(), frames.item()
+            grads, loss, _ = tr.gradients(s, batch, tr.dropout_generator(s))  # the same masks each time
+        return grads, loss.item()
 
     before = (c.bwd_persistent_launches, c.bwd_launches)
-    g_k, loss_k, frames = gradients(trainer, state, False)
+    g_k, loss_k = gradients(trainer, state, False)
     if (c.bwd_persistent_launches, c.bwd_launches) != (before[0] + RNN_LAYERS, before[1]):
-        raise AssertionError(f"the kernel side of the step did not launch {cell}_bwd once per layer on the "
-                             f"persistent route")
-    g_p, loss_p, _ = gradients(trainer, state, True)
-    g_32, loss_32, _ = gradients(trainer32, state32, True) if bf16 else (g_p, loss_p, None)
+        raise AssertionError(f"the kernel side of the {tag} step did not launch {c.name}_bwd once per layer on "
+                             f"the persistent route")
+    g_p, loss_p = gradients(trainer, state, True)
+    g_32, loss_32 = gradients(trainer32, state32, True) if bf16 else (g_p, loss_p)
     torch.cuda.synchronize()
 
     def rel(a, ref):
@@ -1189,30 +1231,48 @@ def check_rnn_step(card: str, cell: str, cfg_path: str, savedir: str, ws: dict) 
         e_k = {n: rel(g_k[n], g_32[n]) for n in g_32}
         e_p = {n: rel(g_p[n], g_32[n]) for n in g_32}
         bad = [n for n in e_k if not bf16_close(e_k[n], e_p[n])]
-        log(f"bi{cell} one step at [{b}x{t_pad}, {input_dim}] from the step-2 checkpoint: loss kernels {loss_k!r}, "
+        log(f"{tag} one step at [{b}x{t_pad}, {input_dim}] from the step-2 checkpoint: loss kernels {loss_k!r}, "
             f"plain {loss_p!r} (rel {loss_rel!r}, tol {RNN_LOSS_TOL}), plain f32 compute {loss_32!r}; gradients "
             f"max|diff|/max|ref| from the plain f32-compute step: kernels {e_k!r}, plain bf16 {e_p!r} (within "
             f"{RNN_BF16_RATIO}x + {RNN_F32_TOL}); kernels vs plain bf16 {e_kp!r}")
     else:
         bad = [n for n in e_kp if not e_kp[n] <= RNN_F32_TOL]
-        log(f"bi{cell} one step at [{b}x{t_pad}, {input_dim}]: loss rel {loss_rel!r}, gradients kernels vs plain "
+        log(f"{tag} one step at [{b}x{t_pad}, {input_dim}]: loss rel {loss_rel!r}, gradients kernels vs plain "
             f"{e_kp!r} (tol {RNN_F32_TOL})")
     if bad or not loss_rel <= RNN_LOSS_TOL:
-        raise AssertionError(f"bi{cell} step: loss rel {loss_rel}, gradients outside tolerance: {bad}")
-    del g_k, g_p, g_32, state32, trainer32
+        raise AssertionError(f"{tag} step: loss rel {loss_rel}, gradients outside tolerance: {bad}")
+    return trainer, state
 
-    # ---- where a step's time goes (CUDA events, 3 calls after 3 warm-ups) ----
+
+def time_rnn_step(card: str, tag: str, c, trainer, state, batch, num_out: int, loss_parts: dict | None = None) -> None:
+    """A recurrent model's training step timed by parts (CUDA events, 3 calls
+    after 3 warm-ups): the whole update, the forward, then each part on its
+    own at the step's shapes: the input projections, the kernels of both
+    layers, the wgrads, the output layer (``num_out`` classes), and
+    ``loss_parts`` (name -> ms, e.g. the CTC loss) where given; the rest
+    (loss, dropout, casts, concat, bias sums) is what remains of the
+    gradient pass."""
+    import torch
+
+    from tfkaldi_tpu_torch.layers import product
+    from tfkaldi_tpu_torch.ops.lstm_scan import weight_grad
+    from tfkaldi_tpu_torch.train import checkpoint as ckpt
+
+    rcfg = trainer.model_config
     s = ckpt.device_snapshot(state)
     step_ms = ms_per_call(lambda: trainer.update(s, batch), iters=3)
     grad_ms = ms_per_call(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)), iters=3)
-    fwd_ms = ms_per_call(lambda: trainer.loss_sum(s.model, batch, train=True,
-                                                  generator=trainer.dropout_generator(s)), iters=3)
+    fwd_ms = ms_per_call(lambda: trainer.loss_sum(s.model, batch, train=True, generator=trainer.dropout_generator(s),
+                                                  loss_type=trainer.config.loss_type,
+                                                  blank_id=trainer.config.ctc_blank_id), iters=3)
+    frames = int(batch.input_lengths.sum().item())
+    b, t_pad, input_dim = batch.inputs.shape
     cd, h, gates = rcfg.compute_dtype, rcfg.hidden_units, c.gates
     n = b * t_pad
     x0, x1 = torch.randn(n, input_dim, device="cuda"), torch.randn(n, 2 * h, device="cuda")
     wx0, wx1 = torch.randn(input_dim, gates * h, device="cuda"), torch.randn(2 * h, gates * h, device="cuda")
     dg = torch.randn(n, gates * h, device="cuda")
-    wout, dlogits = torch.randn(2 * h, NUM_PDFS, device="cuda"), torch.randn(n, NUM_PDFS, device="cuda")
+    wout, dlogits = torch.randn(2 * h, num_out, device="cuda"), torch.randn(n, num_out, device="cuda")
     # the input projections of both directions of both layers, forward (x @ wx)
     # and the backward's input gradient of layer 1 (dg @ wx^T)
     proj_ms = 2 * (ms_per_call(lambda: product(x0, wx0, cd), iters=5)
@@ -1235,13 +1295,342 @@ def check_rnn_step(card: str, cell: str, cfg_path: str, savedir: str, ws: dict) 
     # the output layer's forward and input gradient
     out_ms = (ms_per_call(lambda: product(x1, wout, cd), iters=5)
               + ms_per_call(lambda: product(dlogits, wout.t(), cd), iters=5))
-    rest = grad_ms - proj_ms - k_fwd_ms - k_bwd_ms - wgrad_ms - out_ms
-    log(f"bi{cell} train step at [{b}x{t_pad}] ({int(frames)} real frames): update {step_ms!r} ms "
+    loss_parts = loss_parts or {}
+    rest = grad_ms - proj_ms - k_fwd_ms - k_bwd_ms - wgrad_ms - out_ms - sum(loss_parts.values())
+    loss_text = "".join(f"{name} {ms!r} ms, " for name, ms in loss_parts.items())
+    log(f"{tag} train step at [{b}x{t_pad}] ({frames} real frames): update {step_ms!r} ms "
         f"({frames / step_ms * 1e3!r} frames/s), of which forward {fwd_ms!r} ms; by parts: input projections "
-        f"{proj_ms!r} ms, kernel {cell}_fwd {k_fwd_ms!r} ms ({RNN_LAYERS} layers), kernel {cell}_bwd "
+        f"{proj_ms!r} ms, kernel {c.name}_fwd {k_fwd_ms!r} ms ({RNN_LAYERS} layers), kernel {c.name}_bwd "
         f"{k_bwd_ms!r} ms, wgrads (dW_h, dW_x, output dW) {wgrad_ms!r} ms, output layer (forward, input "
-        f"gradient) {out_ms!r} ms, rest (CE, dropout, casts, concat, bias sums) {rest!r} ms, Adam "
+        f"gradient) {out_ms!r} ms, {loss_text}rest (loss, dropout, casts, concat, bias sums) {rest!r} ms, Adam "
         f"{step_ms - grad_ms!r} ms [{card}]")
+
+
+def log_num_alignments(labels, frames: int) -> float:
+    """ln of the number of CTC alignments of ``labels`` in ``frames`` frames,
+    counted on the host in f64 log space: the paths through the blank-
+    interleaved labels (2L+1 states) that start in one of the first two and
+    end in one of the last two, where a label may follow the one before it
+    directly unless the two are equal."""
+    import numpy as np
+
+    labels = np.asarray(labels)
+    n = 2 * len(labels) + 1
+    skip = np.zeros(n, bool)  # s-2 -> s allowed: a label unlike the label before it
+    skip[3::2] = labels[1:] != labels[:-1]
+    alpha = np.full(n, -np.inf)
+    alpha[: min(2, n)] = 0.0
+    for _ in range(frames - 1):
+        nxt = np.logaddexp(alpha, np.concatenate([[-np.inf], alpha[:-1]]))
+        nxt[skip] = np.logaddexp(nxt[skip], alpha[np.flatnonzero(skip) - 2])
+        alpha = nxt
+    return float(np.logaddexp(alpha[-1], alpha[-2]) if n > 1 else alpha[-1])
+
+
+def ctc_path(card: str, ws: dict) -> tuple[dict, str, str]:
+    """The character-CTC recipe at full width through the CLI, on the
+    training workspace's features and seeded transcripts:
+    ``config_AURORA4_ctc.cfg``'s ``[nnet]`` exactly as written
+    (``synthetic.ctc_nnet``: loss ctc, aurora4 normaliser, beam 16, 2 x 512
+    BiLSTM, context 2, bf16, batch 128, dropout 0.8, valid_batches 4) with
+    only num_epochs, valid_frequency and check_freq lowered, ``cli.main
+    --steps train_nnet,test_nnet``. Counts reset before, read after: the
+    backward kernel once per layer in each train step, the forward kernel on
+    the persistent route more than layers x steps times (validation and
+    decode launch it too), the step route never, no other kernel; the CTC
+    loss on its F.ctc_loss route only (every transcript is feasible); the
+    beam-16 decode on the native beam. The step-0 loss equals the
+    uniform-posterior value ``sum_i (T_i ln 36 - ln N_i) / sum_i T_i`` (the
+    output layer starts at zero; N_i counted on the host), and the ``text``
+    decode has one line per test utterance. Returns the launches, the
+    config's path and the model dir."""
+    from configparser import ConfigParser
+
+    import torch
+
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.cli import main as cli_main
+    from tfkaldi_tpu_torch.data.dispenser import TextBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode import ctc as ctc_decode
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+    from tfkaldi_tpu_torch.train import ctc
+    from tfkaldi_tpu_torch.utils.wer import char_tokens_to_words, score_text_files
+
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    nnet = {**synthetic.ctc_nnet(), **RNN_TRAIN_NNET}
+    for key, value in nnet.items():
+        config.set("nnet", key, str(value))
+    cfg_path = os.path.join(TRAIN_WORK, "config_ctc.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), nnet["name"])
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main CTC path: rc {rc}")
+    c = lstm_bidi.CELL
+    routes = {"persistent": c.fwd_persistent_launches, "step": c.fwd_launches}
+    bwd_routes = {"persistent": c.bwd_persistent_launches, "step": c.bwd_launches}
+    launches = {"lstm_fwd": sum(routes.values()), "lstm_bwd": sum(bwd_routes.values())}
+    other = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    other.update({f"gru_{k}": getattr(gru_bidi.CELL, f"{k}_launches")
+                  for k in ("fwd_persistent", "fwd", "bwd_persistent", "bwd")})
+    loss_routes, beams = dict(ctc.launches_by_route), dict(ctc_decode.beam_runs)
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    log(f"CTC path launches: {launches}, the forward's by route {routes}, the backward's {bwd_routes} (other "
+        f"kernels {other}); CTC loss calls by route {loss_routes}; beam-search batches {beams}; {len(steps)} train "
+        f"steps at T_pad {[st['padded_length'] for st in steps]} (replays after a rollback included); whole run "
+        f"{run_s!r} s")
+    if bwd_routes != {"persistent": RNN_LAYERS * len(steps), "step": 0}:
+        raise AssertionError(f"lstm_bwd launches by route {bwd_routes} on the CTC path, want persistent "
+                             f"{RNN_LAYERS} x {len(steps)} and step 0")
+    if routes["step"] != 0 or not routes["persistent"] > RNN_LAYERS * len(steps):
+        raise AssertionError(f"lstm_fwd launches by route {routes} on the CTC path: want step 0 and persistent "
+                             f"more than {RNN_LAYERS * len(steps)}")
+    if any(other.values()):
+        raise AssertionError(f"the CTC path launched another path's kernels: {other}")
+    if not (loss_routes["library"] >= len(steps) and loss_routes["plain"] == 0):
+        raise AssertionError(f"CTC loss routes {loss_routes}: want F.ctc_loss on every batch, the plain "
+                             f"recursion never (every transcript is feasible)")
+    if not (beams["native"] > 0 and beams["python"] == 0):
+        raise AssertionError(f"the beam-16 decode did not run on the native beam: {beams}")
+
+    # ---- the step-0 loss: uniform posteriors over the 36 classes ----
+    featdir = ws["train_featdir"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+                           os.path.join(featdir, "utt2spk"), int(nnet["context_width"]), max_length)
+    coder = TextCoder(aurora4_normalizer)
+    dispenser = TextBatchDispenser(reader, coder, int(nnet["batch_size"]), os.path.join(featdir, "text"))
+    for _ in range(int(nnet["valid_batches"])):  # past the validation carve
+        dispenser.skip_batch()
+    inputs, targets = dispenser.get_batch()
+    reader.close()
+    frames = [x.shape[0] for x in inputs]
+    want = sum(t * math.log(CTC_CLASSES) - log_num_alignments(y, t) for t, y in zip(frames, targets)) / sum(frames)
+    loss0 = steps[0]["loss"]
+    rel0 = abs(loss0 - want) / want
+    log(f"CTC path step-0 loss {loss0!r} vs the uniform-posterior value {want!r} over the first batch's "
+        f"{sum(frames)} frames and {sum(len(y) for y in targets)} labels (rel {rel0!r}, tol {CTC_STEP0_TOL}); losses "
+        f"{[round(st['loss'], 6) for st in steps]}")
+    if not rel0 <= CTC_STEP0_TOL:
+        raise AssertionError(f"CTC step-0 loss {loss0} is not the uniform-posterior value {want}")
+    warm = steps[1:]
+    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
+    log(f"CTC path train step (median of {len(warm)} after the first, host clock, data wait included): {step_s!r} s "
+        f"[{card}]")
+
+    # ---- the text decode ----
+    test_featdir = ws["test_featdir"]
+    with open(os.path.join(test_featdir, "text")) as f:
+        test_utts = [line.split()[0] for line in f if line.strip()]
+    decode_dir = os.path.join(savedir, "decode")
+    with open(os.path.join(decode_dir, "text")) as f:
+        decoded = [line.split() for line in f]
+    if [d[0] for d in decoded] != test_utts:
+        raise AssertionError(f"the CTC decode text holds {len(decoded)} lines, not one per test utterance "
+                             f"({len(test_utts)})")
+    norm, out = os.path.join(decode_dir, "text.ref_normalized"), os.path.join(decode_dir, "text")
+    log(f"CTC path beam-16 decode of {len(decoded)} test utterances ({sum(len(d) - 1 for d in decoded)} tokens): "
+        f"CER {score_text_files(norm, out)}; WER {score_text_files(norm, out, transform=char_tokens_to_words)} "
+        f"(noise data after {len(steps)} steps: printed, not gated)")
+    return launches, cfg_path, savedir
+
+
+def check_ctc_step(card: str, cfg_path: str, savedir: str, ws: dict) -> dict:
+    """The CTC path's outputs with the kernels against the plain versions on
+    the card, and its times:
+
+    - the test set's log-posteriors from ``final.pt`` (the decode batches of
+      16), kernels against the plain versions by the bf16 rule of
+      check_rnn_kernels (against the plain version in f32 compute); greedy
+      transcripts identical on every utterance whose frames all have a
+      top-two log-posterior margin above twice the kernels' distance from the
+      plain bf16 version (there no argmax can move);
+    - greedy and beam-16 decode of the test set timed (frames/s, host clock:
+      features, forward, D2H copy and search);
+    - one full-width CTC training step from the step-2 checkpoint on the
+      first training batch (compare_rnn_step: the bf16 rule);
+    - the CTC loss on that step's logits [128, T_pad, 36]: the F.ctc_loss
+      route against the plain recursion, per-row loss within CTC_LOSS_TOL
+      relative and logit gradient within CTC_LOSS_TOL absolute, each route
+      timed forward + backward; torch's CTC run in f32 timed and its
+      gradient's distance printed beside them (the port runs it in f64);
+    - the step timed by parts with the CTC loss as its own part.
+
+    Returns the decode and loss timings."""
+    import dataclasses
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tfkaldi_tpu_torch.convert import load_checkpoint
+    from tfkaldi_tpu_torch.data.batching import DeviceBatcher
+    from tfkaldi_tpu_torch.data.dispenser import TextBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode import ctc as ctc_decode
+    from tfkaldi_tpu_torch.decode.streaming import stream_padded_batches
+    from tfkaldi_tpu_torch.models import RNNConfig, build_model
+    from tfkaldi_tpu_torch.ops import lstm_bidi
+    from tfkaldi_tpu_torch.train import ctc
+    from tfkaldi_tpu_torch.train.trainer import TrainerConfig
+
+    c = lstm_bidi.CELL
+    config = ConfigParser()
+    config.read(cfg_path)
+    conf = dict(config.items("nnet"))
+    context = int(conf["context_width"])
+    input_dim = 40 * (2 * context + 1)
+    blank = CTC_CLASSES - 1
+    rcfg = RNNConfig.from_config(conf, input_dim, CTC_CLASSES)
+    rcfg32 = dataclasses.replace(rcfg, compute_dtype=torch.float32)
+    coder = TextCoder(aurora4_normalizer)
+    final = load_checkpoint(savedir)
+
+    def decoder(cfg, beam=1):
+        model = build_model(cfg)
+        model.load_state_dict(final)
+        return ctc_decode.CTCDecoder(model.to("cuda"), coder, blank, beam_width=beam)
+
+    def test_reader():
+        featdir = ws["test_featdir"]
+        return FeatureReader(os.path.join(featdir, "feats.scp"), os.path.join(featdir, "cmvn.scp"),
+                             os.path.join(featdir, "utt2spk"), context, 0)
+
+    # ---- the test set's log-posteriors and greedy transcripts, kernels vs plain ----
+    reader = test_reader()
+    batches = list(stream_padded_batches(reader, batch_size=int(conf.get("decode_batch_size", 16))))
+    reader.close()
+    lengths = np.concatenate([l for _, _, l in batches])
+    dec, dec32 = decoder(rcfg), decoder(rcfg32)
+
+    def posteriors(d, plain):
+        with plain_versions() if plain else contextlib.nullcontext():
+            lps = [d.log_probs(x, l) for _, x, l in batches]
+            paths = [p for _, x, l in batches for p in d.decode_batch(x, l)]
+        return [lp[i, :n] for lp, (_, _, l) in zip(lps, batches) for i, n in enumerate(l)], paths
+
+    before = c.fwd_persistent_launches
+    lp_k, paths_k = posteriors(dec, False)
+    if c.fwd_persistent_launches != before + 2 * RNN_LAYERS * len(batches):
+        raise AssertionError("the kernel side of the decode did not launch lstm_fwd once per layer and batch")
+    lp_p, paths_p = posteriors(dec, True)
+    lp_32, _ = posteriors(dec32, True)
+
+    def dist(a, b):
+        return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+    d_k, d_p, d_kp = dist(lp_k, lp_32), dist(lp_p, lp_32), dist(lp_k, lp_p)
+    margins = [float(np.diff(np.sort(lp, axis=-1)[:, -2:], axis=-1).min()) for lp in lp_p]
+    clear = [i for i, m in enumerate(margins) if m > 2 * d_kp]
+    same = [i for i in clear if np.array_equal(paths_k[i], paths_p[i])]
+    log(f"CTC log-posteriors of the test set ({len(lp_k)} utterances, {int(lengths.sum())} frames), max|diff| from "
+        f"the plain f32-compute decode: kernels {d_k!r}, plain bf16 {d_p!r} (within {RNN_BF16_RATIO}x + "
+        f"{RNN_F32_TOL}); kernels vs plain bf16 {d_kp!r}; greedy transcripts identical on {len(same)} of the "
+        f"{len(clear)} utterances whose every frame's top-two margin exceeds {2 * d_kp!r} "
+        f"(all {sum(np.array_equal(a, b) for a, b in zip(paths_k, paths_p))} of {len(paths_k)})")
+    if not bf16_close(d_k, d_p):
+        raise AssertionError("the CTC log-posteriors differ from the plain versions beyond the bf16 rule")
+    if same != clear:
+        raise AssertionError(f"greedy transcripts differ from the plain versions' on utterances {sorted(set(clear) - set(same))}")
+
+    # ---- decode throughput, greedy and beam 16 ----
+    rates = {}
+    for beam in (1, int(conf["beam_width"])):
+        d = decoder(rcfg, beam)
+        out = os.path.join(TRAIN_WORK, f"ctc_decode_beam{beam}.txt")
+        for _ in range(2):  # a warm-up, then the timed pass
+            reader = test_reader()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count = d.decode_to_file(reader, out)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            reader.close()
+        rates[f"beam{beam}"] = int(lengths.sum()) / seconds
+        log(f"CTC decode beam {beam} of the test set ({count} utterances, {int(lengths.sum())} frames, batches of "
+            f"16, features read and decoded): {seconds!r} s, {rates[f'beam{beam}']!r} frames/s [{card}]")
+
+    # ---- one training step, kernels vs plain versions ----
+    featdir = ws["train_featdir"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+                           os.path.join(featdir, "utt2spk"), context, max_length)
+    dispenser = TextBatchDispenser(reader, coder, int(conf["batch_size"]), os.path.join(featdir, "text"))
+    for _ in range(int(conf["valid_batches"])):  # past the validation carve
+        dispenser.skip_batch()
+    batch = dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
+    reader.close()
+    tcfg = TrainerConfig(num_steps=6, loss_type="ctc", ctc_blank_id=blank)
+    trainer, state = compare_rnn_step("CTC BiLSTM", c, rcfg, tcfg,
+                                      os.path.join(savedir, "training", "step2.pt"), batch)
+
+    # ---- the CTC loss at the step's shape: F.ctc_loss route vs plain recursion ----
+    with torch.no_grad():
+        logits = state.model(batch.inputs, batch.input_lengths, train=True,
+                             generator=trainer.dropout_generator(state)).float()
+    lengths_h = ctc.host(batch.input_lengths)
+    targets_h, tgt_h = ctc.host(batch.targets), ctc.host(batch.target_lengths)
+
+    def loss_and_grad(route):
+        x = logits.clone().requires_grad_(True)
+        loss = ctc.ctc_loss(x, lengths_h, targets_h, tgt_h, blank, route=route)
+        loss.sum().backward()
+        return loss.detach(), x.grad
+
+    def torch_f32(x):  # torch's CTC on the f32 log-posteriors (the port widens them to f64)
+        lp = torch.log_softmax(x, dim=-1).transpose(0, 1)
+        return F.ctc_loss(lp, batch.targets.long(), tuple(lengths_h.tolist()), tuple(tgt_h.tolist()),
+                          blank=blank, reduction="none")
+
+    ctc.reset_counts()
+    loss_l, grad_l = loss_and_grad(None)
+    if ctc.launches_by_route != {"library": 1, "plain": 0}:
+        raise AssertionError(f"the CTC loss took routes {ctc.launches_by_route} on the path's batch")
+    loss_p, grad_p = loss_and_grad("plain")
+    x32 = logits.clone().requires_grad_(True)
+    loss_32 = torch_f32(x32)
+    loss_32.sum().backward()
+    loss_rel = ((loss_l - loss_p).abs() / loss_p.abs()).max().item()
+    grad_err = (grad_l - grad_p).abs().max().item()
+    f32_rel = ((loss_32.detach() - loss_p).abs() / loss_p.abs()).max().item()
+    f32_err = (x32.grad - grad_p).abs().max().item()
+    times = {
+        "library_ms": ms_per_call(lambda: loss_and_grad(None), iters=5),
+        "plain_ms": ms_per_call(lambda: loss_and_grad("plain"), iters=3),
+        "f32_library_ms": ms_per_call(lambda: torch_f32(logits.clone().requires_grad_(True)).sum().backward(),
+                                      iters=5),
+    }
+    b, t_pad = logits.shape[:2]
+    log(f"CTC loss at [{b}x{t_pad}x{CTC_CLASSES}] (labels padded to {batch.targets.shape[1]}, {int(tgt_h.sum())} "
+        f"labels): F.ctc_loss route (f64) vs plain recursion (f64): per-row loss rel {loss_rel!r}, logit gradient "
+        f"max|diff| {grad_err!r} (tol {CTC_LOSS_TOL} each); forward+backward {times['library_ms']!r} ms vs "
+        f"{times['plain_ms']!r} ms; torch's CTC in f32 {times['f32_library_ms']!r} ms, its distance from the plain "
+        f"recursion: loss rel {f32_rel!r}, gradient {f32_err!r} [{card}]")
+    if not (loss_rel <= CTC_LOSS_TOL and grad_err <= CTC_LOSS_TOL):
+        raise AssertionError(f"the CTC loss routes disagree: loss rel {loss_rel}, gradient {grad_err}")
+    del logits, grad_l, grad_p, x32
+
+    time_rnn_step(card, "CTC BiLSTM", c, trainer, state, batch, CTC_CLASSES,
+                  {"CTC loss (F.ctc_loss route, forward+backward)": times["library_ms"]})
+    return {**times, "greedy_frames_per_s": rates["beam1"], "beam_frames_per_s": rates[f"beam{conf['beam_width']}"]}
 
 
 def read_ark(scp: str) -> dict:
@@ -1434,8 +1823,18 @@ def main() -> int:
         rnn_launches.update(cell_launches)
         log(f"phase bi{cell} path: {time.perf_counter() - t0!r} s")
 
+    # ---- the character-CTC recipe at full width (kernels 4 and 5 again) ----
+    t0 = time.perf_counter()
+    ctc_launches, ctc_cfg, ctc_savedir = ctc_path(card, train_ws)
+    ctc_times = check_ctc_step(card, ctc_cfg, ctc_savedir, train_ws)
+    for name, count in ctc_launches.items():
+        rnn_launches[name] += count
+    log(f"CTC phase: {json.dumps(ctc_times)} [{card}]")
+    log(f"phase CTC path: {time.perf_counter() - t0!r} s")
+
     # launches: f32, the served path's and the training path's runs
-    # together; bf16, the bf16 DNN path's run
+    # together; bf16, the bf16 DNN path's run; kernels 4 and 5, the BiLSTM
+    # path's and the CTC path's runs together
     total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
     kernels = [
         dict(name="fused_ffn_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",

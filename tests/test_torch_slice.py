@@ -179,7 +179,9 @@ def test_port_imports_without_jax():
             "tfkaldi_tpu_torch.synthetic, tfkaldi_tpu_torch.profile_serve, "
             "tfkaldi_tpu_torch.nnet, tfkaldi_tpu_torch.train, tfkaldi_tpu_torch.convert, "
             "tfkaldi_tpu_torch.models.rnn, tfkaldi_tpu_torch.ops.lstm_bidi, tfkaldi_tpu_torch.ops.gru_bidi, "
-            "tfkaldi_tpu_torch.ops.rnn_bidi; "
+            "tfkaldi_tpu_torch.ops.rnn_bidi, tfkaldi_tpu_torch.train.ctc, tfkaldi_tpu_torch.decode.ctc, "
+            "tfkaldi_tpu_torch.decode.ctc_beam, tfkaldi_tpu_torch.decode.native_beam, "
+            "tfkaldi_tpu_torch.utils.wer, tfkaldi_tpu_torch.data.dispenser; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)

@@ -293,7 +293,7 @@ def test_unsupported_losses_and_specaugment_raise(tmp_path):
         return cfg
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Nnet(config(loss="ctc"), 4, 5, device="cpu")
+        Nnet(config(loss="rnnt"), 4, 5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Nnet(config(specaugment="True"), 4, 5, device="cpu").train(dispenser=None)
 

@@ -1,15 +1,26 @@
 """Pipeline entry point of the port: features, model training, likelihoods.
 
-Port of :mod:`tfkaldi_tpu.cli.main` for the hybrid recipe on one device,
-with ``model = dnn``, ``lstm`` or ``gru`` in ``[nnet]``. It runs the four
-feature steps, ``train_nnet`` (shuffle the training scp, merge the parent
-GMM's pdf alignments, train the model → ``<expdir>/<nnet
-name>/final.pt`` and ``prior.npy``) and ``test_nnet`` (CMVN + splice +
-model + softmax ÷ prior → ``<expdir>/<nnet name>/decode/likelihoods.ark`` with
-its ``feats.scp``). The GMM steps are not ported yet and raise; ``python
--m tfkaldi_tpu.cli.main`` runs them. The WFST decode and WER scoring that
-follow the likelihoods in the JAX pipeline run in external Kaldi on the
-emitted ark and are not part of this entry point.
+Port of :mod:`tfkaldi_tpu.cli.main` on one device for the hybrid recipe
+and the character-CTC recipe, with ``model = dnn``, ``lstm`` or ``gru`` in
+``[nnet]``. It runs the four feature steps, ``train_nnet`` and
+``test_nnet``:
+
+- hybrid (``loss = cross_entropy``): ``train_nnet`` shuffles the training
+  scp, merges the parent GMM's pdf alignments and trains the model →
+  ``<expdir>/<nnet name>/final.pt`` and ``prior.npy``; ``test_nnet`` runs
+  CMVN + splice + model + softmax ÷ prior → ``<expdir>/<nnet
+  name>/decode/likelihoods.ark`` with its ``feats.scp``. The WFST decode
+  and WER scoring that follow in the JAX pipeline run in external Kaldi on
+  that ark and are not part of this entry point.
+- CTC (``loss = ctc``, config_AURORA4_ctc.cfg): the targets are the
+  training featdir's ``text``, coded by the text coder's 35 characters
+  (the model emits a 36th class, the blank); ``test_nnet`` writes the
+  greedy or beam decode to ``<expdir>/<nnet name>/decode/text``, normalises
+  the test featdir's ``text`` into ``text.ref_normalized`` and logs the CER
+  and the word-level WER.
+
+The GMM steps are not ported yet and raise; ``python -m
+tfkaldi_tpu.cli.main`` runs them.
 
 Usage:
     python -m tfkaldi_tpu_torch.cli.main --config config/config_AURORA4.cfg \\
@@ -55,19 +66,24 @@ PORTED_STEPS = {
 }
 
 
-def resolve_labels(config) -> int:
-    """``num_pdfs`` of the hybrid recipe, read from the parent GMM's graph
-    (the rule of tfkaldi_tpu/cli/main.py:87-93)."""
-    if config.has_option("nnet", "loss") and config.get("nnet", "loss") != "cross_entropy":
-        raise NotImplementedError(
-            "text-target losses (ctc, rnnt, attention) are not in the port yet "
-            "(ROADMAP.md, queue 1, slices 4-6); use python -m tfkaldi_tpu.cli.main"
-        )
+def resolve_labels(config):
+    """The label space: ``(text_coder, num_labels)`` (the rule of
+    tfkaldi_tpu/cli/main.py:59-93). The text-target losses (ctc, rnnt,
+    attention) take their labels from the text coder's alphabet, normalised
+    by ``[nnet] normalizer`` (``aurora4`` or the identity); the hybrid
+    recipe reads ``num_pdfs`` from the parent GMM's graph and has no coder."""
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer, identity_normalizer
+
+    if config.get("nnet", "loss", fallback="cross_entropy") in ("ctc", "rnnt", "attention"):
+        aurora4 = config.get("nnet", "normalizer", fallback="") == "aurora4"
+        coder = TextCoder(aurora4_normalizer if aurora4 else identity_normalizer)
+        return coder, coder.num_labels
     numpdfs_file = os.path.join(
         config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "graph", "num_pdfs"
     )
     with open(numpdfs_file) as fid:
-        return int(fid.read().strip())
+        return None, int(fid.read().strip())
 
 
 def cmvn_path(config, featdir: str) -> str | None:
@@ -97,10 +113,11 @@ def merge_alignments(ali_dir: str, num_jobs: int) -> str:
     return out_path
 
 
-def train_nnet(config, nnet, num_labels: int) -> None:
+def train_nnet(config, nnet, coder, num_labels: int) -> None:
     """The ``train_nnet`` step (tfkaldi_tpu/cli/main.py:253-369, one host,
-    the Python dispenser)."""
-    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser
+    the Python dispenser): pdf alignments for the hybrid recipe, the
+    featdir's ``text`` through ``coder`` for the text-target one."""
+    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser, TextBatchDispenser
     from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
     from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
     from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
@@ -131,22 +148,49 @@ def train_nnet(config, nnet, num_labels: int) -> None:
         nnet.context_width,
         max_input_length,
     )
-    # merge per-job alignments (main.py:139-142)
-    ali_dir = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali")
-    alifile = os.path.join(ali_dir, "pdf.all.gz")
-    if not os.path.isfile(alifile):
-        alifile = merge_alignments(ali_dir, config.getint("general", "num_jobs"))
-    log.info("the native bulk training loader is not in the port yet (ROADMAP.md, queue 1); "
+    log.info("the native bulk training loader is not in the port yet (ROADMAP.md, queue 1, item 21); "
              "using the Python dispenser")
-    dispenser = AlignmentBatchDispenser(
-        featreader, AlignmentCoder(identity_normalizer, num_labels),
-        config.getint("nnet", "batch_size"), alifile,
-    )
+    batch_size = config.getint("nnet", "batch_size")
+    if coder is not None:
+        dispenser = TextBatchDispenser(featreader, coder, batch_size, os.path.join(train_featdir, "text"))
+    else:
+        # merge per-job alignments (main.py:139-142)
+        ali_dir = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali")
+        alifile = os.path.join(ali_dir, "pdf.all.gz")
+        if not os.path.isfile(alifile):
+            alifile = merge_alignments(ali_dir, config.getint("general", "num_jobs"))
+        dispenser = AlignmentBatchDispenser(
+            featreader, AlignmentCoder(identity_normalizer, num_labels), batch_size, alifile,
+        )
     log.info("------- training neural net ----------")
     try:
         nnet.train(dispenser)
     finally:
         featreader.close()
+
+
+def test_text(nnet, coder, featreader, test_featdir: str, decodedir: str) -> None:
+    """The text-target ``test_nnet`` (tfkaldi_tpu/cli/main.py:394-426):
+    decode to ``<decodedir>/text``, then, when the test featdir has a
+    ``text``, score it in the coder's normalised token space: CER over
+    character tokens, WER over the words they spell."""
+    from tfkaldi_tpu_torch.utils.wer import char_tokens_to_words, score_text_files
+
+    log.info("------- decoding transcriptions ----------")
+    out = os.path.join(decodedir, "text")
+    nnet.decode_text(featreader, coder, out)
+    log.info("wrote CTC transcriptions to %s", out)
+    ref_text = os.path.join(test_featdir, "text")
+    if not os.path.isfile(ref_text):
+        return
+    norm = os.path.join(decodedir, "text.ref_normalized")
+    with open(ref_text) as fin, open(norm, "w") as fout:
+        for line in fin:
+            parts = line.split()
+            if parts:
+                fout.write(parts[0] + " " + coder.target_normalizer(" ".join(parts[1:]), coder.alphabet) + "\n")
+    log.info("CTC CER: %s", score_text_files(norm, out))
+    log.info("CTC WER: %s", score_text_files(norm, out, transform=char_tokens_to_words))
 
 
 def parse_args(argv=None):
@@ -220,14 +264,12 @@ def main(argv=None) -> int:
     # feature input dim from the first training utterance (main.py:118-120)
     with ArkReader(os.path.join(featdir(config, "train", "dnn-features"), "feats.scp")) as reader:
         input_dim = reader.read_utt_data(0).shape[1]
-    num_labels = resolve_labels(config)
+    coder, num_labels = resolve_labels(config)
     nnet = Nnet(config, input_dim, num_labels, device=device)
     if "train_nnet" in steps:
-        train_nnet(config, nnet, num_labels)
+        train_nnet(config, nnet, coder, num_labels)
     if "test_nnet" not in steps:
         return 0
-
-    log.info("------- computing state pseudo-likelihoods ----------")
 
     decodedir = os.path.join(nnet.savedir, "decode")
     os.makedirs(decodedir, exist_ok=True)
@@ -241,10 +283,14 @@ def main(argv=None) -> int:
         nnet.context_width,
         max_length,
     )
-    like_path = os.path.join(decodedir, "likelihoods.ark")
-    if os.path.isfile(like_path):
-        os.remove(like_path)
     try:
+        if coder is not None:
+            test_text(nnet, coder, featreader, test_featdir, decodedir)
+            return 0
+        log.info("------- computing state pseudo-likelihoods ----------")
+        like_path = os.path.join(decodedir, "likelihoods.ark")
+        if os.path.isfile(like_path):
+            os.remove(like_path)
         nnet.decode(featreader, ArkWriter(os.path.join(decodedir, "feats.scp"), like_path))
     finally:
         featreader.close()

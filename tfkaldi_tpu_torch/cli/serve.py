@@ -55,7 +55,13 @@ def main(argv=None) -> int:
     # input dim from the training featdir (same rule as cli.main)
     with ArkReader(os.path.join(featdir(config, "train", "dnn-features"), "feats.scp")) as reader:
         input_dim = reader.read_utt_data(0).shape[1]
-    nnet = Nnet(config, input_dim, resolve_labels(config), device=args.device)
+    coder, num_labels = resolve_labels(config)
+    if coder is not None:
+        raise NotImplementedError(
+            "text-target models in the spool server are not in the port yet (ROADMAP.md, queue 1, "
+            "item 17); use python -m tfkaldi_tpu.cli.serve"
+        )
+    nnet = Nnet(config, input_dim, num_labels, device=args.device)
     service = DecodeService(nnet, args.watch, args.out, batch_size=args.batch_size)
     if args.once:
         log.info("processed %d job(s)", service.process_pending())

@@ -1,6 +1,7 @@
 """Batch dispensers: pair features with encoded targets.
 
-A copy of ``BatchDispenser`` and ``AlignmentBatchDispenser`` from
+A copy of ``BatchDispenser``, ``TextBatchDispenser`` and
+``AlignmentBatchDispenser`` from
 :mod:`tfkaldi_tpu.data.dispenser` (reference processing/batchdispenser.py),
 reading through the port's :class:`~tfkaldi_tpu_torch.data.feature_reader.FeatureReader`,
 with the same cursor semantics: ``get_batch`` skips target-less or
@@ -150,6 +151,18 @@ class BatchDispenser:
     @property
     def max_input_length(self) -> int:
         return self.feature_reader.max_input_length
+
+
+class TextBatchDispenser(BatchDispenser):
+    """Targets from a Kaldi ``text`` file (batchdispenser.py:175-198)."""
+
+    def read_target_file(self, target_path: str) -> dict[str, str]:
+        target_dict: dict[str, str] = {}
+        with open(target_path, "r") as fid:
+            for line in fid:
+                parts = line.strip().split(" ")
+                target_dict[parts[0]] = " ".join(parts[1:])
+        return target_dict
 
 
 class AlignmentBatchDispenser(BatchDispenser):

@@ -1,6 +1,6 @@
 """Target coders: map target strings ↔ integer id sequences.
 
-A copy of ``TargetCoder`` and ``AlignmentCoder`` from
+A copy of ``TargetCoder``, ``TextCoder`` and ``AlignmentCoder`` from
 :mod:`tfkaldi_tpu.data.target_coder` (reference target_coder.py:8-142). A
 coder owns a normalizer function and a fixed alphabet; ``encode``
 normalizes then maps space-separated tokens to ids, ``decode`` reverses.
@@ -38,6 +38,16 @@ class TargetCoder:
     @property
     def num_labels(self) -> int:
         return len(self.lookup)
+
+
+class TextCoder(TargetCoder):
+    """Character coder with the reference's fixed alphabet
+    (target_coder.py:79-118): ``<eos> <sos> <space> , . ' - ? <unk> a..z``."""
+
+    def create_alphabet(self) -> list[str]:
+        return ["<eos>", "<sos>", "<space>", ",", ".", "'", "-", "?", "<unk>"] + [
+            chr(c) for c in range(ord("a"), ord("z") + 1)
+        ]
 
 
 class AlignmentCoder(TargetCoder):

@@ -1,15 +1,17 @@
 """ctypes bindings for the native bulk ark loader (``csrc/arkio.cpp``).
 
 A copy of :mod:`tfkaldi_tpu.io.native` for the port, binding the fused
-read + CMVN + splice entry the decode stream uses. The C++ source is the
-port's own copy of ``native/arkio.cpp``; it is built at first use with
-``g++`` into ``<checkout>/build/tfkaldi_tpu_torch/`` under a name that
-hashes the source, so an edited source is rebuilt and nothing is ever
-written into ``native/``.
+read + CMVN + splice entry the decode stream uses. :class:`NativeLibrary`
+builds one host C++ source of the port (this loader's ``csrc/arkio.cpp``,
+the port's own copy of ``native/arkio.cpp``, or the CTC beam search's
+``decode/csrc/ctc_beam.cpp``) at first use with ``g++`` into
+``<checkout>/build/tfkaldi_tpu_torch/`` under a name that hashes the
+source, so an edited source is rebuilt and nothing is ever written into
+``native/``.
 
-The loader is host code, not a device kernel: when it cannot be built or
-loaded, :func:`available` is False, the failure is logged at warning
-level, and callers take their pure-Python path (byte-identical batches).
+These libraries are host code, not device kernels: when one cannot be
+built or loaded, its ``available()`` is False, the failure is logged at
+warning level, and callers take their pure-Python path (the same results).
 """
 
 from __future__ import annotations
@@ -33,12 +35,6 @@ BUILD_DIR = os.path.join(
 )
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libtk_arkio_{digest}.so")
-
-
 def _bind(lib) -> None:
     lib.ark_read_cmvn_splice_batch.restype = ctypes.c_int
     lib.ark_read_cmvn_splice_batch.argtypes = [
@@ -54,25 +50,34 @@ def _bind(lib) -> None:
     ]
 
 
-class _Library:
-    """Build-on-first-use loader; thread-safe, tries once per process."""
+class NativeLibrary:
+    """Build-on-first-use ctypes loader of one C++ source of the port
+    (``libtk_<name>_<hash>.so``); ``bind(lib)`` declares the signatures.
+    Thread-safe, tries once per process; ``fallback`` names the Python path
+    a failure is logged against."""
 
-    def __init__(self):
+    def __init__(self, name: str, source: str, bind, fallback: str):
+        self.name, self.source, self._bind, self.fallback = name, source, bind, fallback
         self._lock = threading.Lock()
         self._lib = None
         self._tried = False
+
+    def library_path(self) -> str:
+        with open(self.source, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        return os.path.join(BUILD_DIR, f"libtk_{self.name}_{digest}.so")
 
     def _build(self, path: str) -> bool:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.tmp.{os.getpid()}"
         try:
             subprocess.run(
-                ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-o", tmp, SOURCE],
+                ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-o", tmp, self.source],
                 check=True,
                 capture_output=True,
             )
         except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            log.warning("native ark loader: build of %s failed (%s); using the Python loader", SOURCE, e)
+            log.warning("native %s: build of %s failed (%s); using %s", self.name, self.source, e, self.fallback)
             return False
         os.replace(tmp, path)  # atomic: a concurrent build never loads a torn file
         return True
@@ -82,26 +87,31 @@ class _Library:
             if self._lib is not None or self._tried:
                 return self._lib
             self._tried = True
-            path = library_path()
+            path = self.library_path()
             if not os.path.isfile(path) and not self._build(path):
                 return None
             try:
                 lib = ctypes.CDLL(path)
             except OSError as e:
-                log.warning("native ark loader: load of %s failed (%s); using the Python loader", path, e)
+                log.warning("native %s: load of %s failed (%s); using %s", self.name, path, e, self.fallback)
                 return None
-            _bind(lib)
+            self._bind(lib)
             self._lib = lib
             return lib
 
+    def available(self) -> bool:
+        """True when the library is built and loaded (builds it on the
+        first call)."""
+        return self.load() is not None
 
-_ARKIO = _Library()
+
+_ARKIO = NativeLibrary("arkio", SOURCE, _bind, "the Python loader")
 
 
 def available() -> bool:
-    """True when the native library is built and loaded (builds it on the
-    first call)."""
-    return _ARKIO.load() is not None
+    """True when the native ark loader is built and loaded (builds it on
+    the first call)."""
+    return _ARKIO.available()
 
 
 def _lib():

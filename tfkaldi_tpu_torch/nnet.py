@@ -1,12 +1,17 @@
 """Nnet facade of the port: config → model → training and likelihood emission.
 
-Port of :class:`tfkaldi_tpu.nnet.Nnet` for the hybrid recipe's frame
-cross-entropy (``loss = cross_entropy``) on one device, with the model
+Port of :class:`tfkaldi_tpu.nnet.Nnet` on one device for the hybrid
+recipe's frame cross-entropy (``loss = cross_entropy``) and the character
+recipe's CTC (``loss = ctc``, config_AURORA4_ctc.cfg: the model emits the
+labels plus a blank, the extra final class; nnet.py:53-57), with the model
 selector of tfkaldi_tpu/nnet.py:95-141 for ``model = dnn``
 (config_AURORA4.cfg ``[nnet]``), ``lstm`` and ``gru`` (uni- or
-bidirectional); the other families raise ``NotImplementedError``. :meth:`Nnet.train` runs the training controller, which writes
-``<savedir>/final.pt`` and ``<savedir>/prior.npy``; :meth:`Nnet.decode`
-reads them back (:mod:`tfkaldi_tpu_torch.convert`).
+bidirectional); the other families and losses raise
+``NotImplementedError``. :meth:`Nnet.train` runs the training controller,
+which writes ``<savedir>/final.pt`` and ``<savedir>/prior.npy``;
+:meth:`Nnet.decode` reads them back for the likelihood ark
+(:mod:`tfkaldi_tpu_torch.convert`), :meth:`Nnet.decode_text` reads
+``final.pt`` for a CTC text decode.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from tfkaldi_tpu_torch.convert import load_checkpoint
 from tfkaldi_tpu_torch.data.batching import DeviceBatcher
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+from tfkaldi_tpu_torch.decode.ctc import CTCDecoder
 from tfkaldi_tpu_torch.decode.decoder import Decoder
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.io import ArkWriter
@@ -29,11 +35,12 @@ from tfkaldi_tpu_torch.utils import MetricsLogger
 
 log = logging.getLogger(__name__)
 
-# families of the JAX package not in the port yet, and their ROADMAP slice
+# families and losses of the JAX package not in the port yet, and their ROADMAP slice
 _UNPORTED = {
     "tdnn": "slice 3, item 9", "cnn": "slice 3, item 9", "transformer": "slice 4",
     "conformer": "slice 4", "transducer": "slice 5", "seq2seq": "slice 6",
 }
+_UNPORTED_LOSSES = {"rnnt": "slice 5, items 12-13", "attention": "slice 6, item 14"}
 
 
 class Nnet:
@@ -44,7 +51,8 @@ class Nnet:
         """Args:
             conf: configparser object (the full .cfg).
             input_dim: raw feature dimension (pre-splicing).
-            num_labels: number of pdf targets.
+            num_labels: number of pdf targets, or of the text coder's labels
+                for ``loss = ctc`` (the model emits one more: the blank).
             device: ``cuda`` (default; raises without a card) or ``cpu``.
         """
         self.conf = dict(conf.items("nnet"))
@@ -56,11 +64,15 @@ class Nnet:
         self.num_labels = num_labels
         self.loss_type = self.conf.get("loss", "cross_entropy")
         model_type = self.conf.get("model", "dnn")
-        if self.loss_type != "cross_entropy":
+        if self.loss_type in _UNPORTED_LOSSES:
             raise NotImplementedError(
                 f"loss = {self.loss_type} is not in the port yet (ROADMAP.md, queue 1, "
-                "slices 4-6); use tfkaldi_tpu.nnet.Nnet"
+                f"{_UNPORTED_LOSSES[self.loss_type]}); use tfkaldi_tpu.nnet.Nnet"
             )
+        if self.loss_type not in ("cross_entropy", "ctc"):
+            raise ValueError(f"unknown loss {self.loss_type!r}")
+        output_dim = num_labels + 1 if self.loss_type == "ctc" else num_labels
+        self.blank_id = num_labels if self.loss_type == "ctc" else None
         if model_type in _UNPORTED:
             raise NotImplementedError(
                 f"model = {model_type} is not in the port yet (ROADMAP.md, queue 1, "
@@ -69,9 +81,9 @@ class Nnet:
         if model_type in ("lstm", "gru"):
             if int(self.conf.get("add_layer_period", 0)) > 0:
                 raise ValueError("layerwise init (add_layer_period) requires model = dnn")
-            config = RNNConfig.from_config(self.conf, self.input_dim, num_labels)
+            config = RNNConfig.from_config(self.conf, self.input_dim, output_dim)
         elif model_type == "dnn":
-            config = DNNConfig.from_config(self.conf, self.input_dim, num_labels)
+            config = DNNConfig.from_config(self.conf, self.input_dim, output_dim)
         else:
             raise ValueError(f"unknown model type {model_type!r}")
         self.model = build_model(config)
@@ -104,7 +116,9 @@ class Nnet:
             init_learning_rate=float(self.conf.get("initial_learning_rate", 1e-3)),
             learning_rate_decay=float(self.conf.get("learning_rate_decay", 1)),
             num_steps=int(dispenser.num_batches * opts.num_epochs),
+            loss_type=self.loss_type,
             micro_batches=self._micro_batches(opts.batch_size),
+            ctc_blank_id=self.blank_id if self.blank_id is not None else 0,
         )
         trainer = Trainer(self.model.config, trainer_cfg, device=self.device)
         metrics = MetricsLogger(os.path.join(self.savedir, "metrics.jsonl"))
@@ -115,12 +129,40 @@ class Nnet:
             log.info("avg training throughput: %.0f frames/sec", metrics.avg_frames_per_sec)
             metrics.close()
 
+    def _load_model(self) -> torch.nn.Module:
+        self.model.load_state_dict(load_checkpoint(self.savedir))
+        return self.model.to(self.device)
+
     def load_decoder(self) -> Decoder:
         """Load ``final.pt`` and ``prior.npy`` onto the device (once)."""
-        self.model.load_state_dict(load_checkpoint(self.savedir))
-        self.model.to(self.device)
+        self._load_model()
         prior = np.load(os.path.join(self.savedir, "prior.npy"))
         return Decoder(self.model, prior)
+
+    def load_text_decoder(self, coder) -> CTCDecoder:
+        """Load ``final.pt`` onto the device for a CTC text decode: greedy
+        for ``beam_width = 1``, else prefix beam search of that width."""
+        if self.loss_type != "ctc":
+            raise ValueError("decode_text requires loss = ctc")
+        if self.conf.get("lm_path", ""):
+            raise NotImplementedError(
+                "lm_path (LM shallow fusion) is not in the port yet (ROADMAP.md, queue 1, item 15); "
+                "use tfkaldi_tpu.nnet.Nnet.decode_text"
+            )
+        return CTCDecoder(self._load_model(), coder, self.blank_id,
+                          beam_width=int(self.conf.get("beam_width", 1)))
+
+    def decode_text(self, reader: FeatureReader, coder, outfile: str) -> int:
+        """Decode a test set to a Kaldi ``text`` file with the CTC decoder
+        (nnet.py:339-347, 439-472); returns the number of utterances."""
+        count = self.load_text_decoder(coder).decode_to_file(
+            reader,
+            outfile,
+            batch_size=int(self.conf.get("decode_batch_size", 16)),
+            bucket_multiple=int(self.conf.get("decode_bucket_multiple", 128)),
+        )
+        log.info("decoded %d utterances", count)
+        return count
 
     def decode(self, reader: FeatureReader, writer: ArkWriter) -> int:
         """Emit prior-normalized log pseudo-likelihoods for a test set

@@ -1,7 +1,8 @@
 """Seeded synthetic hybrid-recipe workspaces (no Kaldi, no corpus needed).
 
 Lays down what the pipeline reads from disk: Kaldi data dirs of int16 wavs
-(``wav.scp``, ``utt2spk``, ``spk2utt``, ``text``), a config derived from
+(``wav.scp``, ``utt2spk``, ``spk2utt``, and a ``text`` of seeded
+transcripts, each short enough for CTC on its utterance), a config derived from
 ``config/config_AURORA4.cfg`` with every directory inside the workspace, the
 parent GMM's ``graph/num_pdfs``, and a DNN checkpoint (``final.pt`` +
 ``prior.npy``) of seeded random weights with non-trivial batchnorm stats.
@@ -14,8 +15,10 @@ train and a test corpus, and the parent GMM's pdf alignment
 feature step will produce (``1 + (n − 400) // 160`` frames for ``n``
 samples at 16 kHz, snip_edges). :func:`recurrent_nnet` gives the
 ``[nnet]`` overrides that train the repo's BiLSTM (or a BiGRU of the same
-widths) on such a workspace under frame cross-entropy, and
-:func:`random_rnn_pytree` seeded LSTM/GRU weights in the JAX layout.
+widths) on such a workspace under frame cross-entropy, :func:`ctc_nnet`
+the ``[nnet]`` of the character-CTC recipe as written, which trains on the
+same workspace's transcripts, and :func:`random_rnn_pytree` seeded
+LSTM/GRU weights in the JAX layout.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import numpy as np
 import scipy.io.wavfile
 
 from tfkaldi_tpu_torch.convert import dnn_from_jax, save_checkpoint
+from tfkaldi_tpu_torch.data.target_coder import TextCoder
+from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
 
 RATE = 16000
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config")
@@ -36,6 +41,33 @@ AURORA4_CTC_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4_ctc.cfg")
 # keys of the CTC recipe's [nnet] that belong to its text targets or its
 # experiment, not to the network
 _CTC_ONLY = ("name", "loss", "normalizer", "beam_width", "gmm_name")
+# the words of the synthetic transcripts: WSJ-style upper case, with
+# Aurora-4's punctuation words, an apostrophe, a hyphen and a digit (which
+# the character normalizer maps to <unk>)
+WORDS = (
+    "THE", "OF", "TO", "A", "IN", "AND", "MARKET", "SHARES", "PRICES", "COMPANY", "SAID", "YEAR",
+    "PERCENT", "TRADING", "BANK", "RATES", "STOCK", "NEW", "YORK", "WEEK", "ANALYSTS", "INVESTORS",
+    "O'BRIEN", "X-RAY", "B2B", ",COMMA", ".PERIOD", "\"DOUBLE-QUOTE", "-HYPHEN", "<NOISE>",
+)
+_TEXT_CODER = TextCoder(aurora4_normalizer)
+
+
+def transcript(rng: np.random.Generator, num_frames: int) -> str:
+    """A seeded transcript whose normalised form (the CTC targets) is at
+    most a third of ``num_frames`` tokens: words are drawn from
+    :data:`WORDS` until the next one would take it past a length drawn
+    between a sixth and a third of the frames; ``<NOISE>`` alone
+    (normalised to ``<sos> <eos>``) where the first word drawn does not
+    fit."""
+    budget = num_frames // 3
+    want = int(rng.integers(budget // 2, budget + 1))
+    words: list[str] = []
+    while True:
+        word = WORDS[int(rng.integers(len(WORDS)))]
+        if _TEXT_CODER.encode(" ".join(words + [word])).size > want:
+            break
+        words.append(word)
+    return " ".join(words) or "<NOISE>"
 
 
 def make_wav_datadir(
@@ -48,12 +80,15 @@ def make_wav_datadir(
     seed: int,
     prefix: str = "",
 ) -> list[str]:
-    """Write a Kaldi data dir of noise-like int16 wavs; returns the utt ids
-    in wav.scp order."""
+    """Write a Kaldi data dir of noise-like int16 wavs and their seeded
+    transcripts (:func:`transcript`, from a stream of their own, so the
+    wavs are those of ``seed`` alone); returns the utt ids in wav.scp
+    order."""
     rng = np.random.default_rng(seed)
+    text_rng = np.random.default_rng([seed, 1])
     wavdir = os.path.join(datadir, "wavs")
     os.makedirs(wavdir, exist_ok=True)
-    utts = []
+    utts, texts = [], []
     for s in range(num_speakers):
         for u in range(utts_per_speaker):
             utt = f"{prefix}spk{s}_utt{u:03d}"
@@ -63,6 +98,7 @@ def make_wav_datadir(
             sig = np.clip(sig, -32768, 32767).astype(np.int16)
             scipy.io.wavfile.write(os.path.join(wavdir, f"{utt}.wav"), RATE, sig)
             utts.append(utt)
+            texts.append(transcript(text_rng, num_frames(n)))
     with open(os.path.join(datadir, "wav.scp"), "w") as f:
         for utt in utts:
             f.write(f"{utt} {os.path.join(wavdir, utt + '.wav')}\n")
@@ -74,8 +110,8 @@ def make_wav_datadir(
             spk = f"{prefix}spk{s}"
             f.write(f"{spk} {' '.join(u for u in utts if u.split('_')[0] == spk)}\n")
     with open(os.path.join(datadir, "text"), "w") as f:
-        for utt in utts:
-            f.write(f"{utt} synthetic noise\n")
+        for utt, text in zip(utts, texts):
+            f.write(f"{utt} {text}\n")
     return utts
 
 
@@ -151,6 +187,19 @@ def recurrent_nnet(cell: str = "lstm") -> dict:
     nnet = {k: v for k, v in config.items("nnet") if k not in _CTC_ONLY}
     nnet.update(model=cell, name=f"bi{cell}_512_2_ce")
     return nnet
+
+
+def ctc_nnet() -> dict:
+    """The ``[nnet]`` of ``config_AURORA4_ctc.cfg`` exactly as written:
+    character CTC (``loss = ctc``, ``normalizer = aurora4``, ``beam_width =
+    16``) on a 2 x 512 BiLSTM in bf16, batch 128. It sets every key of
+    ``config_AURORA4.cfg``'s ``[nnet]``, so laid over a workspace's config
+    it gives the CTC recipe's network and training, on the workspace's
+    features and transcripts."""
+    config = ConfigParser()
+    if not config.read(AURORA4_CTC_CONFIG):
+        raise FileNotFoundError(AURORA4_CTC_CONFIG)
+    return dict(config.items("nnet"))
 
 
 def random_rnn_pytree(

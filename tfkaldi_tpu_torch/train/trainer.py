@@ -1,10 +1,14 @@
 """Training steps with the reference's exact optimizer semantics.
 
 Port of :mod:`tfkaldi_tpu.train.trainer` for the hybrid recipe's
-cross-entropy loss (the other losses and SpecAugment are not ported;
+cross-entropy loss and the character recipe's CTC loss (the transducer and
+attention losses and SpecAugment are not ported;
 :class:`tfkaldi_tpu_torch.nnet.Nnet` rejects them):
 
-- frame-summed cross-entropy over real frames only (trainer.py:264-275);
+- frame-summed cross-entropy over real frames only (trainer.py:264-275),
+  or the summed per-utterance CTC loss over ``logits.float()``
+  (:mod:`tfkaldi_tpu_torch.train.ctc`, trainer.py:276-295), divided by the
+  real *input* frames (trainer.py:301-304);
 - gradients accumulated over microbatches in a Python loop that threads
   the batchnorm moving stats through (trainer.py:311-359), then divided by
   the batch's total frame count and clipped to ±1, in that order;
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.models import build_model
+from tfkaldi_tpu_torch.train import ctc
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -43,7 +48,9 @@ class TrainerConfig:
     init_learning_rate: float = 1e-3
     learning_rate_decay: float = 1.0
     num_steps: int = 1000
+    loss_type: str = "cross_entropy"  # cross_entropy | ctc
     micro_batches: int = 1  # grad-accumulation factor (1 = whole batch at once)
+    ctc_blank_id: int = 0  # blank class for CTC (model emits num_labels+1 classes)
 
 
 @dataclasses.dataclass
@@ -73,6 +80,8 @@ class Trainer:
     ``RNNConfig`` → LSTM or GRU)."""
 
     def __init__(self, model_config, config: TrainerConfig, device: str | torch.device = "cuda"):
+        if config.loss_type not in ("cross_entropy", "ctc"):
+            raise ValueError(f"unknown loss {config.loss_type!r}")
         self.model_config = model_config
         self.config = config
         self.device = resolve_device(device)
@@ -111,9 +120,21 @@ class Trainer:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def loss_sum(model: torch.nn.Module, batch: PaddedBatch, *, train: bool, generator=None):
-        """Frame-summed CE over real frames and the frame count (f32)."""
+    def loss_sum(model: torch.nn.Module, batch: PaddedBatch, *, train: bool, generator=None,
+                 loss_type: str = "cross_entropy", blank_id: int = 0):
+        """The summed loss over real frames and its frame divisor (f32):
+        frame CE over ``target_lengths`` frames, or the CTC loss of every
+        utterance over ``input_lengths`` frames (trainer.py:264-304)."""
+        if loss_type == "ctc":
+            # the loss's route plan reads the labels on the host: copied before
+            # the forward is queued, they wait only on what is already queued
+            # (the batch's own copy; with micro-batches, the previous one's
+            # backward), not on this forward
+            labels = [ctc.host(a) for a in (batch.input_lengths, batch.targets, batch.target_lengths)]
         logits = model(batch.inputs, batch.input_lengths, train=train, generator=generator)
+        if loss_type == "ctc":
+            per_seq = ctc.ctc_loss(logits, *labels, blank_id)
+            return torch.sum(per_seq), batch.input_lengths.sum().float()
         b, t, o = logits.shape
         if batch.targets.shape != (b, t):
             raise ValueError(
@@ -126,6 +147,10 @@ class Trainer:
         mask = frames < batch.target_lengths.to(logits.device)[:, None]
         loss = torch.sum(ce * mask)
         return loss, batch.target_lengths.sum().float()
+
+    def _loss_sum(self, model, batch: PaddedBatch, *, train: bool, generator=None):
+        return self.loss_sum(model, batch, train=train, generator=generator,
+                             loss_type=self.config.loss_type, blank_id=self.config.ctc_blank_id)
 
     def gradients(self, state: TrainState, batch: PaddedBatch, generator=None):
         """Summed gradients over the microbatches, the summed loss and the
@@ -143,7 +168,7 @@ class Trainer:
         frames_total = torch.zeros((), device=self.device)
         for i in range(0, b, micro):
             mb = PaddedBatch(*(a[i : i + micro] for a in batch.fields()))
-            loss, frames = self.loss_sum(model, mb, train=True, generator=generator)
+            loss, frames = self._loss_sum(model, mb, train=True, generator=generator)
             loss.backward()
             loss_total += loss.detach()
             frames_total += frames
@@ -203,7 +228,7 @@ class Trainer:
         total_loss, total_frames = 0.0, 0.0
         with torch.inference_mode():
             for batch in batches:
-                loss, frames = self.loss_sum(state.model, batch, train=False)
+                loss, frames = self._loss_sum(state.model, batch, train=False)
                 total_loss += float(loss)
                 total_frames += float(frames)
         return total_loss / max(total_frames, 1.0)
