@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, the served
 path, the training path in f32 and in bf16, the BiLSTM and BiGRU paths,
-then the character-CTC recipe.
+the character-CTC recipe, then the joint CTC-attention conformer recipe.
 
     python3 chip_smoke.py
 
@@ -82,7 +82,23 @@ then the character-CTC recipe.
    route against its plain recursion at the step's shape; greedy and
    beam-16 decode timed, and the step by parts with the CTC loss as its
    own part (``ctc_path``, ``check_ctc_step``).
-9. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
+9. Drives the joint CTC-attention conformer recipe at full width on the
+   training workspace's features with transcripts of their own (at most
+   T/8 labels, in featdirs beside the others): ``cli.main --steps
+   train_nnet,test_nnet`` with the ``[nnet]`` of
+   config_AURORA4_attention.cfg as written (12 x 256 conformer-s4, 4
+   decoder blocks, ctc_weight 0.3, bf16, batch 128, dropout 0.9,
+   average_last 5, rescoring decode with beam 10) and the same three keys
+   lowered. Counts reset before, read after: no hand kernel (all seven
+   counters 0), the CTC loss on its F.ctc_loss route only, pass 2 once per
+   decode batch; the step-0 loss is the uniform-posterior value of both
+   heads; the text decode covers the test set; CER and WER are printed.
+   Then the test set's encoder memory, CTC log-posteriors and pass-2
+   attention scores from ``final.pt`` on the card against the port on the
+   CPU by the bf16 rule, the transcripts where the score margins allow;
+   the rescoring decode timed by pass; one step timed by parts beside the
+   model FLOPs (``attention_path``, ``check_attention``).
+10. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
    count the BiLSTM and the CTC paths), then the final JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
@@ -138,6 +154,11 @@ RNN_LOSS_TOL = 1e-4
 CTC_CLASSES = 36
 CTC_STEP0_TOL = 1e-4
 CTC_LOSS_TOL = 1e-5
+# the joint CTC-attention recipe (config_AURORA4_attention.cfg as written, the same three keys
+# lowered): 35 characters + SOS/EOS (also the CTC blank); transcripts of at most T/8 labels, so
+# every row is feasible for the CTC head on every fourth frame
+ATT_CLASSES = 36
+ATT_TEXT_DENSITY = 8
 
 
 def bf16_close(mine: float, theirs: float) -> bool:
@@ -686,15 +707,17 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
 
 def reset_counts() -> None:
     """Every kernel's launch counts to 0 (per route too), and the CTC loss's
-    routes and the beam searches' runs, just before a path is driven."""
+    routes, the beam searches' runs and the rescoring counts, just before a
+    path is driven."""
     from tfkaldi_tpu_torch.decode import ctc as ctc_decode
+    from tfkaldi_tpu_torch.decode import seq2seq as seq2seq_decode
     from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
     from tfkaldi_tpu_torch.train import ctc
 
     fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
     for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route, fp.launches_by_route,
-                   ctc.launches_by_route, ctc_decode.beam_runs):
+                   ctc.launches_by_route, ctc_decode.beam_runs, seq2seq_decode.rescored):
         for route in counts:
             counts[route] = 0
     for c in (lstm_bidi.CELL, gru_bidi.CELL):
@@ -1633,6 +1656,384 @@ def check_ctc_step(card: str, cfg_path: str, savedir: str, ws: dict) -> dict:
     return {**times, "greedy_frames_per_s": rates["beam1"], "beam_frames_per_s": rates[f"beam{conf['beam_width']}"]}
 
 
+def attention_flops(ecfg, cfg, b: int, t_pad: int, u1: int, num_classes: int) -> float:
+    """Model FLOPs of one training step of the attention recipe on a padded
+    batch ``[b, t_pad]`` with ``u1`` decoder positions, reckoned from the
+    code (a multiply-add is 2): the forward's products, times 3 for forward
+    and backward. Encoder rows ``n = b·T'`` (``T' = ceil(t_pad/s)``): the
+    input projection, per conformer block two FFNs, the q/k/v/o projections,
+    scores and context over ``T'`` keys, the conv module's two pointwise
+    products and its depthwise taps; the memory projection. Decoder rows
+    ``m = b·u1``: per block the self-attention projections, scores and
+    context, the cross-attention's q/o on ``m`` rows and k/v on ``n``
+    memory rows, scores and context over ``T'``, the FFN; the output layer;
+    the CTC head on ``n`` rows."""
+    d, f, k = ecfg.d_model, ecfg.ffn_dim, ecfg.conv_kernel
+    t_out = -(-t_pad // ecfg.subsample)
+    n, m = b * t_out, b * u1
+    enc = 2 * n * ecfg.input_dim * ecfg.subsample * d + 2 * n * d * d
+    enc += ecfg.num_blocks * (8 * n * d * f + 8 * n * d * d + 4 * b * t_out * t_out * d
+                              + 6 * n * d * d + 2 * n * k * d)
+    dec = cfg.dec_blocks * (8 * m * d * d + 4 * b * u1 * u1 * d + 4 * m * d * d + 4 * n * d * d
+                            + 4 * b * u1 * t_out * d + 4 * m * d * cfg.ffn_dim)
+    dec += 2 * m * d * num_classes + 2 * n * d * num_classes
+    return 3.0 * (enc + dec)
+
+
+def attention_featdirs(ws: dict) -> dict:
+    """The attention phase's featdirs: the training workspace's features
+    with transcripts of at most an eighth of each utterance's frames (its
+    CTC head sees every fourth frame), written beside them; the existing
+    featdirs and their ``text`` stay as they are."""
+    from tfkaldi_tpu_torch import synthetic
+
+    dirs = {}
+    for kind, seed in (("train", 30), ("test", 31)):
+        src = ws[f"{kind}_featdir"]
+        root = os.path.join(TRAIN_WORK, "attention_features", kind)
+        dirs[kind] = os.path.join(root, os.path.basename(src))
+        shutil.rmtree(root, ignore_errors=True)
+        synthetic.retext_featdir(src, dirs[kind], seed=seed, density=ATT_TEXT_DENSITY)
+    return dirs
+
+
+def attention_path(card: str, ws: dict) -> tuple[str, str, dict]:
+    """The joint CTC-attention recipe at full width through the CLI:
+    ``config_AURORA4_attention.cfg``'s ``[nnet]`` exactly as written
+    (``synthetic.attention_nnet``: 12 x 256 conformer-s4, 4 heads, ffn 1024,
+    kernel 15, 4 decoder blocks, ctc_weight 0.3, label smoothing 0.1, bf16,
+    batch 128, dropout 0.9, average_last 5, rescoring decode with beam 10
+    and rescore_weight 0.5) with only num_epochs, valid_frequency and
+    check_freq lowered, on the training workspace's features with
+    transcripts of at most T/8 labels (``attention_featdirs``); ``cli.main
+    --steps train_nnet,test_nnet``. Counts reset before, read after: no
+    hand kernel launched (the path runs none: every one of the seven
+    counters stays at 0); the CTC loss on its F.ctc_loss route on every
+    batch and the plain recursion never; pass 2 of the rescoring decode once
+    per decode batch. The step-0 loss equals the uniform-posterior value
+    ``[(1-w)·sum_i (U_i+1) ln 36 + w·sum_i (T'_i ln 36 - ln N_i)] / sum_i
+    T_i`` (the decoder's output layer and the CTC head start at zero, and
+    smoothing leaves a uniform CE as it is); the ``text`` decode has one
+    line per test utterance. Returns the config's path, the model dir and
+    the featdirs."""
+    from configparser import ConfigParser
+
+    import torch
+
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.cli import main as cli_main
+    from tfkaldi_tpu_torch.data.dispenser import TextBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode import seq2seq as seq2seq_decode
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+    from tfkaldi_tpu_torch.train import ctc
+    from tfkaldi_tpu_torch.utils.wer import char_tokens_to_words, score_text_files
+
+    t0 = time.perf_counter()
+    dirs = attention_featdirs(ws)
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    for kind in ("train", "test"):
+        config.set("directories", f"{kind}_features", os.path.dirname(dirs[kind]))
+    nnet = {**synthetic.attention_nnet(), **RNN_TRAIN_NNET}
+    for key, value in nnet.items():
+        config.set("nnet", key, str(value))
+    cfg_path = os.path.join(TRAIN_WORK, "config_attention.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), nnet["name"])
+    log(f"attention workspace: the training features with transcripts of at most T/{ATT_TEXT_DENSITY} labels, "
+        f"[nnet] of config_AURORA4_attention.cfg with {RNN_TRAIN_NNET}: {time.perf_counter() - t0!r} s")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main attention path: rc {rc}")
+    kernels = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    for name, c in (("lstm", lstm_bidi.CELL), ("gru", gru_bidi.CELL)):
+        kernels.update({f"{name}_{k}": getattr(c, f"{k}_launches") for k in ("fwd_persistent", "fwd",
+                                                                               "bwd_persistent", "bwd")})
+    loss_routes, rescored = dict(ctc.launches_by_route), dict(seq2seq_decode.rescored)
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    log(f"attention path launches of the seven kernels {kernels}; CTC loss calls by route {loss_routes}; rescoring "
+        f"{rescored}; {len(steps)} train steps at T_pad {[st['padded_length'] for st in steps]} (replays after a "
+        f"rollback included); whole run {run_s!r} s")
+    if any(kernels.values()):
+        raise AssertionError(f"the attention path launched a hand kernel: {kernels}")
+    if not (loss_routes["library"] >= len(steps) and loss_routes["plain"] == 0):
+        raise AssertionError(f"CTC loss routes {loss_routes}: want F.ctc_loss on every batch, the plain recursion "
+                             f"never (every transcript is feasible)")
+
+    # ---- the step-0 loss: uniform posteriors over the 36 classes on both heads ----
+    featdir = dirs["train"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+                           os.path.join(featdir, "utt2spk"), int(nnet["context_width"]), max_length)
+    dispenser = TextBatchDispenser(reader, TextCoder(aurora4_normalizer), int(nnet["batch_size"]),
+                                   os.path.join(featdir, "text"))
+    for _ in range(int(nnet["valid_batches"])):  # past the validation carve
+        dispenser.skip_batch()
+    inputs, targets = dispenser.get_batch()
+    reader.close()
+    w, s = float(nnet["ctc_weight"]), int(nnet["subsample"])
+    frames = [x.shape[0] for x in inputs]
+    ln_v = math.log(ATT_CLASSES)
+    att = sum(len(y) + 1 for y in targets) * ln_v
+    ctc_part = sum(-(-t // s) * ln_v - log_num_alignments(y, -(-t // s)) for t, y in zip(frames, targets))
+    want = ((1 - w) * att + w * ctc_part) / sum(frames)
+    loss0 = steps[0]["loss"]
+    rel0 = abs(loss0 - want) / want
+    log(f"attention path step-0 loss {loss0!r} vs the uniform-posterior value {want!r} over the first batch's "
+        f"{sum(frames)} frames and {sum(len(y) for y in targets)} labels (rel {rel0!r}, tol {CTC_STEP0_TOL}); "
+        f"losses {[round(st['loss'], 6) for st in steps]}")
+    if not rel0 <= CTC_STEP0_TOL:
+        raise AssertionError(f"attention step-0 loss {loss0} is not the uniform-posterior value {want}")
+    warm = steps[1:]
+    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
+    log(f"attention path CLI train step (median of {len(warm)} after the first, host clock, data wait included): "
+        f"{step_s!r} s [{card}]")
+
+    # ---- the text decode ----
+    with open(os.path.join(dirs["test"], "text")) as f:
+        test_utts = [line.split()[0] for line in f if line.strip()]
+    decode_dir = os.path.join(savedir, "decode")
+    with open(os.path.join(decode_dir, "text")) as f:
+        decoded = [line.split() for line in f]
+    if [d[0] for d in decoded] != test_utts:
+        raise AssertionError(f"the attention decode text holds {len(decoded)} lines, not one per test utterance "
+                             f"({len(test_utts)})")
+    want_batches = -(-len(test_utts) // int(nnet.get("decode_batch_size", 16)))
+    if rescored["batches"] != want_batches or not rescored["hypotheses"] >= len(test_utts):
+        raise AssertionError(f"rescoring {rescored}: want {want_batches} batches and at least one hypothesis per "
+                             f"utterance")
+    norm, out = os.path.join(decode_dir, "text.ref_normalized"), os.path.join(decode_dir, "text")
+    log(f"attention path rescoring decode (beam {nnet['beam_width']}, rescore_weight {nnet['rescore_weight']}) of "
+        f"{len(decoded)} test utterances ({sum(len(d) - 1 for d in decoded)} tokens): CER "
+        f"{score_text_files(norm, out)}; WER {score_text_files(norm, out, transform=char_tokens_to_words)} (noise "
+        f"data after {len(steps)} steps: printed, not gated)")
+    return cfg_path, savedir, dirs
+
+
+def check_attention(card: str, cfg_path: str, savedir: str, dirs: dict) -> dict:
+    """The attention path's outputs on the card against the port on the CPU,
+    and its times:
+
+    - the test set through ``final.pt`` in decode batches of 16: the
+      encoder memory, the CTC log-posteriors and pass 2's attention scores
+      (of the CPU bf16 run's n-best lists) on the card (bf16) against the
+      CPU in bf16 and in f32 compute, by the bf16 rule of check_rnn_kernels
+      (``bf16_close`` and ``bf16_rounds``, against the f32-compute run);
+      the transcripts identical on every utterance whose n-best lists agree
+      and whose top-two final scores lie further apart than twice the two
+      runs' largest score difference;
+    - the rescoring decode of the test set timed (host clock, features
+      read), split into pass 1, the host beam and pass 2;
+    - one training step on the first training batch from the step-2
+      checkpoint, timed by parts (CUDA events, median of 3 after 3
+      warm-ups): encoder forward, decoder forward (with the attention CE),
+      CTC head + loss forward, backward (the gradient pass less those), and
+      Adam; beside the model FLOPs of the step and their f32 bound.
+
+    Returns the timings."""
+    import dataclasses
+    import statistics
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.convert import load_checkpoint
+    from tfkaldi_tpu_torch.data.batching import DeviceBatcher
+    from tfkaldi_tpu_torch.data.dispenser import TextBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder
+    from tfkaldi_tpu_torch.decode.streaming import stream_padded_batches
+    from tfkaldi_tpu_torch.models import AttentionSeq2Seq, Seq2SeqConfig
+    from tfkaldi_tpu_torch.train import checkpoint as ckpt
+    from tfkaldi_tpu_torch.train import ctc
+    from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    config = ConfigParser()
+    config.read(cfg_path)
+    conf = dict(config.items("nnet"))
+    coder = TextCoder(aurora4_normalizer)
+    cfg = Seq2SeqConfig.from_config(conf, 40, coder.num_labels)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    final = load_checkpoint(savedir)
+    beam, weight = int(conf["beam_width"]), float(conf["rescore_weight"])
+    max_tokens = int(conf["max_decode_tokens"])
+
+    def decoder(c, device):
+        model = AttentionSeq2Seq(c)
+        model.load_state_dict(final)
+        return CTCRescoreDecoder(model.to(device), coder, beam_width=beam, rescore_weight=weight,
+                                 max_tokens=max_tokens)
+
+    def test_reader():
+        featdir = dirs["test"]
+        return FeatureReader(os.path.join(featdir, "feats.scp"), os.path.join(featdir, "cmvn.scp"),
+                             os.path.join(featdir, "utt2spk"), 0, 0)
+
+    # ---- the test set on the card and on the CPU ----
+    reader = test_reader()
+    batches = list(stream_padded_batches(reader, batch_size=int(conf.get("decode_batch_size", 16))))
+    reader.close()
+    runs = {"card": decoder(cfg, "cuda"), "cpu": decoder(cfg, "cpu"), "cpu_f32": decoder(cfg32, "cpu")}
+    dist = {name: {"memory": 0.0, "ctc_logp": 0.0, "att": 0.0} for name in ("card", "cpu")}
+    out = {"card": [], "cpu": []}
+    clear, same = [], []
+    t0 = time.perf_counter()
+    for _, x, lengths in batches:
+        got, memories = {}, {}
+        for name, d in runs.items():
+            memories[name], logp = d.first_pass(x, lengths)
+            got[name] = {"memory": memories[name].float().cpu(), "ctc_logp": logp.cpu()}
+        nbest = {}
+        for name in ("card", "cpu"):  # the decode, with each side's own n-best
+            d = runs[name]
+            out[name] += d.decode_batch(x, lengths)
+            nbest[name] = (d.last_tokens, d.last_hyp_lens, d.last_ctc_scores, d.last_att_scores)
+        tokens, hyp_lens, ctc_p, att_p = nbest["cpu"]
+        filled = np.isfinite(ctc_p)
+        for name, d in runs.items():  # pass 2 on the CPU bf16 run's n-best, on every side
+            got[name]["att"] = d.attention_scores(memories[name], lengths, tokens, hyp_lens)[filled]
+        t_out = runs["cpu"].model.output_lengths(np.asarray(lengths))
+        for name in ("card", "cpu"):
+            for part in ("memory", "ctc_logp"):
+                ref, mine = got["cpu_f32"][part], got[name][part]
+                dist[name][part] = max(dist[name][part], max(float((mine[i, :n] - ref[i, :n]).abs().max())
+                                                                for i, n in enumerate(t_out)))
+            dist[name]["att"] = max(dist[name]["att"], float(np.abs(got[name]["att"] - got["cpu_f32"]["att"]).max()))
+        tokens_k, _, ctc_k, att_k = nbest["card"]
+        for i in range(len(lengths)):
+            final_p = weight * ctc_p[i] + (1 - weight) * att_p[i]
+            if tokens_k.shape != tokens.shape or not np.array_equal(tokens_k[i], tokens[i]):
+                continue
+            final_k = weight * ctc_k[i] + (1 - weight) * att_k[i]
+            ok = filled[i]
+            gap = 2 * float(np.abs(final_k[ok] - final_p[ok]).max())
+            top = np.sort(final_p[ok])
+            if len(top) < 2 or top[-1] - top[-2] > gap:
+                index = len(out["cpu"]) - len(lengths) + i
+                clear.append(index)
+                if np.array_equal(out["card"][index], out["cpu"][index]):
+                    same.append(index)
+    cmp_s = time.perf_counter() - t0
+    verdicts = {part: (bf16_close(dist["card"][part], dist["cpu"][part]),
+                       bf16_rounds(dist["card"][part], dist["cpu"][part])) for part in dist["card"]}
+    log(f"attention test set ({len(out['card'])} utterances) from final.pt, max|diff| from the CPU f32-compute run: "
+        f"card bf16 {dist['card']!r}, CPU bf16 {dist['cpu']!r} (bf16 rule: within {RNN_BF16_RATIO}x + "
+        f"{RNN_F32_TOL}, and at least 1/{RNN_BF16_RATIO} - {RNN_F32_TOL}: {verdicts}); transcripts identical on "
+        f"{len(same)} of the {len(clear)} utterances whose n-best lists agree and whose final-score margin exceeds "
+        f"twice the runs' score difference (all: {sum(np.array_equal(a, b) for a, b in zip(out['card'], out['cpu']))}"
+        f" of {len(out['card'])}); comparison {cmp_s!r} s")
+    if not all(close and rounds for close, rounds in verdicts.values()):
+        raise AssertionError(f"the attention model on the card is outside the bf16 rule: {dist}")
+    if same != clear:
+        raise AssertionError(f"rescoring transcripts differ from the CPU's on utterances {sorted(set(clear) - set(same))}")
+    del runs
+
+    # ---- the rescoring decode, timed ----
+    d = decoder(cfg, "cuda")
+    frames = sum(int(n) for _, _, l in batches for n in l)
+    for _ in range(2):  # a warm-up, then the timed pass
+        d.seconds = dict.fromkeys(d.seconds, 0.0)
+        reader = test_reader()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count = d.decode_to_file(reader, os.path.join(TRAIN_WORK, "attention_decode.txt"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        reader.close()
+    split = {part: s * 1e3 for part, s in d.seconds.items()}
+    rate = {part: frames / ms * 1e3 for part, ms in split.items()}
+    log(f"attention rescoring decode of the test set ({count} utterances, {frames} frames, batches of 16, beam "
+        f"{beam}, features read): {seconds!r} s, {frames / seconds!r} frames/s; ms (frames/s) by part: pass 1 on "
+        f"the device {split['pass1']!r} ({rate['pass1']!r}; encoder, CTC head, D2H copy), host prefix beam "
+        f"{split['beam']!r} ({rate['beam']!r}), pass 2 {split['pass2']!r} ({rate['pass2']!r}; teacher-forced "
+        f"decoder over every hypothesis); rest (features read, batching, text) "
+        f"{seconds * 1e3 - sum(split.values())!r} [{card}]")
+    timings = {"decode_frames_per_s": frames / seconds, **{f"decode_{p}_ms": v for p, v in split.items()}}
+    del d
+
+    # ---- one training step by parts ----
+    featdir = dirs["train"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+                           os.path.join(featdir, "utt2spk"), 0, max_length)
+    dispenser = TextBatchDispenser(reader, coder, int(conf["batch_size"]), os.path.join(featdir, "text"))
+    for _ in range(int(conf["valid_batches"])):  # past the validation carve
+        dispenser.skip_batch()
+    batch = dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
+    reader.close()
+    trainer = Trainer(cfg, TrainerConfig(num_steps=6, loss_type="attention"), device="cuda")
+    state = ckpt.restore_state(os.path.join(savedir, "training", "step2.pt"), trainer.init_state(0))
+    model = state.model
+    gen = trainer.dropout_generator(state)
+    labels = [ctc.host(a) for a in (batch.input_lengths, batch.targets, batch.target_lengths)]
+    labels[0] = model.output_lengths(labels[0])
+
+    def median_ms(fn) -> float:
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(3):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times)
+
+    memory = model.encode(batch.inputs, batch.input_lengths, train=True, generator=gen).detach().requires_grad_()
+
+    def decoder_forward():  # with the log-softmax of the attention CE
+        logits = model.teacher_forced(memory, batch.input_lengths, batch.targets, batch.target_lengths, train=True,
+                                      generator=gen)
+        return torch.log_softmax(logits, dim=-1).sum()
+
+    def ctc_forward():
+        return ctc.ctc_loss(model.ctc_logits(memory), *labels, model.sos_eos_id).sum()
+
+    parts = {
+        "encoder forward": median_ms(lambda: model.encode(batch.inputs, batch.input_lengths, train=True,
+                                                          generator=gen)),
+        "decoder forward": median_ms(decoder_forward),
+        "CTC head + loss forward": median_ms(ctc_forward),
+    }
+    s = ckpt.device_snapshot(state)
+    grad_ms = median_ms(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)))
+    step_ms = median_ms(lambda: trainer.update(s, batch))
+    parts["backward"] = grad_ms - sum(parts.values())
+    parts["Adam"] = step_ms - grad_ms
+    b, t_pad = batch.inputs.shape[:2]
+    u1 = batch.targets.shape[1] + 1
+    flops = attention_flops(cfg.encoder_config(), cfg, b, t_pad, u1, ATT_CLASSES)
+    real = int(batch.input_lengths.sum().item())
+    bound_ms = flops / PEAK_F32 * 1e3
+    log(f"attention train step at [{b}x{t_pad}, 40] -> T' {-(-t_pad // cfg.encoder_config().subsample)}, decoder "
+        f"{u1} positions ({real} real frames): update {step_ms!r} ms ({real / step_ms * 1e3!r} frames/s); by parts "
+        f"{parts!r} ms; model FLOPs {flops!r} a step (forward x 3), f32 "
+        f"bound {bound_ms!r} ms (products are f32 GEMMs of bf16 values at {PEAK_F32 / 1e12:.0f} TFLOP/s), "
+        f"{bound_ms / step_ms!r} of it reached [{card}]")
+    timings.update({"update_ms": step_ms, "flops_per_step": flops, "bound_ms": bound_ms,
+                    **{f"{k.replace(' ', '_').replace('+', 'and')}_ms": v for k, v in parts.items()}})
+    return timings
+
+
 def read_ark(scp: str) -> dict:
     from tfkaldi_tpu_torch.io import ArkReader
 
@@ -1831,6 +2232,13 @@ def main() -> int:
         rnn_launches[name] += count
     log(f"CTC phase: {json.dumps(ctc_times)} [{card}]")
     log(f"phase CTC path: {time.perf_counter() - t0!r} s")
+
+    # ---- the joint CTC-attention conformer recipe at full width (no hand kernel on its path) ----
+    t0 = time.perf_counter()
+    att_cfg, att_savedir, att_dirs = attention_path(card, train_ws)
+    att_times = check_attention(card, att_cfg, att_savedir, att_dirs)
+    log(f"attention phase: {json.dumps(att_times)} [{card}]")
+    log(f"phase attention path: {time.perf_counter() - t0!r} s")
 
     # launches: f32, the served path's and the training path's runs
     # together; bf16, the bf16 DNN path's run; kernels 4 and 5, the BiLSTM

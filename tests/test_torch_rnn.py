@@ -41,7 +41,7 @@ from tfkaldi_tpu_torch import synthetic
 from tfkaldi_tpu_torch.cli import main as cli_main
 from tfkaldi_tpu_torch.convert import rnn_from_jax, save_checkpoint, train_state_from_jax
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
-from tfkaldi_tpu_torch.models import GRU, LSTM, RNNConfig, build_model
+from tfkaldi_tpu_torch.models import GRU, LSTM, RNNConfig, Transformer, build_model
 from tfkaldi_tpu_torch.nnet import Nnet
 from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -337,9 +337,15 @@ def test_nnet_model_selector(tmp_path):
     assert isinstance(Nnet(config(model="gru"), 4, 5, device="cpu").model, GRU)
     with pytest.raises(ValueError, match="add_layer_period"):
         Nnet(config(model="lstm", add_layer_period="5"), 4, 5, device="cpu")
-    for model, where in (("tdnn", "slice 3"), ("cnn", "slice 3"), ("transformer", "slice 4"),
-                         ("conformer", "slice 4"), ("transducer", "slice 5"), ("seq2seq", "slice 6")):
+    for model, where in (("tdnn", "slice 3"), ("cnn", "slice 3"), ("transducer", "slice 5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{where}.*tfkaldi_tpu.nnet.Nnet"):
             Nnet(config(model=model), 4, 5, device="cpu")
+    # ported in slices 4 and 6: model = conformer turns the conformer blocks on
+    small = dict(num_blocks="1", d_model="8", num_heads="2", ffn_dim="8", conv_kernel="3")
+    for model in ("transformer", "conformer"):
+        net = Nnet(config(model=model, **small), 4, 5, device="cpu")
+        assert isinstance(net.model, Transformer) and net.model.config.conformer == (model == "conformer")
+    with pytest.raises(ValueError, match="model = seq2seq and loss = attention"):
+        Nnet(config(model="seq2seq"), 4, 5, device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         Nnet(config(model="mlp"), 4, 5, device="cpu")

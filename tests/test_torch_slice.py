@@ -178,7 +178,8 @@ def test_port_imports_without_jax():
             "import tfkaldi_tpu_torch.cli.main, tfkaldi_tpu_torch.cli.serve, "
             "tfkaldi_tpu_torch.synthetic, tfkaldi_tpu_torch.profile_serve, "
             "tfkaldi_tpu_torch.nnet, tfkaldi_tpu_torch.train, tfkaldi_tpu_torch.convert, "
-            "tfkaldi_tpu_torch.models.rnn, tfkaldi_tpu_torch.ops.lstm_bidi, tfkaldi_tpu_torch.ops.gru_bidi, "
+            "tfkaldi_tpu_torch.models.rnn, tfkaldi_tpu_torch.models.transformer, tfkaldi_tpu_torch.models.seq2seq, "
+            "tfkaldi_tpu_torch.decode.seq2seq, tfkaldi_tpu_torch.ops.lstm_bidi, tfkaldi_tpu_torch.ops.gru_bidi, "
             "tfkaldi_tpu_torch.ops.rnn_bidi, tfkaldi_tpu_torch.train.ctc, tfkaldi_tpu_torch.decode.ctc, "
             "tfkaldi_tpu_torch.decode.ctc_beam, tfkaldi_tpu_torch.decode.native_beam, "
             "tfkaldi_tpu_torch.utils.wer, tfkaldi_tpu_torch.data.dispenser; "

@@ -6,7 +6,11 @@ the 440→6×2048→2000 relu+batchnorm DNN, trained with the reference's
 optimizer, rollback and checkpoint semantics, then softmax ÷ prior → Kaldi
 ark of log pseudo-likelihoods. ``model = lstm`` or ``gru`` in ``[nnet]``
 trains and decodes the repo's recurrent network (2 x 512 bidirectional,
-config_AURORA4_ctc.cfg) on the same pipeline under frame cross-entropy.
+config_AURORA4_ctc.cfg) on the same pipeline under frame cross-entropy,
+and ``loss = ctc`` the character-CTC recipe. ``model = seq2seq`` with
+``loss = attention`` runs the joint CTC-attention conformer recipe
+(config_AURORA4_attention.cfg) with its attention-rescoring text decode,
+in plain PyTorch: no hand kernel lies on that path.
 The seven device kernels of these paths (the preemphasis/framing pass, the
 fused FFN block of the DNN's eval forward, the fused BN backward of its
 hidden layers, and the forward and backward steps of the LSTM and GRU

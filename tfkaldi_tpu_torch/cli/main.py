@@ -1,7 +1,8 @@
 """Pipeline entry point of the port: features, model training, likelihoods.
 
-Port of :mod:`tfkaldi_tpu.cli.main` on one device for the hybrid recipe
-and the character-CTC recipe, with ``model = dnn``, ``lstm`` or ``gru`` in
+Port of :mod:`tfkaldi_tpu.cli.main` on one device for the hybrid recipe,
+the character-CTC recipe and the joint CTC-attention recipe, with ``model =
+dnn``, ``lstm``, ``gru``, ``transformer`` / ``conformer`` or ``seq2seq`` in
 ``[nnet]``. It runs the four feature steps, ``train_nnet`` and
 ``test_nnet``:
 
@@ -12,12 +13,14 @@ and the character-CTC recipe, with ``model = dnn``, ``lstm`` or ``gru`` in
   name>/decode/likelihoods.ark`` with its ``feats.scp``. The WFST decode
   and WER scoring that follow in the JAX pipeline run in external Kaldi on
   that ark and are not part of this entry point.
-- CTC (``loss = ctc``, config_AURORA4_ctc.cfg): the targets are the
-  training featdir's ``text``, coded by the text coder's 35 characters
-  (the model emits a 36th class, the blank); ``test_nnet`` writes the
-  greedy or beam decode to ``<expdir>/<nnet name>/decode/text``, normalises
-  the test featdir's ``text`` into ``text.ref_normalized`` and logs the CER
-  and the word-level WER.
+- CTC (``loss = ctc``, config_AURORA4_ctc.cfg) and joint CTC-attention
+  (``loss = attention``, config_AURORA4_attention.cfg): the targets are
+  the training featdir's ``text``, coded by the text coder's 35 characters
+  (the model emits a 36th class, the CTC blank or SOS/EOS); ``test_nnet``
+  writes the decode (CTC greedy or beam; attention rescoring) to
+  ``<expdir>/<nnet name>/decode/text``, normalises the test featdir's
+  ``text`` into ``text.ref_normalized`` and logs the CER and the word-level
+  WER under the loss's name.
 
 The GMM steps are not ported yet and raise; ``python -m
 tfkaldi_tpu.cli.main`` runs them.
@@ -169,6 +172,10 @@ def train_nnet(config, nnet, coder, num_labels: int) -> None:
         featreader.close()
 
 
+# the name the text test_nnet logs its scores under
+_LOSS_NAMES = {"ctc": "CTC", "attention": "attention"}
+
+
 def test_text(nnet, coder, featreader, test_featdir: str, decodedir: str) -> None:
     """The text-target ``test_nnet`` (tfkaldi_tpu/cli/main.py:394-426):
     decode to ``<decodedir>/text``, then, when the test featdir has a
@@ -177,9 +184,10 @@ def test_text(nnet, coder, featreader, test_featdir: str, decodedir: str) -> Non
     from tfkaldi_tpu_torch.utils.wer import char_tokens_to_words, score_text_files
 
     log.info("------- decoding transcriptions ----------")
+    name = _LOSS_NAMES[nnet.loss_type]
     out = os.path.join(decodedir, "text")
     nnet.decode_text(featreader, coder, out)
-    log.info("wrote CTC transcriptions to %s", out)
+    log.info("wrote %s transcriptions to %s", name, out)
     ref_text = os.path.join(test_featdir, "text")
     if not os.path.isfile(ref_text):
         return
@@ -189,8 +197,8 @@ def test_text(nnet, coder, featreader, test_featdir: str, decodedir: str) -> Non
             parts = line.split()
             if parts:
                 fout.write(parts[0] + " " + coder.target_normalizer(" ".join(parts[1:]), coder.alphabet) + "\n")
-    log.info("CTC CER: %s", score_text_files(norm, out))
-    log.info("CTC WER: %s", score_text_files(norm, out, transform=char_tokens_to_words))
+    log.info("%s CER: %s", name, score_text_files(norm, out))
+    log.info("%s WER: %s", name, score_text_files(norm, out, transform=char_tokens_to_words))
 
 
 def parse_args(argv=None):

@@ -5,9 +5,14 @@
 :class:`tfkaldi_tpu_torch.models.DNN`, and :func:`rnn_from_jax` the JAX
 LSTM/GRU pytree (models/rnn.py:100-133) to that of
 :class:`~tfkaldi_tpu_torch.models.LSTM` or ``GRU``; the layouts are the
-same, so the arrays are copied as they are. :func:`train_state_from_jax`
-maps a whole JAX ``TrainState`` (its leaves as numpy) of either family onto
-the port's :class:`~tfkaldi_tpu_torch.train.trainer.TrainState`. The port's decode
+same, so the arrays are copied as they are. :func:`transformer_from_jax`
+and :func:`seq2seq_from_jax` map the transformer / conformer encoder
+(models/transformer.py:196-285) and the attention encoder-decoder
+(models/seq2seq.py:187-264) by their pytree paths joined with dots, the
+depthwise conv weight transposed from JAX's ``HIO [k, 1, D]`` to torch's
+``[D, 1, k]``. :func:`train_state_from_jax` maps a whole JAX ``TrainState``
+(its leaves as numpy) of any of these families onto the port's
+:class:`~tfkaldi_tpu_torch.train.trainer.TrainState`. The port's decode
 checkpoint is ``<savedir>/final.pt``, beside the JAX package's Orbax
 ``final/``; Orbax checkpoints are not read (``orbax`` imports JAX).
 """
@@ -48,6 +53,45 @@ def rnn_from_jax(params) -> dict[str, torch.Tensor]:
     return _param_dict(params)
 
 
+def _tree_dict(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A params-shaped pytree of the transformer or the seq2seq model (or
+    of its Adam ``m`` / ``v``) → the port's names: dict keys and list
+    indices joined by dots, every leaf f32, the depthwise ``w_dw``
+    transposed ``[k, 1, D] → [D, 1, k]``."""
+    out: dict[str, torch.Tensor] = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in items:
+        name = f"{prefix}{key}"
+        if isinstance(value, (dict, list, tuple)):
+            out.update(_tree_dict(value, name + "."))
+            continue
+        a = np.asarray(value, np.float32)
+        if key == "w_dw":
+            a = a.transpose(2, 1, 0)
+        out[name] = _tensor(a)
+    return out
+
+
+def _bn_state(state, prefix: str = "") -> dict[str, torch.Tensor]:
+    return {f"{prefix}{name}": _tensor(np.asarray(state[name], np.float32))
+            for name in ("bn_conv_mean", "bn_conv_var") if name in state}
+
+
+def transformer_from_jax(params, state) -> dict[str, torch.Tensor]:
+    """JAX transformer / conformer ``(params, state)`` → ``state_dict``:
+    ``params`` by path, and the conformer's ``bn_conv_mean`` /
+    ``bn_conv_var`` from ``state`` (its ``depth`` is not used by the
+    model)."""
+    return {**_tree_dict(params), **_bn_state(state)}
+
+
+def seq2seq_from_jax(params, state) -> dict[str, torch.Tensor]:
+    """JAX attention seq2seq ``(params, state)`` → ``state_dict``:
+    ``params`` by path (the encoder's under ``enc.``), and the encoder's
+    batchnorm statistics from ``state["enc"]``."""
+    return {**_tree_dict(params), **_bn_state(state.get("enc", {}), "enc.")}
+
+
 def _param_dict(tree) -> dict[str, torch.Tensor]:
     """A params-shaped pytree (params, Adam ``m`` or ``v``) of the DNN
     (``hidden``) or of an RNN (``layers``) → the port's parameter names."""
@@ -69,24 +113,30 @@ def train_state_from_jax(state, config, *, seed: int = 0, device: str | torch.de
     """A JAX ``TrainState`` (any object with the attributes ``params``,
     ``model_state``, ``adam_m``, ``adam_v``, ``adam_t``, ``step`` and
     ``lr_fact``, leaves as numpy arrays; train/trainer.py:63-80) → the
-    port's ``TrainState`` for a ``DNNConfig`` or an ``RNNConfig`` on
-    ``device``. The threefry dropout key does not carry over: the port's
-    dropout stream is seeded from ``seed``."""
-    from tfkaldi_tpu_torch.models import DNNConfig, build_model
+    port's ``TrainState`` for a ``DNNConfig``, an ``RNNConfig``, a
+    ``TransformerConfig`` or a ``Seq2SeqConfig`` on ``device``; the Adam
+    moments map by the parameters' names. The threefry dropout key does not
+    carry over: the port's dropout stream is seeded from ``seed``."""
+    from tfkaldi_tpu_torch.models import DNNConfig, RNNConfig, TransformerConfig, build_model
     from tfkaldi_tpu_torch.train.trainer import TrainState
 
     model = build_model(config)
+    moments = _param_dict
     if isinstance(config, DNNConfig):
         model.load_state_dict(dnn_from_jax(state.params, state.model_state))
-    else:
+    elif isinstance(config, RNNConfig):
         model.load_state_dict(rnn_from_jax(state.params))
+    else:
+        load = transformer_from_jax if isinstance(config, TransformerConfig) else seq2seq_from_jax
+        model.load_state_dict(load(state.params, state.model_state))
+        moments = _tree_dict
     model.to(device)
     return TrainState(
         step=int(np.asarray(state.step)),
         lr_fact=float(np.asarray(state.lr_fact)),
         model=model,
-        adam_m={k: v.to(device) for k, v in _param_dict(state.adam_m).items()},
-        adam_v={k: v.to(device) for k, v in _param_dict(state.adam_v).items()},
+        adam_m={k: v.to(device) for k, v in moments(state.adam_m).items()},
+        adam_v={k: v.to(device) for k, v in moments(state.adam_v).items()},
         adam_t=int(np.asarray(state.adam_t)),
         seed=int(seed),
     )

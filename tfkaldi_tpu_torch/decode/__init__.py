@@ -1,5 +1,5 @@
-"""Decoding of the port: likelihood emission, CTC text decoding and the
-test-set streams."""
+"""Decoding of the port: likelihood emission, CTC text decoding, attention
+rescoring and the test-set streams."""
 
 from tfkaldi_tpu_torch.decode.decoder import Decoder
 

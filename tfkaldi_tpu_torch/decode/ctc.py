@@ -53,8 +53,9 @@ def collapse_ctc_path_aligned(path: np.ndarray, blank_id: int) -> tuple[np.ndarr
 
 
 class CTCDecoder:
-    """Batched CTC decoder of a model (DNN, LSTM or GRU emitting the labels
-    plus the blank) on its device, emitting text transcriptions.
+    """Batched CTC decoder of a model (DNN, LSTM, GRU or Transformer
+    emitting the labels plus the blank) on its device, emitting text
+    transcriptions.
 
     ``last_label_frames`` / ``last_label_confs`` hold, after each
     :meth:`decode_batch`, every row's emitted labels' frame index and
@@ -93,11 +94,15 @@ class CTCDecoder:
     def decode_batch(self, inputs, lengths) -> list[np.ndarray]:
         """``[B, T, F]`` padded features → list of collapsed label-id arrays."""
         lengths = np.asarray(lengths)
+        # a subsampling front-end emits ceil(n/s) frames per row: the model
+        # reads the input lengths, the search the output ones
+        out_fn = getattr(self.model, "output_lengths", None)
+        out_lengths = lengths if out_fn is None else np.asarray(out_fn(lengths))
         if self.beam_width <= 1:
             paths, conf = self.best_paths(inputs, lengths)
             out, frames, confs = [], [], []
             for i in range(paths.shape[0]):
-                ids, idx = collapse_ctc_path_aligned(paths[i, : int(lengths[i])], self.blank_id)
+                ids, idx = collapse_ctc_path_aligned(paths[i, : int(out_lengths[i])], self.blank_id)
                 out.append(ids)
                 frames.append(idx)
                 confs.append(conf[i, idx].astype(np.float64))
@@ -107,11 +112,11 @@ class CTCDecoder:
         if native_beam.available():
             beam_runs["native"] += 1
             self.last_label_frames = self.last_label_confs = None
-            return native_beam.ctc_beam_search_batch_native(log_probs, lengths, self.blank_id, self.beam_width)
+            return native_beam.ctc_beam_search_batch_native(log_probs, out_lengths, self.blank_id, self.beam_width)
         beam_runs["python"] += 1
         out, frames, confs = [], [], []
         for i in range(log_probs.shape[0]):
-            ids, fr, cf = ctc_beam_search_py(log_probs[i, : int(lengths[i])], self.blank_id, self.beam_width,
+            ids, fr, cf = ctc_beam_search_py(log_probs[i, : int(out_lengths[i])], self.blank_id, self.beam_width,
                                              return_alignment=True)
             out.append(ids)
             frames.append(fr)

@@ -1,11 +1,12 @@
 """CTC prefix beam search (Hannun et al. 2014-style) over log posteriors.
 
 A copy of :mod:`tfkaldi_tpu.decode.ctc_beam` without its LM-fusion
-``scorer`` and its n-best list (those come with ROADMAP.md queue 1, items
-14-15). The device computes the frame log-posteriors of a whole batch in
-one call (:mod:`tfkaldi_tpu_torch.decode.ctc`); the sequential prefix
-search runs on the host, where its dynamic prefix set is cheap (V≈36
-characters). The C++ copy (``csrc/ctc_beam.cpp`` via
+``scorer`` (ROADMAP.md queue 1, item 15); :func:`nbest_prefixes` is the
+first pass of attention rescoring
+(:class:`tfkaldi_tpu_torch.decode.seq2seq.CTCRescoreDecoder`). The device
+computes the frame log-posteriors of a whole batch in one call
+(:mod:`tfkaldi_tpu_torch.decode.ctc`); the sequential prefix search runs on
+the host, where its dynamic prefix set is cheap (V≈36 characters). The C++ copy (``csrc/ctc_beam.cpp`` via
 :mod:`tfkaldi_tpu_torch.decode.native_beam`) is used when it builds; this
 module is its Python twin and the fallback, and the only one that keeps the
 label-time backtrace.
@@ -118,6 +119,13 @@ def best_prefix(beams: dict[tuple, list[float]]) -> np.ndarray:
     """Highest-marginal prefix in a beam state, as int32 label ids."""
     best = max(beams.items(), key=lambda kv: _logsumexp2(kv[1][0], kv[1][1]))[0]
     return np.asarray(best, dtype=np.int32)
+
+
+def nbest_prefixes(beams: dict[tuple, list[float]], n: int) -> list[tuple[tuple, float]]:
+    """Top-``n`` prefixes of a beam state with their total (blank +
+    non-blank) log-probabilities, best first."""
+    ranked = sorted(((p, _logsumexp2(v[0], v[1])) for p, v in beams.items()), key=lambda kv: -kv[1])
+    return ranked[:n]
 
 
 def alignment_of(

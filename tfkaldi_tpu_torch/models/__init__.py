@@ -1,18 +1,28 @@
-"""Acoustic models of the port: the hybrid recipe's DNN and the recurrent
-families (LSTM, GRU) under frame cross-entropy."""
+"""Acoustic models of the port: the hybrid recipe's DNN, the recurrent
+families (LSTM, GRU), the transformer / conformer encoder and the attention
+encoder-decoder."""
 
 from tfkaldi_tpu_torch.models.dnn import DNN, DNNConfig
 from tfkaldi_tpu_torch.models.rnn import GRU, LSTM, RNNConfig
+from tfkaldi_tpu_torch.models.seq2seq import AttentionSeq2Seq, Seq2SeqConfig
+from tfkaldi_tpu_torch.models.transformer import Transformer, TransformerConfig
 
 
 def build_model(config):
     """The model a config describes: ``DNNConfig`` → :class:`DNN`,
-    ``RNNConfig`` → :class:`LSTM` or :class:`GRU` (its ``cell``)."""
+    ``RNNConfig`` → :class:`LSTM` or :class:`GRU` (its ``cell``),
+    ``TransformerConfig`` → :class:`Transformer`, ``Seq2SeqConfig`` →
+    :class:`AttentionSeq2Seq`."""
     if isinstance(config, DNNConfig):
         return DNN(config)
     if isinstance(config, RNNConfig):
         return {"lstm": LSTM, "gru": GRU}[config.cell](config)
+    if isinstance(config, TransformerConfig):
+        return Transformer(config)
+    if isinstance(config, Seq2SeqConfig):
+        return AttentionSeq2Seq(config)
     raise TypeError(f"no model for a {type(config).__name__}")
 
 
-__all__ = ["DNN", "DNNConfig", "GRU", "LSTM", "RNNConfig", "build_model"]
+__all__ = ["AttentionSeq2Seq", "DNN", "DNNConfig", "GRU", "LSTM", "RNNConfig", "Seq2SeqConfig", "Transformer",
+           "TransformerConfig", "build_model"]

@@ -17,14 +17,18 @@ samples at 16 kHz, snip_edges). :func:`recurrent_nnet` gives the
 ``[nnet]`` overrides that train the repo's BiLSTM (or a BiGRU of the same
 widths) on such a workspace under frame cross-entropy, :func:`ctc_nnet`
 the ``[nnet]`` of the character-CTC recipe as written, which trains on the
-same workspace's transcripts, and :func:`random_rnn_pytree` seeded
-LSTM/GRU weights in the JAX layout.
+same workspace's transcripts, :func:`attention_nnet` that of the joint
+CTC-attention conformer recipe (whose subsampled CTC head wants sparser
+transcripts: ``text_density = 8``, or :func:`retext_featdir` beside
+existing features), and :func:`random_rnn_pytree` seeded LSTM/GRU weights
+in the JAX layout.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import shutil
 from configparser import ConfigParser
 
 import numpy as np
@@ -38,6 +42,7 @@ RATE = 16000
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config")
 AURORA4_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4.cfg")
 AURORA4_CTC_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4_ctc.cfg")
+AURORA4_ATTENTION_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4_attention.cfg")
 # keys of the CTC recipe's [nnet] that belong to its text targets or its
 # experiment, not to the network
 _CTC_ONLY = ("name", "loss", "normalizer", "beam_width", "gmm_name")
@@ -52,14 +57,17 @@ WORDS = (
 _TEXT_CODER = TextCoder(aurora4_normalizer)
 
 
-def transcript(rng: np.random.Generator, num_frames: int) -> str:
+def transcript(rng: np.random.Generator, num_frames: int, density: int = 3) -> str:
     """A seeded transcript whose normalised form (the CTC targets) is at
-    most a third of ``num_frames`` tokens: words are drawn from
+    most ``num_frames // density`` tokens: words are drawn from
     :data:`WORDS` until the next one would take it past a length drawn
-    between a sixth and a third of the frames; ``<NOISE>`` alone
-    (normalised to ``<sos> <eos>``) where the first word drawn does not
-    fit."""
-    budget = num_frames // 3
+    between half and all of that budget; ``<NOISE>`` alone (normalised to
+    ``<sos> <eos>``) where the first word drawn does not fit. Density 3
+    suits a CTC head on every frame; a head on every fourth frame (the
+    attention recipe's ``subsample = 4``) needs 8, where even a transcript
+    of repeated labels fits (real speech has about 12-15 characters a
+    second at 100 frames a second)."""
+    budget = num_frames // density
     want = int(rng.integers(budget // 2, budget + 1))
     words: list[str] = []
     while True:
@@ -79,11 +87,12 @@ def make_wav_datadir(
     max_seconds: float,
     seed: int,
     prefix: str = "",
+    text_density: int = 3,
 ) -> list[str]:
     """Write a Kaldi data dir of noise-like int16 wavs and their seeded
-    transcripts (:func:`transcript`, from a stream of their own, so the
-    wavs are those of ``seed`` alone); returns the utt ids in wav.scp
-    order."""
+    transcripts (:func:`transcript` at ``text_density``, from a stream of
+    their own, so the wavs are those of ``seed`` alone); returns the utt
+    ids in wav.scp order."""
     rng = np.random.default_rng(seed)
     text_rng = np.random.default_rng([seed, 1])
     wavdir = os.path.join(datadir, "wavs")
@@ -98,7 +107,7 @@ def make_wav_datadir(
             sig = np.clip(sig, -32768, 32767).astype(np.int16)
             scipy.io.wavfile.write(os.path.join(wavdir, f"{utt}.wav"), RATE, sig)
             utts.append(utt)
-            texts.append(transcript(text_rng, num_frames(n)))
+            texts.append(transcript(text_rng, num_frames(n), text_density))
     with open(os.path.join(datadir, "wav.scp"), "w") as f:
         for utt in utts:
             f.write(f"{utt} {os.path.join(wavdir, utt + '.wav')}\n")
@@ -200,6 +209,36 @@ def ctc_nnet() -> dict:
     if not config.read(AURORA4_CTC_CONFIG):
         raise FileNotFoundError(AURORA4_CTC_CONFIG)
     return dict(config.items("nnet"))
+
+
+def attention_nnet() -> dict:
+    """The ``[nnet]`` of ``config_AURORA4_attention.cfg`` exactly as
+    written: joint CTC-attention (``loss = attention``, ``ctc_weight 0.3``,
+    ``label_smoothing 0.1``) on a 12 x 256 conformer-s4 encoder (4 heads,
+    ffn 1024, kernel 15) and a 4-block decoder, bf16, batch 128, dropout
+    0.9, ``average_last 5``, rescoring decode with beam 10. It sets every key
+    of ``config_AURORA4.cfg``'s ``[nnet]``, so laid over a workspace's
+    config it gives that recipe's network and training."""
+    config = ConfigParser()
+    if not config.read(AURORA4_ATTENTION_CONFIG):
+        raise FileNotFoundError(AURORA4_ATTENTION_CONFIG)
+    return dict(config.items("nnet"))
+
+
+def retext_featdir(src: str, dst: str, *, seed: int, density: int) -> None:
+    """A featdir at ``dst`` that shares ``src``'s features (its ``feats.scp``
+    and ``cmvn.scp`` point at the same arks) with a ``text`` of its own:
+    one :func:`transcript` at ``density`` per utterance, from the frame
+    counts of the features, drawn from a stream seeded by ``seed``."""
+    from tfkaldi_tpu_torch.io import ArkReader
+
+    os.makedirs(dst, exist_ok=True)
+    for name in ("feats.scp", "cmvn.scp", "utt2spk", "spk2utt", "maxlength"):
+        shutil.copyfile(os.path.join(src, name), os.path.join(dst, name))
+    rng = np.random.default_rng([seed, 1])
+    with ArkReader(os.path.join(src, "feats.scp")) as reader, open(os.path.join(dst, "text"), "w") as f:
+        for utt, feats in reader:
+            f.write(f"{utt} {transcript(rng, feats.shape[0], density)}\n")
 
 
 def random_rnn_pytree(
@@ -323,14 +362,16 @@ def make_train_workspace(
     max_seconds: float,
     nnet: dict | None = None,
     num_speakers: int = 4,
+    text_density: int = 3,
 ) -> dict:
     """The training workspace: a config derived from ``config_AURORA4.cfg``
     (``[nnet]`` widths and ``nnet`` overrides applied), train and test data
     dirs of ``num_train`` / ``num_test`` wavs of ``min_seconds`` to
-    ``max_seconds`` over ``num_speakers`` speakers each (seeds 20 and 21),
-    and the pdf alignment of the train set (seed 22). Returns the config's
-    path and parsed form, the two featdirs the feature steps will write, the
-    model dir, the splice context and the alignments."""
+    ``max_seconds`` over ``num_speakers`` speakers each (seeds 20 and 21;
+    transcripts at ``text_density``), and the pdf alignment of the train
+    set (seed 22). Returns the config's path and parsed form, the two
+    featdirs the feature steps will write, the model dir, the splice
+    context and the alignments."""
     over = {"num_hidden_units": hidden_units, "num_hidden_layers": hidden_layers, **(nnet or {})}
     cfg_path = write_config(root, num_pdfs=num_pdfs, nnet=over)
     config = ConfigParser()
@@ -339,7 +380,7 @@ def make_train_workspace(
         make_wav_datadir(
             config.get("directories", f"{kind}_data"), num_speakers=num_speakers,
             utts_per_speaker=-(-count // num_speakers), min_seconds=min_seconds,
-            max_seconds=max_seconds, seed=seed,
+            max_seconds=max_seconds, seed=seed, text_density=text_density,
         )
     ali_path = os.path.join(
         config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali", "pdf.all.gz"

@@ -1,14 +1,19 @@
 """Training steps with the reference's exact optimizer semantics.
 
 Port of :mod:`tfkaldi_tpu.train.trainer` for the hybrid recipe's
-cross-entropy loss and the character recipe's CTC loss (the transducer and
-attention losses and SpecAugment are not ported;
+cross-entropy loss, the character recipe's CTC loss and the attention
+recipe's joint loss (the transducer loss and SpecAugment are not ported;
 :class:`tfkaldi_tpu_torch.nnet.Nnet` rejects them):
 
-- frame-summed cross-entropy over real frames only (trainer.py:264-275),
-  or the summed per-utterance CTC loss over ``logits.float()``
+- frame-summed cross-entropy over real frames only (trainer.py:264-275;
+  1:1 frames, so no subsampling front-end), or the summed per-utterance
+  CTC loss over ``logits.float()`` and the model's ``output_lengths``
   (:mod:`tfkaldi_tpu_torch.train.ctc`, trainer.py:276-295), divided by the
   real *input* frames (trainer.py:301-304);
+- the attention loss (trainer.py:186-255): label-smoothed cross-entropy of
+  the teacher-forced decoder over ``U+1`` positions with EOS at each row's
+  length, ``(1-w)·attention + w·CTC`` with the CTC head's loss (blank =
+  SOS/EOS) when ``ctc_weight = w > 0``, divided by the real input frames;
 - gradients accumulated over microbatches in a Python loop that threads
   the batchnorm moving stats through (trainer.py:311-359), then divided by
   the batch's total frame count and clipped to ±1, in that order;
@@ -48,7 +53,7 @@ class TrainerConfig:
     init_learning_rate: float = 1e-3
     learning_rate_decay: float = 1.0
     num_steps: int = 1000
-    loss_type: str = "cross_entropy"  # cross_entropy | ctc
+    loss_type: str = "cross_entropy"  # cross_entropy | ctc | attention
     micro_batches: int = 1  # grad-accumulation factor (1 = whole batch at once)
     ctc_blank_id: int = 0  # blank class for CTC (model emits num_labels+1 classes)
 
@@ -62,7 +67,7 @@ class TrainState:
 
     step: int
     lr_fact: float
-    model: torch.nn.Module  # DNN, LSTM or GRU
+    model: torch.nn.Module  # DNN, LSTM, GRU, Transformer or AttentionSeq2Seq
     adam_m: dict[str, torch.Tensor]
     adam_v: dict[str, torch.Tensor]
     adam_t: int
@@ -77,10 +82,11 @@ class Trainer:
     :func:`~tfkaldi_tpu_torch.device.resolve_device` (``cuda`` unless the
     caller names the CPU), for the model its config describes
     (:func:`~tfkaldi_tpu_torch.models.build_model`: ``DNNConfig`` → DNN,
-    ``RNNConfig`` → LSTM or GRU)."""
+    ``RNNConfig`` → LSTM or GRU, ``TransformerConfig`` → Transformer,
+    ``Seq2SeqConfig`` → AttentionSeq2Seq)."""
 
     def __init__(self, model_config, config: TrainerConfig, device: str | torch.device = "cuda"):
-        if config.loss_type not in ("cross_entropy", "ctc"):
+        if config.loss_type not in ("cross_entropy", "ctc", "attention"):
             raise ValueError(f"unknown loss {config.loss_type!r}")
         self.model_config = model_config
         self.config = config
@@ -123,14 +129,23 @@ class Trainer:
     def loss_sum(model: torch.nn.Module, batch: PaddedBatch, *, train: bool, generator=None,
                  loss_type: str = "cross_entropy", blank_id: int = 0):
         """The summed loss over real frames and its frame divisor (f32):
-        frame CE over ``target_lengths`` frames, or the CTC loss of every
-        utterance over ``input_lengths`` frames (trainer.py:264-304)."""
-        if loss_type == "ctc":
-            # the loss's route plan reads the labels on the host: copied before
-            # the forward is queued, they wait only on what is already queued
-            # (the batch's own copy; with micro-batches, the previous one's
-            # backward), not on this forward
+        frame CE over ``target_lengths`` frames, the CTC loss of every
+        utterance over its ``output_lengths`` frames, or the attention
+        model's joint loss (trainer.py:186-304)."""
+        if loss_type == "cross_entropy" and getattr(model, "subsample_factor", 1) != 1:
+            raise ValueError("frame-level CE needs 1:1 frame alignment; subsample > 1 is a CTC-only front-end "
+                             "(loss = ctc)")
+        if loss_type in ("ctc", "attention"):
+            # the CTC loss's route plan reads the labels on the host: copied
+            # before the forward is queued, they wait only on what is already
+            # queued (the batch's own copy; with micro-batches, the previous
+            # one's backward), not on this forward
             labels = [ctc.host(a) for a in (batch.input_lengths, batch.targets, batch.target_lengths)]
+            out_fn = getattr(model, "output_lengths", None)
+            if out_fn is not None:  # a subsampling front-end emits ceil(T/s) frames
+                labels[0] = out_fn(labels[0])
+        if loss_type == "attention":
+            return Trainer._attention_loss_sum(model, batch, labels, train, generator)
         logits = model(batch.inputs, batch.input_lengths, train=train, generator=generator)
         if loss_type == "ctc":
             per_seq = ctc.ctc_loss(logits, *labels, blank_id)
@@ -147,6 +162,39 @@ class Trainer:
         mask = frames < batch.target_lengths.to(logits.device)[:, None]
         loss = torch.sum(ce * mask)
         return loss, batch.target_lengths.sum().float()
+
+    @staticmethod
+    def _attention_loss_sum(model, batch: PaddedBatch, labels, train: bool, generator):
+        """The attention model's summed loss (trainer.py:186-255): teacher-
+        forced CE over positions ``0..U`` (EOS = ``sos_eos_id`` at each row's
+        length), smoothed as ``(1-ε)·nll + ε·(−mean_V log p)``; with
+        ``ctc_weight = w > 0``, ``(1-w)·that + w·`` the CTC head's loss
+        (blank = ``sos_eos_id``) over ``labels`` = host ``(output_lengths,
+        targets, target_lengths)``. The divisor is the real input frames."""
+        cfg = model.config
+        w = cfg.ctc_weight
+        args = (batch.inputs, batch.input_lengths, batch.targets, batch.target_lengths)
+        if w > 0.0:
+            logits, ctc_logits = model.apply_joint(*args, train=train, generator=generator)
+            ctc_sum = torch.sum(ctc.ctc_loss(ctc_logits, *labels, model.sos_eos_id))
+        else:
+            logits = model.apply_seq2seq(*args, train=train, generator=generator)
+        b, u1, _ = logits.shape
+        device = logits.device
+        pos = torch.arange(u1, device=device)[None, :]
+        lengths = batch.target_lengths.to(device)[:, None]
+        targets = torch.cat([batch.targets.to(device), torch.zeros(b, 1, dtype=batch.targets.dtype,
+                                                                    device=device)], dim=1).long()
+        targets = torch.where(pos == lengths, model.sos_eos_id, targets)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, 2, targets[:, :, None])[..., 0]
+        eps = cfg.label_smoothing
+        if eps > 0.0:
+            nll = (1.0 - eps) * nll + eps * (-logp.mean(dim=-1))
+        loss = torch.sum(nll * (pos <= lengths))
+        if w > 0.0:
+            loss = (1.0 - w) * loss + w * ctc_sum
+        return loss, batch.input_lengths.sum().float()
 
     def _loss_sum(self, model, batch: PaddedBatch, *, train: bool, generator=None):
         return self.loss_sum(model, batch, train=train, generator=generator,
