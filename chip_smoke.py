@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, the served
 path, the training path in f32 and in bf16, the BiLSTM and BiGRU paths,
-the character-CTC recipe, then the joint CTC-attention conformer recipe.
+the character-CTC recipe, the joint CTC-attention conformer recipe, then
+the conformer-transducer recipe.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,9 @@ the character-CTC recipe, then the joint CTC-attention conformer recipe.
    cuDNN's packed bidirectional LSTM/GRU (see ``check_rnn_kernels`` for
    the library yardstick); the forward's and the backward's routes
    (persistent, one launch per call), grids and time a step, and the
-   backward's step route on the same inputs.
+   backward's step route on the same inputs; kernels 4 and 5 again at the
+   transducer's prediction network, one direction, T 129, B 128, H 320,
+   beside cuDNN's unidirectional LSTM (``check_predictor_kernels``).
 4. Drives the served path at full width (440 -> 6x2048 -> 2000, batchnorm)
    on a seeded synthetic workspace (32 + 32 wavs of 1-8 s, 4 speakers):
    ``cli.main --steps dnn_train_features,dnn_test_features``, then
@@ -98,8 +101,25 @@ the character-CTC recipe, then the joint CTC-attention conformer recipe.
    CPU by the bf16 rule, the transcripts where the score margins allow;
    the rescoring decode timed by pass; one step timed by parts beside the
    model FLOPs (``attention_path``, ``check_attention``).
-10. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
-   count the BiLSTM and the CTC paths), then the final JSON line.
+10. Drives the conformer-transducer recipe at full width on the attention
+   phase's featdirs: ``cli.main --steps train_nnet,test_nnet`` with the
+   ``[nnet]`` of config_AURORA4_transducer.cfg as written (12 x 256
+   conformer-s4, 1 x 320 LSTM predictor, joint 320, the banded loss at S
+   16, bf16, batch 128, dropout 0.9, average_last 5, beam 8) and the same
+   three keys lowered. Counts reset before, read after, against the
+   schedule printed before the run: the banded loss on every train and
+   validation batch (22) and the dense route never; kernel 4 once per
+   loss call (22) and kernel 5 once per train step (6), both persistent;
+   the other counters 0; the decode covers the test set, CER and WER
+   printed. Then a full-width band against the dense loss and the S 16
+   band at or above it on every row, the card against the CPU on
+   ``final.pt`` (encoder, band scores, per-row loss by the bf16 rule; the
+   greedy and beam transcripts where the margins decide), greedy and
+   beam-8 decode timed by encoder and search, and one step timed by parts
+   beside the model FLOPs (``transducer_path``, ``check_transducer``).
+11. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
+   count the BiLSTM, the CTC and the transducer paths), then the final
+   JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
 """
@@ -159,6 +179,15 @@ CTC_LOSS_TOL = 1e-5
 # every row is feasible for the CTC head on every fourth frame
 ATT_CLASSES = 36
 ATT_TEXT_DENSITY = 8
+# the conformer-transducer recipe (config_AURORA4_transducer.cfg as written, the same three keys
+# lowered) on the attention phase's featdirs: 35 characters + the blank; its prediction network's
+# recurrent layer, kernels 4 and 5 with one direction: T = U_pad + 1, B, H, and the 128-wide label
+# embedding it reads; a full-width band against the dense loss, and the banded NLL's shortfall
+# below the dense one, per row (relative, f32 compute)
+RNNT_CLASSES = 36
+PRED_SHAPE = (129, 128, 320)
+PRED_WIDTH = 128
+RNNT_TOL = 1e-5
 
 
 def bf16_close(mine: float, theirs: float) -> bool:
@@ -462,9 +491,9 @@ def _rnn_cell(cell: str):
     return lstm_bidi.CELL if cell == "lstm" else gru_bidi.CELL
 
 
-def cudnn_rnn(cell: str, width: int, h: int, cd, *, flat: bool = True):
-    """cuDNN's bidirectional LSTM/GRU (``width`` inputs, ``h`` units) in the
-    compute dtype ``cd``, its weights compacted once into cuDNN's flat
+def cudnn_rnn(cell: str, width: int, h: int, cd, *, flat: bool = True, dirs: int = 2):
+    """cuDNN's bidirectional (``dirs = 2``) or unidirectional LSTM/GRU
+    (``width`` inputs, ``h`` units) in the compute dtype ``cd``, its weights compacted once into cuDNN's flat
     buffer. ``flatten_parameters`` skips bf16, which is not in
     ``torch.backends.cudnn.CUDNN_TENSOR_DTYPES`` though cuDNN runs it, and
     a module so left re-compacts its weights on every call (RNN.cpp's
@@ -474,7 +503,7 @@ def cudnn_rnn(cell: str, width: int, h: int, cd, *, flat: bool = True):
     import torch
     from torch.backends.cudnn import rnn as cudnn
 
-    lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(width, h, bidirectional=True).to("cuda", cd)
+    lib = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(width, h, bidirectional=dirs == 2).to("cuda", cd)
     if flat:
         with torch.no_grad():
             torch._cudnn_rnn_flatten_weight(lib._flat_weights, 4, lib.input_size, cudnn.get_cudnn_mode(lib.mode),
@@ -535,11 +564,13 @@ def _rel(got: dict, ref: dict) -> dict:
             for name in ref if not name.startswith("_")}
 
 
-def check_rnn_kernels(card: str, cell: str) -> dict:
+def check_rnn_kernels(card: str, cell: str, shape=RNN_SHAPE, dirs: int = 2, width: int | None = None) -> dict:
     """Kernels 4 and 5 (LSTM) or 6 and 7 (GRU) against their plain versions
-    on the card at one BiLSTM/BiGRU layer of the recipe (T 512, B 128,
-    H 512), with ragged lengths of 200-512 frames and garbage (7.7) in the
-    padding of gx; every output: ys, each residual, dgx (and dgh), dW_h.
+    on the card at one BiLSTM/BiGRU layer of the recipe (``shape`` T 512,
+    B 128, H 512, ``dirs`` 2; or another layer, such as the transducer's
+    one-direction prediction network, [129, 128, 320] with 1), with ragged
+    lengths of 2/5 T to T frames and garbage (7.7) in the padding of gx;
+    every output: ys, each residual, dgx (and dgh), dW_h.
 
     - f32: the kernels and the plain versions differ only in the summation
       order of the recurrent products, so every output within RNN_F32_TOL
@@ -563,9 +594,10 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
 
     Times (CUDA events; the kernels and the library call by ``ms_median``,
     the plain versions over 2 calls): the kernels, the plain versions, and
-    the library call, cuDNN's bidirectional LSTM/GRU on a packed batch of
-    the same lengths, whose forward includes its own input projection
-    (input 1024 wide, the second layer's) and whose backward (one
+    the library call, cuDNN's LSTM/GRU of the same directions on a packed
+    batch of the same lengths, whose forward includes its own input
+    projection (input ``width`` wide, by default 2H, the second layer's)
+    and whose backward (one
     ``torch.autograd.grad`` call) its input and weight gradients. The
     forward and the backward must take the persistent route (one launch
     per call); each route, grid and shared memory is printed with its time
@@ -579,16 +611,17 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
 
     c = _rnn_cell(cell)
     gates = c.gates
-    t, b, h = RNN_SHAPE
+    t, b, h = shape
+    width = width or 2 * h
     gen = torch.Generator().manual_seed(5 if cell == "lstm" else 6)
     lengths = torch.randint(t * 2 // 5, t + 1, (b,), generator=gen)  # 204-512 frames at T 512
     lengths[0] = t
     mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[:, :, None].cuda()
-    gxs = [torch.randn(t, b, gates * h, generator=gen).cuda() for _ in range(2)]
+    gxs = [torch.randn(t, b, gates * h, generator=gen).cuda() for _ in range(dirs)]
     for gx in gxs:
         gx[mask[:, :, 0] == 0] = 7.7  # garbage in the padding must not leak
-    whs = [(torch.randn(h, gates * h, generator=gen) / h ** 0.5).cuda() for _ in range(2)]
-    dys = [torch.randn(t, b, h, generator=gen).cuda() for _ in range(2)]
+    whs = [(torch.randn(h, gates * h, generator=gen) / h ** 0.5).cuda() for _ in range(dirs)]
+    dys = [torch.randn(t, b, h, generator=gen).cuda() for _ in range(dirs)]
     frames = int(lengths.sum())
     ref32 = _rnn_chain(cell, gxs, whs, mask, dys, torch.float32, kernel=False)
     whs_rounded = [w.bfloat16().float() for w in whs]  # bf16 values, f32 compute
@@ -639,7 +672,7 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
         # times at the recipe's shapes, residuals on (the training forward)
         whs_cd = [w.to(cd) for w in whs]
         res = got["_residuals"]
-        plan, bplan = fwd_plan(b, h, gates, cd, 2), bwd_plan(b, h, gates, cd, 2)
+        plan, bplan = fwd_plan(b, h, gates, cd, dirs), bwd_plan(b, h, gates, cd, dirs)
         if (plan.route, bplan.route) != ("persistent", "persistent"):
             raise AssertionError(f"{cell} {name}: the recipe's shape takes the {plan.route} forward and the "
                                  f"{bplan.route} backward")
@@ -657,22 +690,23 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
         bwd_steps_ms = ms_median(lambda: c.bwd(dys, res, mask, whs_cd, plan=STEP_BWD))
         plain_fwd_ms = ms_per_call(lambda: c.fwd_ref(gxs, whs_cd, mask, residuals=True), iters=2)
         plain_bwd_ms = ms_per_call(lambda: c.bwd_ref(dys, res, mask, whs_cd), iters=2)
-        x = torch.randn(t, b, 2 * h, device="cuda", dtype=cd, requires_grad=True)
-        lib_fwd_ms, lib_bwd_ms, compacts = cudnn_times(cudnn_rnn(cell, 2 * h, h, cd), x, lengths)
+        x = torch.randn(t, b, width, device="cuda", dtype=cd, requires_grad=True)
+        lib_fwd_ms, lib_bwd_ms, compacts = cudnn_times(cudnn_rnn(cell, width, h, cd, dirs=dirs), x, lengths)
         if compacts:
             raise AssertionError(f"cuDNN {cell} {name}: the flattened module still re-compacts its weights")
         # the yardstick as it was: bf16 weights left where the module made them
-        loose = cudnn_times(cudnn_rnn(cell, 2 * h, h, cd, flat=False), x, lengths) if cd == torch.bfloat16 else None
+        loose = (cudnn_times(cudnn_rnn(cell, width, h, cd, flat=False, dirs=dirs), x, lengths)
+                 if cd == torch.bfloat16 and dirs == 2 else None)
         peak = PEAK_F32 if cd == torch.float32 else PEAK_BF16
         # the work these lengths need: the recurrent product and the gate math
-        # of the real frames of both directions; the forward writes every
+        # of the real frames of every direction; the forward writes every
         # residual, the backward reads all but h_cd (res[2], which only the
         # weight gradient outside the kernel reads)
-        mm_flops = 2 * 2 * frames * h * gates * h
-        fwd_b = bound(mm_flops + 2 * frames * 12 * h,
+        mm_flops = dirs * 2 * frames * h * gates * h
+        fwd_b = bound(mm_flops + dirs * frames * 12 * h,
                       nbytes(*gxs, *whs_cd, mask[:, :, 0], *got["ys"], *(x_ for r in res for x_ in r)), peak)
         bwd_read = [x_ for r in res for i, x_ in enumerate(r) if i != 2]
-        bwd_b = bound(mm_flops + 2 * frames * 20 * h,
+        bwd_b = bound(mm_flops + dirs * frames * 20 * h,
                       nbytes(*dys, *bwd_read, *whs_cd, mask[:, :, 0], *got["dgx"], *got.get("dgh", [])), peak)
         log(f"{cell} kernels [{t},{b},{h}] {name} ({frames} real frames): forward {fwd_ms!r} ms "
             f"(eval, no residuals, {eval_ms!r}), plain {plain_fwd_ms!r} ms, cuDNN {lib_fwd_ms!r} ms, bound "
@@ -707,17 +741,18 @@ def check_rnn_kernels(card: str, cell: str) -> dict:
 
 def reset_counts() -> None:
     """Every kernel's launch counts to 0 (per route too), and the CTC loss's
-    routes, the beam searches' runs and the rescoring counts, just before a
-    path is driven."""
+    routes, the beam searches' runs, the rescoring counts and the RNN-T
+    loss's routes, just before a path is driven."""
     from tfkaldi_tpu_torch.decode import ctc as ctc_decode
     from tfkaldi_tpu_torch.decode import seq2seq as seq2seq_decode
     from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
     from tfkaldi_tpu_torch.train import ctc
+    from tfkaldi_tpu_torch.train import trainer as trainer_mod
 
     fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
     for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route, fp.launches_by_route,
-                   ctc.launches_by_route, ctc_decode.beam_runs, seq2seq_decode.rescored):
+                   ctc.launches_by_route, ctc_decode.beam_runs, seq2seq_decode.rescored, trainer_mod.rnnt_routes):
         for route in counts:
             counts[route] = 0
     for c in (lstm_bidi.CELL, gru_bidi.CELL):
@@ -2034,6 +2069,467 @@ def check_attention(card: str, cfg_path: str, savedir: str, dirs: dict) -> dict:
     return timings
 
 
+def transducer_flops(ecfg, cfg, b: int, t_pad: int, u1: int, s_range: int, num_classes: int) -> float:
+    """Model FLOPs of one training step of the transducer recipe on a padded
+    batch ``[b, t_pad]`` with ``u1 = U_pad + 1`` label positions and the
+    banded loss of width ``s_range``, reckoned from the code (a multiply-add
+    is 2): the forward's products, times 3 for forward and backward (the
+    checkpointed joint's recomputation not counted). Encoder rows ``n =
+    b·T'``: the input projection, per conformer block two FFNs, the q/k/v/o
+    projections, scores and context over all ``T'`` keys (the band is a
+    mask), the conv module's two pointwise products and its depthwise taps,
+    the output projection to the joint width. Predictor rows ``m = b·u1``:
+    the input projection, the recurrent product and the output projection.
+    The band: the joint's product on ``n·S`` rows and the label columns'
+    dot products."""
+    d, f, k, j = ecfg.d_model, ecfg.ffn_dim, ecfg.conv_kernel, cfg.joint_units
+    t_out = -(-t_pad // ecfg.subsample)
+    n, m, h = b * t_out, b * u1, cfg.pred_units
+    enc = 2 * n * ecfg.input_dim * ecfg.subsample * d + 2 * n * d * j
+    enc += ecfg.num_blocks * (8 * n * d * f + 8 * n * d * d + 4 * b * t_out * t_out * d
+                              + 6 * n * d * d + 2 * n * k * d)
+    pred = 2 * m * cfg.embed_dim * 4 * h + 2 * m * h * 4 * h + 2 * m * h * j
+    band = 2 * n * s_range * j * num_classes + 2 * n * s_range * j
+    return 3.0 * (enc + pred + band)
+
+
+def check_predictor_kernels(card: str) -> dict:
+    """Kernels 4 and 5 at the transducer's prediction network (PRED_SHAPE:
+    T = U_pad + 1 = 129, B 128, H 320, one direction; cuDNN's
+    unidirectional LSTM on the 128-wide label embeddings as the library
+    call), by the rules and the timing of ``check_rnn_kernels``. Returns
+    the bf16 rows (the recipe's compute dtype)."""
+    return check_rnn_kernels(card, "lstm", shape=PRED_SHAPE, dirs=1, width=PRED_WIDTH)
+
+
+@contextlib.contextmanager
+def counting_validations():
+    """Count the controller's validation passes (its ``validation loss at
+    step`` log lines) while a path runs; yields the list of their steps."""
+    import logging
+
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda r: seen.append(r.args[0]) if r.getMessage().startswith("validation loss at step") else None
+    logger = logging.getLogger("tfkaldi_tpu_torch.train.controller")
+    logger.addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(handler)
+
+
+def transducer_path(card: str, ws: dict, dirs: dict) -> tuple[dict, str, str]:
+    """The conformer-transducer recipe at full width through the CLI:
+    ``config_AURORA4_transducer.cfg``'s ``[nnet]`` exactly as written
+    (``synthetic.transducer_nnet``: 12 x 256 conformer-s4 with causal conv
+    and attention context 64/0, a 1 x 320 LSTM predictor over 128-wide
+    embeddings, joint 320, ``rnnt_prune_s 16`` diagonal, bf16, batch 128,
+    dropout 0.9, average_last 5, beam 8 with 4 labels a frame) with only
+    num_epochs, valid_frequency and check_freq lowered, on the attention
+    phase's featdirs (transcripts of at most T/8 labels); ``cli.main --steps
+    train_nnet,test_nnet`` (the beam-8 decode). Counts reset before, read
+    after, against the controller's schedule written down before the run:
+    6 train steps and validations at steps 0, 2, 4 and 6 over 4 batches, so
+    the banded loss on 6 + 16 = 22 batches and the dense route never;
+    kernel 4 once per loss call on the persistent route (the predictor's
+    forward: 22), kernel 5 once per train step (6), no step-route launch,
+    the other five counters 0. A rollback adds its replays and
+    validations; the relations are asserted either way. The decode's
+    ``text`` has one line per test utterance; CER and WER are printed.
+    Returns the launches, the config's path and the model dir."""
+    from configparser import ConfigParser
+
+    import torch
+
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.cli import main as cli_main
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+    from tfkaldi_tpu_torch.train import trainer as trainer_mod
+    from tfkaldi_tpu_torch.utils.wer import char_tokens_to_words, score_text_files
+
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    for kind in ("train", "test"):
+        config.set("directories", f"{kind}_features", os.path.dirname(dirs[kind]))
+    nnet = {**synthetic.transducer_nnet(), **RNN_TRAIN_NNET}
+    for key, value in nnet.items():
+        config.set("nnet", key, str(value))
+    cfg_path = os.path.join(TRAIN_WORK, "config_transducer.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), nnet["name"])
+    valid_batches, every = int(nnet["valid_batches"]), int(nnet["valid_frequency"])
+    plan_steps = TRAIN_UTTS // int(nnet["batch_size"]) * int(nnet["num_epochs"])
+    plan_valid = 1 + plan_steps // every
+    plan = {"lstm_fwd": plan_steps + plan_valid * valid_batches, "lstm_bwd": plan_steps}
+    log(f"transducer path schedule, before the run: {plan_steps} train steps, {plan_valid} validations of "
+        f"{valid_batches} batches: the banded loss on {plan['lstm_fwd']} batches, kernel 4 {plan['lstm_fwd']} "
+        f"persistent launches, kernel 5 {plan['lstm_bwd']}")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting_validations() as validations:
+        rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main transducer path: rc {rc}")
+    c = lstm_bidi.CELL
+    routes = {"persistent": c.fwd_persistent_launches, "step": c.fwd_launches}
+    bwd_routes = {"persistent": c.bwd_persistent_launches, "step": c.bwd_launches}
+    launches = {"lstm_fwd": sum(routes.values()), "lstm_bwd": sum(bwd_routes.values())}
+    other = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    other.update({f"gru_{k}": getattr(gru_bidi.CELL, f"{k}_launches")
+                  for k in ("fwd_persistent", "fwd", "bwd_persistent", "bwd")})
+    loss_routes = dict(trainer_mod.rnnt_routes)
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    n, v = len(steps), len(validations)
+    log(f"transducer path launches: kernel 4 by route {routes}, kernel 5 by route {bwd_routes} (other kernels "
+        f"{other}); RNN-T loss calls by route {loss_routes}; {n} train steps at T_pad "
+        f"{[st['padded_length'] for st in steps]}, validations at steps {validations} (replays after a rollback "
+        f"included); whole run {run_s!r} s")
+    want = {"banded": n + v * valid_batches, "dense": 0}
+    if loss_routes != want:
+        raise AssertionError(f"RNN-T loss routes {loss_routes}: want the banded route on every batch ({want})")
+    if routes != {"persistent": want["banded"], "step": 0} or bwd_routes != {"persistent": n, "step": 0}:
+        raise AssertionError(f"kernel 4 {routes} / kernel 5 {bwd_routes} on the transducer path: want persistent "
+                             f"{want['banded']} / {n}, step 0")
+    if (n, v) == (plan_steps, plan_valid) and launches != plan:
+        raise AssertionError(f"the transducer path's launches {launches} are not the schedule's {plan}")
+    if any(other.values()):
+        raise AssertionError(f"the transducer path launched another path's kernels: {other}")
+    losses = [st["loss"] for st in steps]
+    if not all(math.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"transducer losses {losses}")
+    warm = steps[1:]
+    step_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
+    log(f"transducer path losses {[round(x, 6) for x in losses]}; CLI train step (median of {len(warm)} after the "
+        f"first, host clock, data wait included): {step_s!r} s [{card}]")
+
+    with open(os.path.join(dirs["test"], "text")) as f:
+        test_utts = [line.split()[0] for line in f if line.strip()]
+    decode_dir = os.path.join(savedir, "decode")
+    with open(os.path.join(decode_dir, "text")) as f:
+        decoded = [line.split() for line in f]
+    if [d[0] for d in decoded] != test_utts:
+        raise AssertionError(f"the transducer decode text holds {len(decoded)} lines, not one per test utterance "
+                             f"({len(test_utts)})")
+    norm, out = os.path.join(decode_dir, "text.ref_normalized"), os.path.join(decode_dir, "text")
+    log(f"transducer path beam-{nnet['beam_width']} decode of {len(decoded)} test utterances "
+        f"({sum(len(d) - 1 for d in decoded)} tokens): CER {score_text_files(norm, out)}; WER "
+        f"{score_text_files(norm, out, transform=char_tokens_to_words)} (noise data after {n} steps: printed, not "
+        f"gated)")
+    return launches, cfg_path, savedir
+
+
+def check_transducer(card: str, cfg_path: str, savedir: str, dirs: dict, ctc_greedy_fps: float) -> dict:
+    """The transducer path's independent checks and times:
+
+    - on the first training batch (past the validation carve) with the
+      step-0 parameters (the CLI's seeded init), on the card in f32 compute:
+      a full-width band (S = U_pad + 1) gives the dense fused loss, each row
+      within RNNT_TOL relative; the recipe's S = 16 banded NLL is at least
+      the dense NLL on every row (a band holds a subset of the paths; less
+      RNNT_TOL relative); the bf16 values are printed beside them;
+    - the first 16 test utterances through ``final.pt``: the encoder output,
+      the banded scores and the per-row banded loss on the card (bf16)
+      against the CPU port in bf16 and in f32 compute, by the bf16 rule
+      (``bf16_close`` / ``bf16_rounds`` against the f32-compute run); the
+      greedy and the beam-8 transcripts of the card against the CPU bf16
+      run's, identical on every utterance the margins decide (greedy: the
+      smallest top-two logit gap of the CPU search, over the steps that
+      decide an emission, above 4x the largest joint-logit difference of
+      the two runs at the start token; beam: the
+      same n-best, and a top-two score gap above twice the runs' largest
+      score difference);
+    - greedy (``beam_width = 1``) and beam-8 decode of the test set from
+      ``final.pt``, timed (host clock, features read before), split into
+      the encoder and the search, beside the CTC recipe's greedy rate on the
+      same frames;
+    - one training step on the first training batch from the step-2
+      checkpoint, by parts (CUDA events, median of 3 after 3 warm-ups):
+      encoder forward, predictor forward (kernel 4), joint and band scores
+      (the scores' forward less the two forwards in it), the banded alpha
+      scan forward, the backward (the gradient pass less those) and
+      TF-Adam; beside the model FLOPs of the step and their f32 bound.
+
+    Returns the timings."""
+    import dataclasses
+    import statistics
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.convert import load_checkpoint
+    from tfkaldi_tpu_torch.data.batching import DeviceBatcher
+    from tfkaldi_tpu_torch.data.dispenser import TextBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode.streaming import stream_padded_batches
+    from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
+    from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
+    from tfkaldi_tpu_torch.models import Transducer, TransducerConfig
+    from tfkaldi_tpu_torch.ops import rnnt_loss
+    from tfkaldi_tpu_torch.train import checkpoint as ckpt
+    from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    config = ConfigParser()
+    config.read(cfg_path)
+    conf = dict(config.items("nnet"))
+    coder = TextCoder(aurora4_normalizer)
+    cfg = TransducerConfig.from_config(conf, 40, coder.num_labels)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    final = load_checkpoint(savedir)
+    beam, max_symbols = int(conf["beam_width"]), int(conf["max_symbols_per_frame"])
+
+    def model_on(c, device, sd=final):
+        m = Transducer(c)
+        m.load_state_dict(sd)
+        return m.to(device).eval()
+
+    def text_batch(featdir, size, skip):
+        with open(os.path.join(featdir, "maxlength")) as f:
+            max_length = int(f.read())
+        scp = "feats_shuffled.scp" if os.path.isfile(os.path.join(featdir, "feats_shuffled.scp")) else "feats.scp"
+        reader = FeatureReader(os.path.join(featdir, scp), os.path.join(featdir, "cmvn.scp"),
+                               os.path.join(featdir, "utt2spk"), 0, max_length)
+        dispenser = TextBatchDispenser(reader, coder, size, os.path.join(featdir, "text"))
+        for _ in range(skip):
+            dispenser.skip_batch()
+        batch = dispenser.get_padded_batch(DeviceBatcher())
+        reader.close()
+        return batch
+
+    def band_losses(model, batch):
+        """Per-row banded loss and its scores and starts, eval mode, on the CPU."""
+        args = (batch.inputs, batch.input_lengths, batch.targets, batch.target_lengths)
+        with torch.no_grad():
+            lpb, lpl, starts = model.lattice_scores_pruned(*args)
+            loss = rnnt_loss.rnnt_alpha_loss_banded(lpb, lpl, starts, model.output_lengths(batch.input_lengths),
+                                                    batch.target_lengths)
+        return loss.float().cpu(), lpb.float().cpu(), lpl.float().cpu(), starts.cpu()
+
+    def dense_losses(model, batch):
+        args = (batch.inputs, batch.input_lengths, batch.targets, batch.target_lengths)
+        with torch.no_grad():
+            lpb, lpl = model.lattice_scores(*args)
+            return rnnt_loss.rnnt_alpha_loss(lpb, rnnt_loss.mask_label_scores(lpl, batch.target_lengths),
+                                             model.output_lengths(batch.input_lengths),
+                                             batch.target_lengths).float().cpu()
+
+    # ---- the lattice at full width, step-0 parameters ----
+    t0 = time.perf_counter()
+    train_batch = text_batch(dirs["train"], int(conf["batch_size"]), int(conf["valid_batches"])).to("cuda")
+    u_pad = train_batch.targets.shape[1]
+    init = Trainer(cfg, TrainerConfig(loss_type="rnnt"), device="cpu").init_state(0).model.state_dict()
+    got = {}
+    for name, c in (("f32", cfg32), ("bf16", cfg)):
+        dense = dense_losses(model_on(c, "cuda", init), train_batch)
+        full = band_losses(model_on(dataclasses.replace(c, prune_s=u_pad + 1), "cuda", init), train_batch)
+        band = band_losses(model_on(c, "cuda", init), train_batch)
+        got[name] = (dense, full[0], band[0])
+    dense, full, band = got["f32"]
+    full_rel = float(((full - dense).abs() / dense.abs()).max())
+    below = float(((dense - band) / dense.abs()).max())
+    log(f"transducer lattice at [{train_batch.inputs.shape[0]}x{train_batch.inputs.shape[1]}], U_pad {u_pad}, "
+        f"step-0 parameters, f32 compute: full-width band (S {u_pad + 1}) vs dense per-row loss max rel "
+        f"{full_rel!r} (tol {RNNT_TOL}); S {cfg.prune_s} banded minus dense min {float((band - dense).min())!r}, "
+        f"largest shortfall {below!r} relative (tol {RNNT_TOL}); dense loss sum {float(dense.sum())!r}, banded "
+        f"{float(band.sum())!r}; bf16: dense {float(got['bf16'][0].sum())!r}, full band "
+        f"{float(got['bf16'][1].sum())!r}, banded {float(got['bf16'][2].sum())!r} "
+        f"({time.perf_counter() - t0!r} s)")
+    if not full_rel <= RNNT_TOL:
+        raise AssertionError(f"a full-width band differs from the dense loss: {full_rel}")
+    if not below <= RNNT_TOL:
+        raise AssertionError(f"the S = {cfg.prune_s} banded NLL is below the dense NLL on a row: {below}")
+
+    # ---- the card against the CPU on final.pt ----
+    t0 = time.perf_counter()
+    test_batch = text_batch(dirs["test"], 16, 0)
+    runs = {"card": (cfg, "cuda"), "cpu": (cfg, "cpu"), "cpu_f32": (cfg32, "cpu")}
+    outs, models = {}, {}
+    for name, (c, device) in runs.items():
+        models[name] = model_on(c, device)
+        b_ = test_batch.to(device)
+        with torch.no_grad():
+            enc = models[name].encode(b_.inputs, b_.input_lengths).float().cpu()
+        outs[name] = (enc, *band_losses(models[name], b_))
+    t_out = torch.as_tensor(models["cpu"].output_lengths(test_batch.input_lengths))
+    dist = {}
+    for name in ("card", "cpu"):
+        enc, loss, lpb, lpl, starts = outs[name]
+        ref = outs["cpu_f32"]
+        if not torch.equal(starts, ref[4]):
+            raise AssertionError(f"band starts differ between the {name} run and the CPU f32 run")
+        ok = torch.arange(lpb.shape[1])[None, :] < t_out[:, None]
+        dist[name] = {"encoder": max(float((enc[i, :n] - ref[0][i, :n]).abs().max()) for i, n in enumerate(t_out)),
+                      "blank scores": float((lpb - ref[2])[ok].abs().max()),
+                      "label scores": float(torch.where(ref[3] > -1e8, lpl - ref[3], 0.0)[ok].abs().max()),
+                      "loss": float(((loss - ref[1]).abs() / ref[1].abs()).max())}
+    verdicts = {part: (bf16_close(dist["card"][part], dist["cpu"][part]),
+                       bf16_rounds(dist["card"][part], dist["cpu"][part])) for part in dist["card"]}
+
+    # the searches on both sides, with the margins that decide them
+    x, lengths = test_batch.inputs, test_batch.input_lengths  # numpy on the host
+    calls = []
+    joint_step = models["cpu"].joint_step
+
+    def recording(enc_frames, pred_proj):
+        logits = joint_step(enc_frames, pred_proj)
+        calls.append(logits.float())
+        return logits
+
+    greedy = {"card": TransducerDecoder(models["card"], coder, max_symbols_per_frame=max_symbols).decode_batch(
+        x, lengths)}
+    models["cpu"].joint_step = recording
+    greedy["cpu"] = TransducerDecoder(models["cpu"], coder, max_symbols_per_frame=max_symbols).decode_batch(
+        x, lengths)
+    del models["cpu"].joint_step
+    # the search calls the joint max_symbols times a frame: the steps that
+    # decide an emission are a valid frame's first, and each one after an
+    # emission in that frame
+    steps = torch.stack(calls).reshape(-1, max_symbols, len(lengths), calls[0].shape[-1])  # [T', S, B, V]
+    top = torch.topk(steps, 2, dim=-1).values
+    emits = steps.argmax(dim=-1) != models["cpu"].blank_id
+    active = [torch.arange(steps.shape[0])[:, None] < t_out[None, :]]
+    for k in range(1, max_symbols):
+        active.append(active[-1] & emits[:, k - 1])
+    gap = torch.where(torch.stack(active, dim=1), top[..., 0] - top[..., 1], torch.inf).amin(dim=(0, 1))
+    with torch.no_grad():  # the joint's noise: every frame at the start token on both sides
+        start_logits = {}
+        for name in ("card", "cpu"):
+            m = models[name]
+            dev = m.embed.device
+            proj, _ = m.predict_step(torch.full((x.shape[0],), m.blank_id, device=dev),
+                                     torch.ones(x.shape[0], dtype=torch.bool, device=dev),
+                                     m.init_pred_carry(x.shape[0]))
+            enc = outs[name][0].to(dev)
+            start_logits[name] = m.joint_step(enc, proj[:, None, :].expand_as(enc)).float().cpu()
+    noise = max(float((start_logits["card"][i, :n] - start_logits["cpu"][i, :n]).abs().max())
+                for i, n in enumerate(t_out))
+    decided = [i for i in range(len(lengths)) if float(gap[i]) > 4 * noise]
+    same = [i for i in decided if np.array_equal(greedy["card"][i], greedy["cpu"][i])]
+    nbest = {name: TransducerBeamDecoder(models[name], coder, beam_width=beam, max_symbols_per_frame=max_symbols)
+             .decode_batch_nbest(x, lengths) for name in ("card", "cpu")}
+    beam_decided, beam_same = [], []
+    for i, (hk, hc) in enumerate(zip(nbest["card"], nbest["cpu"])):
+        if len(hk) != len(hc) or not all(np.array_equal(a[0], b_[0]) for a, b_ in zip(hk, hc)):
+            continue
+        diff = max(abs(a[1] - b_[1]) for a, b_ in zip(hk, hc))
+        if len(hc) < 2 or hc[0][1] - hc[1][1] > 2 * diff:
+            beam_decided.append(i)
+            if np.array_equal(hk[0][0], hc[0][0]):
+                beam_same.append(i)
+    log(f"transducer card vs CPU on final.pt ({len(lengths)} test utterances, U_pad {test_batch.targets.shape[1]}), "
+        f"max|diff| from the CPU f32-compute run: card bf16 {dist['card']!r}, CPU bf16 {dist['cpu']!r} (the loss "
+        f"relative; bf16 rule: within {RNN_BF16_RATIO}x + {RNN_F32_TOL}, and at least 1/{RNN_BF16_RATIO} - "
+        f"{RNN_F32_TOL}: {verdicts}); greedy transcripts identical on {len(same)} of the {len(decided)} utterances "
+        f"whose smallest top-two logit gap at a deciding step exceeds 4x the joint's card-CPU difference {noise!r} "
+        f"(gaps {[round(float(g), 4) for g in gap]}; all: "
+        f"{sum(np.array_equal(a, b_) for a, b_ in zip(greedy['card'], greedy['cpu']))} of {len(lengths)}); "
+        f"beam-{beam} transcripts identical on {len(beam_same)} of the {len(beam_decided)} utterances whose n-best "
+        f"agree and whose top-two gap exceeds twice the score difference; {time.perf_counter() - t0!r} s")
+    if not all(close and rounds for close, rounds in verdicts.values()):
+        raise AssertionError(f"the transducer on the card is outside the bf16 rule: {dist}")
+    if same != decided or beam_same != beam_decided:
+        raise AssertionError(f"card transcripts differ from the CPU's: greedy {sorted(set(decided) - set(same))}, "
+                             f"beam {sorted(set(beam_decided) - set(beam_same))}")
+    del models, outs
+
+    # ---- greedy and beam-8 decode of the test set, timed ----
+    reader = FeatureReader(os.path.join(dirs["test"], "feats.scp"), os.path.join(dirs["test"], "cmvn.scp"),
+                           os.path.join(dirs["test"], "utt2spk"), 0, 0)
+    batches = list(stream_padded_batches(reader, batch_size=int(conf.get("decode_batch_size", 16))))
+    reader.close()
+    frames = sum(int(n) for _, _, l in batches for n in l)
+    model = model_on(cfg, "cuda")
+    timings = {}
+    for name, d in (("greedy", TransducerDecoder(model, coder, max_symbols_per_frame=max_symbols)),
+                    (f"beam{beam}", TransducerBeamDecoder(model, coder, beam_width=beam,
+                                                          max_symbols_per_frame=max_symbols))):
+        for _ in range(2):  # a warm-up, then the timed pass
+            enc_s = search_s = 0.0
+            for _, xb, lb in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                encoded = d.encode(xb, lb)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                [o.cpu() for o in d.search(*encoded)]
+                t2 = time.perf_counter()
+                enc_s, search_s = enc_s + t1 - t0, search_s + t2 - t1
+        total = enc_s + search_s
+        timings.update({f"{name}_frames_per_s": frames / total, f"{name}_encoder_ms": enc_s * 1e3,
+                        f"{name}_search_ms": search_s * 1e3})
+        enc_frames = sum(-(-xb.shape[1] // cfg.encoder_config().subsample) for _, xb, _ in batches)
+        log(f"transducer {name} decode of the test set ({len(batches)} batches of 16, {frames} frames, at most "
+            f"{max_symbols} labels a frame): {total!r} s, {frames / total!r} frames/s; encoder {enc_s * 1e3!r} ms "
+            f"({frames / enc_s!r} frames/s), search {search_s * 1e3!r} ms ({frames / search_s!r} frames/s; a "
+            f"Python loop over {enc_frames} encoder frames); the CTC recipe's greedy decode of the same frames "
+            f"{ctc_greedy_fps!r} frames/s [{card}]")
+    del model
+
+    # ---- one training step by parts ----
+    trainer = Trainer(cfg, TrainerConfig(num_steps=6, loss_type="rnnt"), device="cuda")
+    state = ckpt.restore_state(os.path.join(savedir, "training", "step2.pt"), trainer.init_state(0))
+    model = state.model
+    gen = trainer.dropout_generator(state)
+    batch = train_batch
+    args = (batch.inputs, batch.input_lengths, batch.targets, batch.target_lengths)
+    enc_lengths = model.output_lengths(batch.input_lengths)
+
+    def median_ms(fn) -> float:
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(3):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times)
+
+    lpb, lpl, starts = model.lattice_scores_pruned(*args, train=True, generator=gen)
+    scores = (lpb.detach().requires_grad_(), lpl.detach().requires_grad_(), starts)
+    parts = {
+        "encoder forward": median_ms(lambda: model.encode(batch.inputs, batch.input_lengths, train=True,
+                                                          generator=gen)),
+        "predictor forward (kernel 4)": median_ms(lambda: model.predict(batch.targets, batch.target_lengths,
+                                                                        train=True, generator=gen)),
+    }
+    scores_ms = median_ms(lambda: model.lattice_scores_pruned(*args, train=True, generator=gen))
+    parts["joint and band scores"] = scores_ms - sum(parts.values())
+    parts["banded alpha scan forward"] = median_ms(lambda: rnnt_loss.rnnt_alpha_loss_banded(
+        *scores, enc_lengths, batch.target_lengths))
+    s = ckpt.device_snapshot(state)
+    grad_ms = median_ms(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)))
+    step_ms = median_ms(lambda: trainer.update(s, batch))
+    parts["backward"] = grad_ms - sum(parts.values())
+    parts["Adam"] = step_ms - grad_ms
+    b, t_pad = batch.inputs.shape[:2]
+    ecfg = cfg.encoder_config()
+    flops = transducer_flops(ecfg, cfg, b, t_pad, u_pad + 1, cfg.prune_s, RNNT_CLASSES)
+    band_flops = 2 * b * -(-t_pad // ecfg.subsample) * cfg.prune_s * cfg.joint_units * RNNT_CLASSES
+    real = int(batch.input_lengths.sum().item())
+    bound_ms = flops / PEAK_F32 * 1e3
+    log(f"transducer train step at [{b}x{t_pad}, 40] -> T' {-(-t_pad // ecfg.subsample)}, U_pad + 1 = "
+        f"{u_pad + 1} label positions, band S {cfg.prune_s} ({real} real frames): update {step_ms!r} ms "
+        f"({real / step_ms * 1e3!r} frames/s); by parts {parts!r} ms; model FLOPs {flops!r} a step (forward x 3; "
+        f"the joint band's product alone {band_flops!r} a forward), f32 bound {bound_ms!r} ms (products are f32 "
+        f"GEMMs of bf16 values at {PEAK_F32 / 1e12:.0f} TFLOP/s), {bound_ms / step_ms!r} of it reached [{card}]")
+    timings.update({"update_ms": step_ms, "flops_per_step": flops, "bound_ms": bound_ms,
+                    **{f"{k.split(' (')[0].replace(' ', '_')}_ms": v for k, v in parts.items()}})
+    return timings
+
+
 def read_ark(scp: str) -> dict:
     from tfkaldi_tpu_torch.io import ArkReader
 
@@ -2083,6 +2579,7 @@ def main() -> int:
     bn, bn_dz_only_ms = check_bn_dgrad(card)
     log(f"ptxas (-Xptxas -v) of the build: {os.path.relpath(_build.ptxas_report_path(_build.library_path()), ROOT)}")
     rnn_rows = {cell: check_rnn_kernels(card, cell) for cell in ("lstm", "gru")}
+    pred_rows = check_predictor_kernels(card)
     log(f"phase kernels vs plain: {time.perf_counter() - t0!r} s")
 
     # ---- served path at full width ----
@@ -2240,9 +2737,21 @@ def main() -> int:
     log(f"attention phase: {json.dumps(att_times)} [{card}]")
     log(f"phase attention path: {time.perf_counter() - t0!r} s")
 
+    # ---- the conformer-transducer recipe at full width (kernels 4 and 5 on its prediction network) ----
+    t0 = time.perf_counter()
+    rnnt_launches, rnnt_cfg, rnnt_savedir = transducer_path(card, train_ws, att_dirs)
+    rnnt_times = check_transducer(card, rnnt_cfg, rnnt_savedir, att_dirs, ctc_times["greedy_frames_per_s"])
+    for name, count in rnnt_launches.items():
+        rnn_launches[name] += count
+    log(f"kernels 4 and 5 at the prediction network's shape {list(PRED_SHAPE)}, one direction, bf16: "
+        f"{json.dumps({part: {**row, 'launches': rnnt_launches[f'lstm_{part}']} for part, row in pred_rows.items()})} "
+        f"[{card}]")
+    log(f"transducer phase: {json.dumps(rnnt_times)} [{card}]")
+    log(f"phase transducer path: {time.perf_counter() - t0!r} s")
+
     # launches: f32, the served path's and the training path's runs
     # together; bf16, the bf16 DNN path's run; kernels 4 and 5, the BiLSTM
-    # path's and the CTC path's runs together
+    # path's, the CTC path's and the transducer path's runs together
     total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
     kernels = [
         dict(name="fused_ffn_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",

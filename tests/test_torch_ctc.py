@@ -359,7 +359,7 @@ def test_unported_text_losses_and_lm_fusion_raise(tmp_path):
     net = Nnet(config(loss="ctc", model="lstm"), 4, 35, device="cpu")
     assert net.blank_id == 35 and net.model.config.num_labels == 36
     assert Nnet(config(loss="ctc"), 4, 35, device="cpu").model.config.num_labels == 36
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*slice 5"):
+    with pytest.raises(ValueError, match="model = transducer and loss = rnnt"):  # ported: it pairs with transducer
         Nnet(config(loss="rnnt"), 4, 35, device="cpu")
     with pytest.raises(ValueError, match="model = seq2seq and loss = attention"):  # ported: it pairs with seq2seq
         Nnet(config(loss="attention"), 4, 35, device="cpu")

@@ -337,9 +337,11 @@ def test_nnet_model_selector(tmp_path):
     assert isinstance(Nnet(config(model="gru"), 4, 5, device="cpu").model, GRU)
     with pytest.raises(ValueError, match="add_layer_period"):
         Nnet(config(model="lstm", add_layer_period="5"), 4, 5, device="cpu")
-    for model, where in (("tdnn", "slice 3"), ("cnn", "slice 3"), ("transducer", "slice 5")):
+    for model, where in (("tdnn", "slice 3"), ("cnn", "slice 3")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{where}.*tfkaldi_tpu.nnet.Nnet"):
             Nnet(config(model=model), 4, 5, device="cpu")
+    with pytest.raises(ValueError, match="model = transducer and loss = rnnt"):  # ported: it pairs with rnnt
+        Nnet(config(model="transducer"), 4, 5, device="cpu")
     # ported in slices 4 and 6: model = conformer turns the conformer blocks on
     small = dict(num_blocks="1", d_model="8", num_heads="2", ffn_dim="8", conv_kernel="3")
     for model in ("transformer", "conformer"):

@@ -182,7 +182,9 @@ def test_port_imports_without_jax():
             "tfkaldi_tpu_torch.decode.seq2seq, tfkaldi_tpu_torch.ops.lstm_bidi, tfkaldi_tpu_torch.ops.gru_bidi, "
             "tfkaldi_tpu_torch.ops.rnn_bidi, tfkaldi_tpu_torch.train.ctc, tfkaldi_tpu_torch.decode.ctc, "
             "tfkaldi_tpu_torch.decode.ctc_beam, tfkaldi_tpu_torch.decode.native_beam, "
-            "tfkaldi_tpu_torch.utils.wer, tfkaldi_tpu_torch.data.dispenser; "
+            "tfkaldi_tpu_torch.utils.wer, tfkaldi_tpu_torch.data.dispenser, tfkaldi_tpu_torch.ops.rnnt_loss, "
+            "tfkaldi_tpu_torch.models.transducer, tfkaldi_tpu_torch.decode.transducer, "
+            "tfkaldi_tpu_torch.decode.transducer_beam; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)

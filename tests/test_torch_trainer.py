@@ -292,7 +292,7 @@ def test_unsupported_losses_and_specaugment_raise(tmp_path):
         cfg["nnet"] = {"name": "net", "num_hidden_units": "8", "num_hidden_layers": "1", **over}
         return cfg
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model = transducer and loss = rnnt"):  # ported: it pairs with transducer
         Nnet(config(loss="rnnt"), 4, 5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Nnet(config(specaugment="True"), 4, 5, device="cpu").train(dispenser=None)

@@ -1,8 +1,9 @@
 """Pipeline entry point of the port: features, model training, likelihoods.
 
 Port of :mod:`tfkaldi_tpu.cli.main` on one device for the hybrid recipe,
-the character-CTC recipe and the joint CTC-attention recipe, with ``model =
-dnn``, ``lstm``, ``gru``, ``transformer`` / ``conformer`` or ``seq2seq`` in
+the character-CTC recipe, the joint CTC-attention recipe and the
+conformer-transducer recipe, with ``model = dnn``, ``lstm``, ``gru``,
+``transformer`` / ``conformer``, ``seq2seq`` or ``transducer`` in
 ``[nnet]``. It runs the four feature steps, ``train_nnet`` and
 ``test_nnet``:
 
@@ -13,11 +14,13 @@ dnn``, ``lstm``, ``gru``, ``transformer`` / ``conformer`` or ``seq2seq`` in
   name>/decode/likelihoods.ark`` with its ``feats.scp``. The WFST decode
   and WER scoring that follow in the JAX pipeline run in external Kaldi on
   that ark and are not part of this entry point.
-- CTC (``loss = ctc``, config_AURORA4_ctc.cfg) and joint CTC-attention
-  (``loss = attention``, config_AURORA4_attention.cfg): the targets are
-  the training featdir's ``text``, coded by the text coder's 35 characters
-  (the model emits a 36th class, the CTC blank or SOS/EOS); ``test_nnet``
-  writes the decode (CTC greedy or beam; attention rescoring) to
+- CTC (``loss = ctc``, config_AURORA4_ctc.cfg), joint CTC-attention
+  (``loss = attention``, config_AURORA4_attention.cfg) and RNN-T (``loss =
+  rnnt``, config_AURORA4_transducer.cfg): the targets are the training
+  featdir's ``text``, coded by the text coder's 35 characters (the model
+  emits a 36th class, the blank or SOS/EOS); ``test_nnet`` writes the
+  decode (CTC greedy or beam; attention rescoring; transducer greedy or
+  beam) to
   ``<expdir>/<nnet name>/decode/text``, normalises the test featdir's
   ``text`` into ``text.ref_normalized`` and logs the CER and the word-level
   WER under the loss's name.
@@ -173,7 +176,7 @@ def train_nnet(config, nnet, coder, num_labels: int) -> None:
 
 
 # the name the text test_nnet logs its scores under
-_LOSS_NAMES = {"ctc": "CTC", "attention": "attention"}
+_LOSS_NAMES = {"ctc": "CTC", "attention": "attention", "rnnt": "transducer"}
 
 
 def test_text(nnet, coder, featreader, test_featdir: str, decodedir: str) -> None:

@@ -10,7 +10,9 @@ and :func:`seq2seq_from_jax` map the transformer / conformer encoder
 (models/transformer.py:196-285) and the attention encoder-decoder
 (models/seq2seq.py:187-264) by their pytree paths joined with dots, the
 depthwise conv weight transposed from JAX's ``HIO [k, 1, D]`` to torch's
-``[D, 1, k]``. :func:`train_state_from_jax` maps a whole JAX ``TrainState``
+``[D, 1, k]``; :func:`transducer_from_jax` the transducer
+(models/transducer.py:188-219) the same way. :func:`train_state_from_jax`
+maps a whole JAX ``TrainState``
 (its leaves as numpy) of any of these families onto the port's
 :class:`~tfkaldi_tpu_torch.train.trainer.TrainState`. The port's decode
 checkpoint is ``<savedir>/final.pt``, beside the JAX package's Orbax
@@ -92,6 +94,21 @@ def seq2seq_from_jax(params, state) -> dict[str, torch.Tensor]:
     return {**_tree_dict(params), **_bn_state(state.get("enc", {}), "enc.")}
 
 
+def transducer_from_jax(params, state) -> dict[str, torch.Tensor]:
+    """JAX transducer ``(params, state)`` → ``state_dict``: the encoder by
+    :func:`transformer_from_jax` (its batchnorm statistics from
+    ``state["enc"]``) or :func:`rnn_from_jax`, the prediction network by
+    :func:`rnn_from_jax`, ``embed`` and ``joint.{w,b}`` as they are."""
+    enc = params["enc"]
+    enc_sd = rnn_from_jax(enc) if "layers" in enc else transformer_from_jax(enc, state.get("enc", {}))
+    sd = {f"enc.{k}": v for k, v in enc_sd.items()}
+    sd.update({f"pred.{k}": v for k, v in rnn_from_jax(params["pred"]).items()})
+    sd["embed"] = _tensor(np.asarray(params["embed"], np.float32))
+    for name in ("w", "b"):
+        sd[f"joint.{name}"] = _tensor(np.asarray(params["joint"][name], np.float32))
+    return sd
+
+
 def _param_dict(tree) -> dict[str, torch.Tensor]:
     """A params-shaped pytree (params, Adam ``m`` or ``v``) of the DNN
     (``hidden``) or of an RNN (``layers``) → the port's parameter names."""
@@ -114,10 +131,11 @@ def train_state_from_jax(state, config, *, seed: int = 0, device: str | torch.de
     ``model_state``, ``adam_m``, ``adam_v``, ``adam_t``, ``step`` and
     ``lr_fact``, leaves as numpy arrays; train/trainer.py:63-80) → the
     port's ``TrainState`` for a ``DNNConfig``, an ``RNNConfig``, a
-    ``TransformerConfig`` or a ``Seq2SeqConfig`` on ``device``; the Adam
+    ``TransformerConfig``, a ``Seq2SeqConfig`` or a ``TransducerConfig`` on
+    ``device``; the Adam
     moments map by the parameters' names. The threefry dropout key does not
     carry over: the port's dropout stream is seeded from ``seed``."""
-    from tfkaldi_tpu_torch.models import DNNConfig, RNNConfig, TransformerConfig, build_model
+    from tfkaldi_tpu_torch.models import DNNConfig, RNNConfig, TransducerConfig, TransformerConfig, build_model
     from tfkaldi_tpu_torch.train.trainer import TrainState
 
     model = build_model(config)
@@ -127,7 +145,8 @@ def train_state_from_jax(state, config, *, seed: int = 0, device: str | torch.de
     elif isinstance(config, RNNConfig):
         model.load_state_dict(rnn_from_jax(state.params))
     else:
-        load = transformer_from_jax if isinstance(config, TransformerConfig) else seq2seq_from_jax
+        load = (transformer_from_jax if isinstance(config, TransformerConfig)
+                else transducer_from_jax if isinstance(config, TransducerConfig) else seq2seq_from_jax)
         model.load_state_dict(load(state.params, state.model_state))
         moments = _tree_dict
     model.to(device)

@@ -1,10 +1,11 @@
 """Acoustic models of the port: the hybrid recipe's DNN, the recurrent
-families (LSTM, GRU), the transformer / conformer encoder and the attention
-encoder-decoder."""
+families (LSTM, GRU), the transformer / conformer encoder, the attention
+encoder-decoder and the transducer."""
 
 from tfkaldi_tpu_torch.models.dnn import DNN, DNNConfig
 from tfkaldi_tpu_torch.models.rnn import GRU, LSTM, RNNConfig
 from tfkaldi_tpu_torch.models.seq2seq import AttentionSeq2Seq, Seq2SeqConfig
+from tfkaldi_tpu_torch.models.transducer import Transducer, TransducerConfig
 from tfkaldi_tpu_torch.models.transformer import Transformer, TransformerConfig
 
 
@@ -12,7 +13,7 @@ def build_model(config):
     """The model a config describes: ``DNNConfig`` → :class:`DNN`,
     ``RNNConfig`` → :class:`LSTM` or :class:`GRU` (its ``cell``),
     ``TransformerConfig`` → :class:`Transformer`, ``Seq2SeqConfig`` →
-    :class:`AttentionSeq2Seq`."""
+    :class:`AttentionSeq2Seq`, ``TransducerConfig`` → :class:`Transducer`."""
     if isinstance(config, DNNConfig):
         return DNN(config)
     if isinstance(config, RNNConfig):
@@ -21,8 +22,10 @@ def build_model(config):
         return Transformer(config)
     if isinstance(config, Seq2SeqConfig):
         return AttentionSeq2Seq(config)
+    if isinstance(config, TransducerConfig):
+        return Transducer(config)
     raise TypeError(f"no model for a {type(config).__name__}")
 
 
-__all__ = ["AttentionSeq2Seq", "DNN", "DNNConfig", "GRU", "LSTM", "RNNConfig", "Seq2SeqConfig", "Transformer",
-           "TransformerConfig", "build_model"]
+__all__ = ["AttentionSeq2Seq", "DNN", "DNNConfig", "GRU", "LSTM", "RNNConfig", "Seq2SeqConfig", "Transducer",
+           "TransducerConfig", "Transformer", "TransformerConfig", "build_model"]

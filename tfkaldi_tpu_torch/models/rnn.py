@@ -21,9 +21,16 @@ copies them as they are. Per layer and direction:
 The mask freezes the carry past each utterance's end, so logits at real
 frames do not depend on the padding. The output layer takes compute-dtype
 operands and adds an f32 bias. ``scan_unroll`` and ``scan_impl`` are read
-and ignored: the port always takes its kernels. The streaming methods
-(``init_stream_carry``, ``apply_stream``, ``merge_stream_carry``) are not
-ported (ROADMAP.md, slice 7).
+and ignored: the port always takes its kernels.
+
+Streaming, for unidirectional models: :meth:`LSTM.init_stream_carry` and
+:meth:`LSTM.apply_stream` (the transducer's prediction network steps
+through them in decode). They are the plain torch form of the JAX
+package's XLA step (models/rnn.py:232-277, 386-420), which reaches no
+Pallas kernel either: per layer one :func:`~tfkaldi_tpu_torch.layers.product`
+for ``gx``, then per frame ``round_cd(h) @ W_h`` in f32 and the masked
+update from the given carry (kernels 4-7 start from a zero carry).
+``merge_stream_carry`` is not ported (ROADMAP.md, item 16).
 """
 
 from __future__ import annotations
@@ -93,6 +100,7 @@ class LSTM(nn.Module):
     generator=None)`` → logits ``[B, T, num_labels]`` float32."""
 
     GATES = 4  # i, f, g, o; the GRU narrows to 3 (r, z, n)
+    CARRIES = 2  # (h, c); the GRU carries h alone
     CELL = lstm_bidi.CELL
 
     def __init__(self, config: RNNConfig):
@@ -175,13 +183,72 @@ class LSTM(nn.Module):
         logits = product(x.reshape(t * b, -1), self.out.w, cfg.compute_dtype) + self.out.b.float()
         return logits.reshape(t, b, cfg.num_labels).transpose(0, 1)
 
+    # ------------------------------------------------------------------
+    # streaming (models/rnn.py:203-213, 232-277)
+    # ------------------------------------------------------------------
+
+    def init_stream_carry(self, batch_size: int, device=None) -> list:
+        """Zero recurrent state: one tuple of ``[B, H]`` f32 per layer."""
+        cfg = self.config
+        if cfg.bidirectional:
+            raise ValueError("streaming requires a unidirectional model (bidirectional = False): the backward "
+                             "direction needs the whole future")
+        zeros = torch.zeros(batch_size, cfg.hidden_units, device=device)
+        return [(zeros,) * self.CARRIES for _ in range(cfg.num_layers)]
+
+    @staticmethod
+    def _stream_step(carry, gxt, m, wh_cd):
+        h, c = carry
+        gi, gf, gg, go = (gxt + product(h, wh_cd, wh_cd.dtype)).split(h.shape[1], dim=1)
+        c_cand = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+        h_cand = torch.sigmoid(go) * torch.tanh(c_cand)
+        keep = m != 0
+        return (torch.where(keep, h_cand, h), torch.where(keep, c_cand, c))
+
+    def apply_stream(self, chunk: torch.Tensor, seq_lengths, carry) -> tuple[torch.Tensor, list]:
+        """One streaming step, eval only: ``chunk [B, Tc, F]`` → ``(logits [B,
+        Tc, num_labels] f32, new carry)``. Frames past ``seq_lengths`` leave
+        the carry as it was (a row of length 0 keeps its state)."""
+        cfg = self.config
+        if cfg.bidirectional:
+            raise ValueError("streaming requires bidirectional = False")
+        cd = cfg.compute_dtype
+        b, t, _ = chunk.shape
+        x = chunk.transpose(0, 1).float()  # [T, B, F]
+        lengths = torch.as_tensor(seq_lengths, device=chunk.device)
+        mask = (torch.arange(t, device=chunk.device)[:, None] < lengths[None, :])[:, :, None].float()
+        new_carry = []
+        for l, dirs in enumerate(self.layers):
+            d = dirs[0]
+            gx = (product(x.reshape(t * b, -1), d.wx, cd) + d.b.float()).reshape(t, b, -1)
+            wh_cd = d.wh.to(cd)
+            state, ys = tuple(carry[l]), []
+            for s in range(t):
+                state = self._stream_step(state, gx[s], mask[s], wh_cd)
+                ys.append(state[0] * mask[s])
+            new_carry.append(state)
+            x = torch.stack(ys)
+        logits = product(x.reshape(t * b, -1), self.out.w, cd) + self.out.b.float()
+        return logits.reshape(t, b, cfg.num_labels).transpose(0, 1), new_carry
+
 
 class GRU(LSTM):
     """The GRU acoustic model (``model = gru``): the LSTM's contract with
     the fused (cuDNN) GRU cell, kernels 6 and 7, zero bias init."""
 
     GATES = 3
+    CARRIES = 1
     CELL = gru_bidi.CELL
 
     def _init_bias(self, b: torch.Tensor) -> None:
         b.zero_()
+
+    @staticmethod
+    def _stream_step(carry, gxt, m, wh_cd):
+        (h,) = carry
+        gh = product(h, wh_cd, wh_cd.dtype)
+        hdim = h.shape[1]
+        r = torch.sigmoid(gxt[:, :hdim] + gh[:, :hdim])
+        z = torch.sigmoid(gxt[:, hdim: 2 * hdim] + gh[:, hdim: 2 * hdim])
+        n = torch.tanh(gxt[:, 2 * hdim:] + r * gh[:, 2 * hdim:])
+        return (torch.where(m != 0, (1.0 - z) * n + z * h, h),)

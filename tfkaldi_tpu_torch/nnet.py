@@ -3,18 +3,21 @@
 Port of :class:`tfkaldi_tpu.nnet.Nnet` on one device for the hybrid
 recipe's frame cross-entropy (``loss = cross_entropy``), the character
 recipe's CTC (``loss = ctc``, config_AURORA4_ctc.cfg: the model emits the
-labels plus a blank, the extra final class; nnet.py:53-57) and the joint
+labels plus a blank, the extra final class; nnet.py:53-57), the joint
 CTC-attention recipe (``loss = attention`` with ``model = seq2seq``,
-config_AURORA4_attention.cfg), with the model selector and pairing checks
-of tfkaldi_tpu/nnet.py:62-141 for ``model = dnn`` (config_AURORA4.cfg
-``[nnet]``), ``lstm`` and ``gru`` (uni- or bidirectional), ``transformer``
-/ ``conformer`` and ``seq2seq``; the other families and losses raise
-``NotImplementedError``. :meth:`Nnet.train` runs the training controller,
-which writes ``<savedir>/final.pt`` and ``<savedir>/prior.npy``;
-:meth:`Nnet.decode` reads them back for the likelihood ark
-(:mod:`tfkaldi_tpu_torch.convert`), :meth:`Nnet.decode_text` reads
-``final.pt`` for a CTC text decode or the attention model's rescoring
-decode (``decode_mode = rescoring``).
+config_AURORA4_attention.cfg) and the conformer-transducer recipe (``loss
+= rnnt`` with ``model = transducer``, config_AURORA4_transducer.cfg: the
+blank is the extra final class, added by the model), with the model
+selector and pairing checks of tfkaldi_tpu/nnet.py:53-141 for ``model =
+dnn`` (config_AURORA4.cfg ``[nnet]``), ``lstm`` and ``gru`` (uni- or
+bidirectional), ``transformer`` / ``conformer``, ``seq2seq`` and
+``transducer``; the other families raise ``NotImplementedError``.
+:meth:`Nnet.train` runs the training controller, which writes
+``<savedir>/final.pt`` and ``<savedir>/prior.npy``; :meth:`Nnet.decode`
+reads them back for the likelihood ark (:mod:`tfkaldi_tpu_torch.convert`),
+:meth:`Nnet.decode_text` reads ``final.pt`` for a CTC text decode, the
+attention model's rescoring decode (``decode_mode = rescoring``) or the
+transducer's greedy (``beam_width = 1``) or beam search.
 """
 
 from __future__ import annotations
@@ -32,30 +35,34 @@ from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.ctc import CTCDecoder
 from tfkaldi_tpu_torch.decode.decoder import Decoder
 from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder
+from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
+from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.io import ArkWriter
-from tfkaldi_tpu_torch.models import DNNConfig, RNNConfig, Seq2SeqConfig, TransformerConfig, build_model
+from tfkaldi_tpu_torch.models import (DNNConfig, RNNConfig, Seq2SeqConfig, TransducerConfig, TransformerConfig,
+                                      build_model)
 from tfkaldi_tpu_torch.train import NnetTrainOptions, Trainer, TrainerConfig, TrainingController
 from tfkaldi_tpu_torch.utils import MetricsLogger
 
 log = logging.getLogger(__name__)
 
 # families and losses of the JAX package not in the port yet, and their ROADMAP slice
-_UNPORTED = {"tdnn": "slice 3, item 9", "cnn": "slice 3, item 9", "transducer": "slice 5, items 12-13"}
-_UNPORTED_LOSSES = {"rnnt": "slice 5, items 12-13"}
+_UNPORTED = {"tdnn": "slice 3, item 9", "cnn": "slice 3, item 9"}
 
 
 class Nnet:
-    """The acoustic model (DNN, LSTM, GRU, transformer / conformer or the
-    attention seq2seq), configured from the ``[nnet]`` section."""
+    """The acoustic model (DNN, LSTM, GRU, transformer / conformer, the
+    attention seq2seq or the transducer), configured from the ``[nnet]``
+    section."""
 
     def __init__(self, conf, input_dim: int, num_labels: int, *, device: str | torch.device = "cuda"):
         """Args:
             conf: configparser object (the full .cfg).
             input_dim: raw feature dimension (pre-splicing).
             num_labels: number of pdf targets, or of the text coder's labels
-                for ``loss = ctc`` (the model emits one more: the blank) and
-                ``loss = attention`` (one more: SOS/EOS).
+                for ``loss = ctc`` (the model emits one more: the blank),
+                ``loss = attention`` (one more: SOS/EOS) and ``loss = rnnt``
+                (one more: the blank).
             device: ``cuda`` (default; raises without a card) or ``cpu``.
         """
         self.conf = dict(conf.items("nnet"))
@@ -67,29 +74,29 @@ class Nnet:
         self.num_labels = num_labels
         self.loss_type = self.conf.get("loss", "cross_entropy")
         model_type = self.conf.get("model", "dnn")
-        if self.loss_type in _UNPORTED_LOSSES:
-            raise NotImplementedError(
-                f"loss = {self.loss_type} is not in the port yet (ROADMAP.md, queue 1, "
-                f"{_UNPORTED_LOSSES[self.loss_type]}); use tfkaldi_tpu.nnet.Nnet"
-            )
-        if self.loss_type not in ("cross_entropy", "ctc", "attention"):
+        if self.loss_type not in ("cross_entropy", "ctc", "attention", "rnnt"):
             raise ValueError(f"unknown loss {self.loss_type!r}")
         if model_type in _UNPORTED:
             raise NotImplementedError(
                 f"model = {model_type} is not in the port yet (ROADMAP.md, queue 1, "
                 f"{_UNPORTED[model_type]}); use tfkaldi_tpu.nnet.Nnet"
             )
-        # (the transducer's pairing with loss = rnnt comes with its slice: both raise above)
+        if (model_type == "transducer") != (self.loss_type == "rnnt"):
+            raise ValueError("model = transducer and loss = rnnt go together: the transducer is trained by the "
+                             "lattice loss and has no per-frame posteriors for CE/CTC")
         if (model_type == "seq2seq") != (self.loss_type == "attention"):
             raise ValueError("model = seq2seq and loss = attention go together: the encoder-decoder is trained by "
                              "teacher-forced CE over text targets and has no per-frame posteriors")
         output_dim = num_labels + 1 if self.loss_type == "ctc" else num_labels
-        self.blank_id = num_labels if self.loss_type == "ctc" else None
+        self.blank_id = num_labels if self.loss_type in ("ctc", "rnnt") else None
         if model_type != "dnn" and int(self.conf.get("add_layer_period", 0)) > 0:
             raise ValueError("layerwise init (add_layer_period) requires model = dnn")
         if model_type == "seq2seq":
             # sos/eos is the extra final class (models/seq2seq.py)
             config = Seq2SeqConfig.from_config(self.conf, self.input_dim, num_labels)
+        elif model_type == "transducer":
+            # the blank is the extra final class, added by the model (models/transducer.py)
+            config = TransducerConfig.from_config(self.conf, self.input_dim, num_labels)
         elif model_type in ("lstm", "gru"):
             config = RNNConfig.from_config(self.conf, self.input_dim, output_dim)
         elif model_type in ("transformer", "conformer"):
@@ -156,13 +163,16 @@ class Nnet:
         prior = np.load(os.path.join(self.savedir, "prior.npy"))
         return Decoder(self.model, prior)
 
-    def load_text_decoder(self, coder) -> CTCDecoder | CTCRescoreDecoder:
+    def load_text_decoder(self, coder) -> CTCDecoder | CTCRescoreDecoder | TransducerDecoder:
         """Load ``final.pt`` onto the device for a text decode: for ``loss =
         ctc`` greedy (``beam_width = 1``) or the prefix beam of that width;
         for ``loss = attention`` with ``decode_mode = rescoring``, CTC n-best
-        then attention rescoring (nnet.py:362-377)."""
-        if self.loss_type not in ("ctc", "attention"):
-            raise ValueError("decode_text requires loss = ctc or attention")
+        then attention rescoring (nnet.py:362-377); for ``loss = rnnt`` the
+        transducer's beam search when ``beam_width > 1``, else its greedy
+        search, at most ``max_symbols_per_frame`` labels a frame
+        (nnet.py:400-432)."""
+        if self.loss_type not in ("ctc", "attention", "rnnt"):
+            raise ValueError("decode_text requires loss = ctc, rnnt or attention")
         if self.conf.get("lm_path", ""):
             raise NotImplementedError(
                 "lm_path (LM shallow fusion) is not in the port yet (ROADMAP.md, queue 1, item 15); "
@@ -180,12 +190,20 @@ class Nnet:
                 rescore_weight=float(self.conf.get("rescore_weight", 0.5)),
                 max_tokens=int(self.conf.get("max_decode_tokens", 100)),
             )
+        if self.loss_type == "rnnt":
+            beam_width = int(self.conf.get("beam_width", 1))
+            max_symbols = int(self.conf.get("max_symbols_per_frame", 4))
+            if beam_width > 1:
+                return TransducerBeamDecoder(self._load_model(), coder, beam_width=beam_width,
+                                             max_symbols_per_frame=max_symbols)
+            return TransducerDecoder(self._load_model(), coder, max_symbols_per_frame=max_symbols)
         return CTCDecoder(self._load_model(), coder, self.blank_id,
                           beam_width=int(self.conf.get("beam_width", 1)))
 
     def decode_text(self, reader: FeatureReader, coder, outfile: str) -> int:
-        """Decode a test set to a Kaldi ``text`` file with the CTC decoder
-        or the attention rescoring decoder (nnet.py:339-399, 439-472);
+        """Decode a test set to a Kaldi ``text`` file with the CTC decoder,
+        the attention rescoring decoder or the transducer's search
+        (nnet.py:339-472);
         returns the number of utterances."""
         count = self.load_text_decoder(coder).decode_to_file(
             reader,
@@ -199,7 +217,7 @@ class Nnet:
     def decode(self, reader: FeatureReader, writer: ArkWriter) -> int:
         """Emit prior-normalized log pseudo-likelihoods for a test set
         (nnet.py:246-289); closes ``writer``."""
-        if self.loss_type == "attention":
+        if self.loss_type in ("rnnt", "attention"):
             raise ValueError("sequence-transduction models have no per-frame posteriors to emit as "
                              "pseudo-likelihoods; use decode_text")
         decoder = self.load_decoder()

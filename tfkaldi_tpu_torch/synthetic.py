@@ -20,8 +20,9 @@ the ``[nnet]`` of the character-CTC recipe as written, which trains on the
 same workspace's transcripts, :func:`attention_nnet` that of the joint
 CTC-attention conformer recipe (whose subsampled CTC head wants sparser
 transcripts: ``text_density = 8``, or :func:`retext_featdir` beside
-existing features), and :func:`random_rnn_pytree` seeded LSTM/GRU weights
-in the JAX layout.
+existing features), :func:`transducer_nnet` that of the
+conformer-transducer recipe (the same encoder and transcripts), and
+:func:`random_rnn_pytree` seeded LSTM/GRU weights in the JAX layout.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 AURORA4_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4.cfg")
 AURORA4_CTC_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4_ctc.cfg")
 AURORA4_ATTENTION_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4_attention.cfg")
+AURORA4_TRANSDUCER_CONFIG = os.path.join(_CONFIG_DIR, "config_AURORA4_transducer.cfg")
 # keys of the CTC recipe's [nnet] that belong to its text targets or its
 # experiment, not to the network
 _CTC_ONLY = ("name", "loss", "normalizer", "beam_width", "gmm_name")
@@ -222,6 +224,21 @@ def attention_nnet() -> dict:
     config = ConfigParser()
     if not config.read(AURORA4_ATTENTION_CONFIG):
         raise FileNotFoundError(AURORA4_ATTENTION_CONFIG)
+    return dict(config.items("nnet"))
+
+
+def transducer_nnet() -> dict:
+    """The ``[nnet]`` of ``config_AURORA4_transducer.cfg`` exactly as
+    written: RNN-T (``loss = rnnt``, ``model = transducer``) on a 12 x 256
+    conformer-s4 encoder (causal conv, attention context 64/0), a 1 x 320
+    LSTM prediction network over 128-wide label embeddings, joint 320, the
+    pruned loss (``rnnt_prune_s 16``, diagonal band), bf16, batch 128,
+    dropout 0.9, ``average_last 5``, beam 8 with at most 4 labels a frame.
+    It sets every key of ``config_AURORA4.cfg``'s ``[nnet]``, so laid over a
+    workspace's config it gives that recipe's network and training."""
+    config = ConfigParser()
+    if not config.read(AURORA4_TRANSDUCER_CONFIG):
+        raise FileNotFoundError(AURORA4_TRANSDUCER_CONFIG)
     return dict(config.items("nnet"))
 
 

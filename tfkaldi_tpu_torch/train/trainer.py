@@ -1,9 +1,9 @@
 """Training steps with the reference's exact optimizer semantics.
 
 Port of :mod:`tfkaldi_tpu.train.trainer` for the hybrid recipe's
-cross-entropy loss, the character recipe's CTC loss and the attention
-recipe's joint loss (the transducer loss and SpecAugment are not ported;
-:class:`tfkaldi_tpu_torch.nnet.Nnet` rejects them):
+cross-entropy loss, the character recipe's CTC loss, the attention
+recipe's joint loss and the transducer recipe's lattice loss (SpecAugment
+is not ported; :class:`tfkaldi_tpu_torch.nnet.Nnet` rejects it):
 
 - frame-summed cross-entropy over real frames only (trainer.py:264-275;
   1:1 frames, so no subsampling front-end), or the summed per-utterance
@@ -43,9 +43,12 @@ import torch.nn.functional as F
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.models import build_model
+from tfkaldi_tpu_torch.ops import rnnt_loss
 from tfkaldi_tpu_torch.train import ctc
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+# RNN-T loss calls by route since the last reset
+rnnt_routes = {"banded": 0, "dense": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +56,7 @@ class TrainerConfig:
     init_learning_rate: float = 1e-3
     learning_rate_decay: float = 1.0
     num_steps: int = 1000
-    loss_type: str = "cross_entropy"  # cross_entropy | ctc | attention
+    loss_type: str = "cross_entropy"  # cross_entropy | ctc | attention | rnnt
     micro_batches: int = 1  # grad-accumulation factor (1 = whole batch at once)
     ctc_blank_id: int = 0  # blank class for CTC (model emits num_labels+1 classes)
 
@@ -67,7 +70,7 @@ class TrainState:
 
     step: int
     lr_fact: float
-    model: torch.nn.Module  # DNN, LSTM, GRU, Transformer or AttentionSeq2Seq
+    model: torch.nn.Module  # DNN, LSTM, GRU, Transformer, AttentionSeq2Seq or Transducer
     adam_m: dict[str, torch.Tensor]
     adam_v: dict[str, torch.Tensor]
     adam_t: int
@@ -83,10 +86,11 @@ class Trainer:
     caller names the CPU), for the model its config describes
     (:func:`~tfkaldi_tpu_torch.models.build_model`: ``DNNConfig`` → DNN,
     ``RNNConfig`` → LSTM or GRU, ``TransformerConfig`` → Transformer,
-    ``Seq2SeqConfig`` → AttentionSeq2Seq)."""
+    ``Seq2SeqConfig`` → AttentionSeq2Seq, ``TransducerConfig`` →
+    Transducer)."""
 
     def __init__(self, model_config, config: TrainerConfig, device: str | torch.device = "cuda"):
-        if config.loss_type not in ("cross_entropy", "ctc", "attention"):
+        if config.loss_type not in ("cross_entropy", "ctc", "attention", "rnnt"):
             raise ValueError(f"unknown loss {config.loss_type!r}")
         self.model_config = model_config
         self.config = config
@@ -130,8 +134,9 @@ class Trainer:
                  loss_type: str = "cross_entropy", blank_id: int = 0):
         """The summed loss over real frames and its frame divisor (f32):
         frame CE over ``target_lengths`` frames, the CTC loss of every
-        utterance over its ``output_lengths`` frames, or the attention
-        model's joint loss (trainer.py:186-304)."""
+        utterance over its ``output_lengths`` frames, the attention
+        model's joint loss, or the transducer's lattice loss
+        (trainer.py:121-304)."""
         if loss_type == "cross_entropy" and getattr(model, "subsample_factor", 1) != 1:
             raise ValueError("frame-level CE needs 1:1 frame alignment; subsample > 1 is a CTC-only front-end "
                              "(loss = ctc)")
@@ -146,6 +151,8 @@ class Trainer:
                 labels[0] = out_fn(labels[0])
         if loss_type == "attention":
             return Trainer._attention_loss_sum(model, batch, labels, train, generator)
+        if loss_type == "rnnt":
+            return Trainer._rnnt_loss_sum(model, batch, train, generator)
         logits = model(batch.inputs, batch.input_lengths, train=train, generator=generator)
         if loss_type == "ctc":
             per_seq = ctc.ctc_loss(logits, *labels, blank_id)
@@ -195,6 +202,26 @@ class Trainer:
         if w > 0.0:
             loss = (1.0 - w) * loss + w * ctc_sum
         return loss, batch.input_lengths.sum().float()
+
+    @staticmethod
+    def _rnnt_loss_sum(model, batch: PaddedBatch, train: bool, generator):
+        """The transducer's summed lattice NLL (trainer.py:121-190): the
+        banded route when ``0 < prune_s <= U_pad``, else the dense one, over
+        the encoder's ``output_lengths``; the divisor is the real input
+        frames."""
+        args = (batch.inputs, batch.input_lengths, batch.targets, batch.target_lengths)
+        enc_lengths = model.output_lengths(batch.input_lengths)
+        if 0 < model.config.prune_s <= batch.targets.shape[1]:
+            lp_blank, lp_label, starts = model.lattice_scores_pruned(*args, train=train, generator=generator)
+            per_seq = rnnt_loss.rnnt_alpha_loss_banded(lp_blank, lp_label, starts, enc_lengths,
+                                                       batch.target_lengths)
+            rnnt_routes["banded"] += 1
+        else:
+            lp_blank, lp_label = model.lattice_scores(*args, train=train, generator=generator)
+            per_seq = rnnt_loss.rnnt_alpha_loss(lp_blank, rnnt_loss.mask_label_scores(lp_label, batch.target_lengths),
+                                                enc_lengths, batch.target_lengths)
+            rnnt_routes["dense"] += 1
+        return torch.sum(per_seq), batch.input_lengths.sum().float()
 
     def _loss_sum(self, model, batch: PaddedBatch, *, train: bool, generator=None):
         return self.loss_sum(model, batch, train=train, generator=generator,
