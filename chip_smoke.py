@@ -188,6 +188,10 @@ RNNT_CLASSES = 36
 PRED_SHAPE = (129, 128, 320)
 PRED_WIDTH = 128
 RNNT_TOL = 1e-5
+# bench.py's TDNN and CNN (bench.py:163-222) on the training workspace: the CNN's f32 conv
+# stack on the card against the CPU, max|diff| / max|ref| (f32 sums in another order; TF32 would
+# give about 1e-3)
+CONV_F32_TOL = 1e-4
 
 
 def bf16_close(mine: float, theirs: float) -> bool:
@@ -881,6 +885,7 @@ def check_cli_run(card: str, tag: str, ws: dict, savedir: str, steps: list, note
             raise AssertionError(f"{tag} test_nnet {utt}: likelihoods shape {m.shape} or non-finite")
     log(f"{tag} test_nnet decoded the trained final.pt: {len(likes)} utterances, "
         f"{sum(m.shape[0] for m in likes.values())} frames, all finite")
+    check_wfst(tag, ws["config"], savedir)
 
 
 def bf16_dnn_path(card: str, ws: dict) -> tuple[dict, object, str]:
@@ -1762,8 +1767,6 @@ def attention_path(card: str, ws: dict) -> tuple[str, str, dict]:
     from tfkaldi_tpu_torch.data.target_coder import TextCoder
     from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
     from tfkaldi_tpu_torch.decode import seq2seq as seq2seq_decode
-    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
-    from tfkaldi_tpu_torch.ops import frame_preemph as fp
     from tfkaldi_tpu_torch.train import ctc
     from tfkaldi_tpu_torch.utils.wer import char_tokens_to_words, score_text_files
 
@@ -1791,10 +1794,7 @@ def attention_path(card: str, ws: dict) -> tuple[str, str, dict]:
     run_s = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"cli.main attention path: rc {rc}")
-    kernels = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
-    for name, c in (("lstm", lstm_bidi.CELL), ("gru", gru_bidi.CELL)):
-        kernels.update({f"{name}_{k}": getattr(c, f"{k}_launches") for k in ("fwd_persistent", "fwd",
-                                                                               "bwd_persistent", "bwd")})
+    kernels = seven_counters()
     loss_routes, rescored = dict(ctc.launches_by_route), dict(seq2seq_decode.rescored)
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
@@ -1880,7 +1880,6 @@ def check_attention(card: str, cfg_path: str, savedir: str, dirs: dict) -> dict:
 
     Returns the timings."""
     import dataclasses
-    import statistics
     from configparser import ConfigParser
 
     import numpy as np
@@ -2020,19 +2019,6 @@ def check_attention(card: str, cfg_path: str, savedir: str, dirs: dict) -> dict:
     labels = [ctc.host(a) for a in (batch.input_lengths, batch.targets, batch.target_lengths)]
     labels[0] = model.output_lengths(labels[0])
 
-    def median_ms(fn) -> float:
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(3):
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(stop))
-        return statistics.median(times)
-
     memory = model.encode(batch.inputs, batch.input_lengths, train=True, generator=gen).detach().requires_grad_()
 
     def decoder_forward():  # with the log-softmax of the attention CE
@@ -2044,14 +2030,14 @@ def check_attention(card: str, cfg_path: str, savedir: str, dirs: dict) -> dict:
         return ctc.ctc_loss(model.ctc_logits(memory), *labels, model.sos_eos_id).sum()
 
     parts = {
-        "encoder forward": median_ms(lambda: model.encode(batch.inputs, batch.input_lengths, train=True,
+        "encoder forward": median3_ms(lambda: model.encode(batch.inputs, batch.input_lengths, train=True,
                                                           generator=gen)),
-        "decoder forward": median_ms(decoder_forward),
-        "CTC head + loss forward": median_ms(ctc_forward),
+        "decoder forward": median3_ms(decoder_forward),
+        "CTC head + loss forward": median3_ms(ctc_forward),
     }
     s = ckpt.device_snapshot(state)
-    grad_ms = median_ms(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)))
-    step_ms = median_ms(lambda: trainer.update(s, batch))
+    grad_ms = median3_ms(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)))
+    step_ms = median3_ms(lambda: trainer.update(s, batch))
     parts["backward"] = grad_ms - sum(parts.values())
     parts["Adam"] = step_ms - grad_ms
     b, t_pad = batch.inputs.shape[:2]
@@ -2259,7 +2245,6 @@ def check_transducer(card: str, cfg_path: str, savedir: str, dirs: dict, ctc_gre
 
     Returns the timings."""
     import dataclasses
-    import statistics
     from configparser import ConfigParser
 
     import numpy as np
@@ -2484,34 +2469,21 @@ def check_transducer(card: str, cfg_path: str, savedir: str, dirs: dict, ctc_gre
     args = (batch.inputs, batch.input_lengths, batch.targets, batch.target_lengths)
     enc_lengths = model.output_lengths(batch.input_lengths)
 
-    def median_ms(fn) -> float:
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(3):
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(stop))
-        return statistics.median(times)
-
     lpb, lpl, starts = model.lattice_scores_pruned(*args, train=True, generator=gen)
     scores = (lpb.detach().requires_grad_(), lpl.detach().requires_grad_(), starts)
     parts = {
-        "encoder forward": median_ms(lambda: model.encode(batch.inputs, batch.input_lengths, train=True,
+        "encoder forward": median3_ms(lambda: model.encode(batch.inputs, batch.input_lengths, train=True,
                                                           generator=gen)),
-        "predictor forward (kernel 4)": median_ms(lambda: model.predict(batch.targets, batch.target_lengths,
+        "predictor forward (kernel 4)": median3_ms(lambda: model.predict(batch.targets, batch.target_lengths,
                                                                         train=True, generator=gen)),
     }
-    scores_ms = median_ms(lambda: model.lattice_scores_pruned(*args, train=True, generator=gen))
+    scores_ms = median3_ms(lambda: model.lattice_scores_pruned(*args, train=True, generator=gen))
     parts["joint and band scores"] = scores_ms - sum(parts.values())
-    parts["banded alpha scan forward"] = median_ms(lambda: rnnt_loss.rnnt_alpha_loss_banded(
+    parts["banded alpha scan forward"] = median3_ms(lambda: rnnt_loss.rnnt_alpha_loss_banded(
         *scores, enc_lengths, batch.target_lengths))
     s = ckpt.device_snapshot(state)
-    grad_ms = median_ms(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)))
-    step_ms = median_ms(lambda: trainer.update(s, batch))
+    grad_ms = median3_ms(lambda: trainer.gradients(s, batch, trainer.dropout_generator(s)))
+    step_ms = median3_ms(lambda: trainer.update(s, batch))
     parts["backward"] = grad_ms - sum(parts.values())
     parts["Adam"] = step_ms - grad_ms
     b, t_pad = batch.inputs.shape[:2]
@@ -2527,6 +2499,309 @@ def check_transducer(card: str, cfg_path: str, savedir: str, dirs: dict, ctc_gre
         f"GEMMs of bf16 values at {PEAK_F32 / 1e12:.0f} TFLOP/s), {bound_ms / step_ms!r} of it reached [{card}]")
     timings.update({"update_ms": step_ms, "flops_per_step": flops, "bound_ms": bound_ms,
                     **{f"{k.split(' (')[0].replace(' ', '_')}_ms": v for k, v in parts.items()}})
+    return timings
+
+
+def seven_counters() -> dict:
+    """Every launch counter of the seven kernels, the recurrences' by route."""
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+
+    counts = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    for name, c in (("lstm", lstm_bidi.CELL), ("gru", gru_bidi.CELL)):
+        counts.update({f"{name}_{k}": getattr(c, f"{k}_launches") for k in ("fwd_persistent", "fwd",
+                                                                              "bwd_persistent", "bwd")})
+    return counts
+
+
+def check_wfst(tag: str, config, savedir: str) -> None:
+    """A hybrid ``test_nnet``'s WFST step reached the stub Kaldi egs
+    (``synthetic.write_stub_kaldi``): each of the ``num_jobs`` stub
+    ``latgen-faster-mapped`` runs got the decode dir's split ``feats.scp``
+    (every test utterance: the stub splits by copying), the ``HCLG.fst``
+    copied from the parent GMM and ``--acoustic-scale=0.1``, and ``best
+    WER`` parsed the stub scorer's lowest ``wer_*``."""
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.kaldi import best_wer
+
+    decodedir = os.path.join(savedir, "decode")
+    nj = config.getint("general", "num_jobs")
+    with open(os.path.join(decodedir, "feats.scp")) as f:
+        n = sum(1 for line in f if line.strip())
+    for j in range(1, nj + 1):
+        with open(os.path.join(decodedir, "kaldi_decode", "log", f"decode.{j}.log")) as f:
+            text = f.read()
+        for want in (f"{decodedir}/split{nj}/{j}/feats.scp ({n} utterances)", f"{decodedir}/graph/HCLG.fst",
+                     "--acoustic-scale=0.1"):
+            if want not in text:
+                raise AssertionError(f"{tag} WFST step, job {j}: the stub latgen-faster-mapped log lacks {want!r}")
+    wer = best_wer(os.path.join(decodedir, "kaldi_decode"))
+    if wer != f"{synthetic.STUB_WERS['wer_10']} [wer_10]":
+        raise AssertionError(f"{tag} WFST step: best WER {wer!r}")
+    log(f"{tag} test_nnet WFST step: {nj} stub latgen-faster-mapped jobs on the decode dir's split scp ({n} "
+        f"utterances), HCLG.fst and --acoustic-scale=0.1; best WER {wer}")
+
+
+def hybrid_family_macs(model) -> float:
+    """Multiply-adds a frame of the TDNN's or the CNN's forward, reckoned
+    from its config: per TDNN layer the spliced product; per conv layer
+    ``kt·kf·C_in·C_out`` at every frequency position of its input (SAME
+    padding keeps the width; the pool after it narrows the next), then the
+    dense stack; the output layer."""
+    cfg = model.config
+    macs = 0
+    if hasattr(cfg, "offsets"):  # TDNN
+        fan_in = cfg.input_dim
+        for offs in cfg.offsets:
+            macs += fan_in * len(offs) * cfg.num_hidden_units
+            fan_in = cfg.num_hidden_units
+    else:
+        w, c_in = cfg.freq_dim, cfg.num_channels
+        for c_out, (kt, kf), p in zip(cfg.conv_filters, cfg.conv_kernels, cfg.conv_pools):
+            macs += kt * kf * c_in * c_out * w
+            w, c_in = ((w - p) // p + 1 if p > 1 else w), c_out
+        fan_in = cfg.conv_output_dim()
+        for _ in range(cfg.num_hidden_layers):
+            macs += fan_in * cfg.num_hidden_units
+            fan_in = cfg.num_hidden_units
+    return float(macs + fan_in * cfg.num_labels)
+
+
+def median3_ms(fn) -> float:
+    """ms a call on CUDA events: the median of 3 calls after 3 warm-ups."""
+    import statistics
+
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(3):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def hybrid_family_path(card: str, family: str, ws: dict) -> tuple[str, str]:
+    """bench.py's TDNN (``family = "tdnn"``, bench.py:163-186) or CNN
+    (``"cnn"``, bench.py:206-222) at full width through the CLI:
+    ``config_AURORA4.cfg``'s ``[nnet]`` with ``synthetic.tdnn_nnet()`` /
+    ``cnn_nnet()`` over it (5 x 1024 TDNN with Kaldi's sub-sampled context,
+    or 64/128 9x3/3x3 convs with frequency pools 3/1 and 4 x 1024 dense;
+    raw 40 fbanks, batchnorm, bf16, 2000 pdfs) and only num_epochs,
+    valid_frequency and check_freq lowered, on the training workspace's
+    features and alignments: ``cli.main --steps train_nnet,test_nnet``.
+    Counts reset before, read after: all seven kernel counters 0 (no hand
+    kernel lies on these paths). The step-0 loss is ln 2000; the controller
+    validated at step 0 and after every train step that ends a
+    ``valid_frequency`` period, and every rollback went back to a validated
+    step; the likelihood ark covers the test set, finite and ``[T, 2000]``;
+    the WFST step reached the stub egs (``check_wfst``). Returns the
+    config's path and the model dir."""
+    from configparser import ConfigParser
+
+    import torch
+
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.cli import main as cli_main
+
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    nnet = {**(synthetic.tdnn_nnet() if family == "tdnn" else synthetic.cnn_nnet()), **RNN_TRAIN_NNET}
+    for key, value in nnet.items():
+        config.set("nnet", key, str(value))
+    cfg_path = os.path.join(TRAIN_WORK, f"config_{family}.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), nnet["name"])
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting_validations() as validations:
+        rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main {family} path: rc {rc}")
+    kernels = seven_counters()
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    every = int(nnet["valid_frequency"])
+    order = [st["step"] for st in steps]
+    want_valid = [0] + [s + 1 for s in order if (s + 1) % every == 0]
+    rollbacks = [b for a, b in zip(order, order[1:]) if b != a + 1]
+    log(f"{family} path launches of the seven kernels {kernels}; {len(steps)} train steps {order} at T_pad "
+        f"{[st['padded_length'] for st in steps]}, validations at steps {validations}, rollbacks to {rollbacks}; "
+        f"whole run {run_s!r} s")
+    if any(kernels.values()):
+        raise AssertionError(f"the {family} path launched a hand kernel: {kernels}")
+    if list(validations) != want_valid or any(b % every for b in rollbacks):
+        raise AssertionError(f"the {family} path's validations {validations} / rollbacks {rollbacks} do not follow "
+                             f"the controller's schedule (validations {want_valid}, rollbacks to multiples of "
+                             f"{every})")
+    check_cli_run(card, f"{family} path", {**ws, "config": config}, savedir, steps)
+    return cfg_path, savedir
+
+
+def check_hybrid_family(card: str, family: str, cfg_path: str, savedir: str, ws: dict) -> dict:
+    """The TDNN's or CNN's outputs on the card against the port on the CPU,
+    and its times:
+
+    - the eval logits of ``final.pt`` on the first 16 test utterances on
+      the card (bf16) and on the CPU in bf16 and in f32 compute, by the bf16
+      rule of check_rnn_kernels against the CPU f32 run (``bf16_close`` and
+      ``bf16_rounds``);
+    - the CNN only: TF32 pinned off (``resolve_device``), and the conv
+      stack in f32 on the card against the CPU within CONV_F32_TOL (TF32
+      would put it near 1e-3); the conv stack's forward timed in bf16 and in
+      f32 as a yardstick;
+    - ``test_nnet``'s likelihood emission of the whole test set timed
+      (frames/s, host clock, features read);
+    - one step on the first training batch from the step-2 checkpoint, by
+      parts on CUDA events (median of 3 after 3 warm-ups): forward,
+      backward (the gradient pass less the forward), TF-Adam; beside the
+      model FLOPs of the step (``hybrid_family_macs``, forward x 3) and
+      their f32 bound. Returns the timings."""
+    import dataclasses
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.convert import load_checkpoint
+    from tfkaldi_tpu_torch.data.batching import DeviceBatcher
+    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
+    from tfkaldi_tpu_torch.decode.decoder import Decoder
+    from tfkaldi_tpu_torch.decode.streaming import stream_padded_batches
+    from tfkaldi_tpu_torch.io import ArkWriter
+    from tfkaldi_tpu_torch.models import build_model
+    from tfkaldi_tpu_torch.nnet import Nnet
+    from tfkaldi_tpu_torch.train import checkpoint as ckpt
+    from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    config = ConfigParser()
+    config.read(cfg_path)
+    conf = dict(config.items("nnet"))
+    cfg = Nnet(config, 40, NUM_PDFS, device="cpu").model.config
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    final = load_checkpoint(savedir)
+
+    def model_on(c, device):
+        model = build_model(c)
+        model.load_state_dict(final)
+        return model.to(device).eval()
+
+    def test_reader():
+        featdir = ws["test_featdir"]
+        return FeatureReader(os.path.join(featdir, "feats.scp"), os.path.join(featdir, "cmvn.scp"),
+                             os.path.join(featdir, "utt2spk"), 0, 0)
+
+    # ---- the card against the CPU on final.pt ----
+    reader = test_reader()
+    _, x, lengths = next(iter(stream_padded_batches(reader, batch_size=16)))
+    reader.close()
+    x, lengths = torch.as_tensor(x), torch.as_tensor(lengths)
+    real = (torch.arange(x.shape[1])[None, :] < lengths[:, None])
+    logits = {}
+    for name, c, device in (("card", cfg, "cuda"), ("cpu", cfg, "cpu"), ("cpu_f32", cfg32, "cpu")):
+        with torch.inference_mode():
+            logits[name] = model_on(c, device)(x.to(device), lengths).float().cpu()[real]
+    ref = logits["cpu_f32"]
+    dist = {name: float((logits[name] - ref).abs().max() / ref.abs().max()) for name in ("card", "cpu")}
+    close, rounds = bf16_close(dist["card"], dist["cpu"]), bf16_rounds(dist["card"], dist["cpu"])
+    log(f"{family} eval logits of final.pt on {len(lengths)} test utterances ({int(real.sum())} frames), "
+        f"max|diff|/max|ref| from the CPU f32-compute run: card bf16 {dist['card']!r}, CPU bf16 {dist['cpu']!r} "
+        f"(bf16 rule: within {RNN_BF16_RATIO}x + {RNN_F32_TOL}: {close}; at least 1/{RNN_BF16_RATIO} - "
+        f"{RNN_F32_TOL}: {rounds})")
+    if not (close and rounds):
+        raise AssertionError(f"the {family} model on the card is outside the bf16 rule: {dist}")
+    timings = {"logits_rel_card": dist["card"], "logits_rel_cpu": dist["cpu"]}
+
+    if family == "cnn":
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on after the CNN path: resolve_device did not pin it off")
+        stacks = {}
+        for name, device in (("card", "cuda"), ("cpu", "cpu")):
+            with torch.inference_mode():
+                stacks[name] = model_on(cfg32, device).conv_stack(x.to(device), lengths).float().cpu()
+        conv_rel = float((stacks["card"] - stacks["cpu"]).abs().max() / stacks["cpu"].abs().max())
+        batch_x, batch_len = x.cuda(), lengths.cuda()
+        conv_ms = {}
+        for name, c in (("bfloat16", cfg), ("float32", cfg32)):
+            m = model_on(c, "cuda")
+            with torch.inference_mode():
+                conv_ms[name] = median3_ms(lambda: m.conv_stack(batch_x, batch_len))
+        log(f"CNN conv stack in f32, card vs CPU on [{x.shape[0]}x{x.shape[1]}, 40]: max|diff|/max|ref| "
+            f"{conv_rel!r} (tol {CONV_F32_TOL}; cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}); its forward "
+            f"{conv_ms['bfloat16']!r} ms in bf16 vs {conv_ms['float32']!r} ms in f32 [{card}]")
+        if not conv_rel <= CONV_F32_TOL:
+            raise AssertionError(f"the CNN's f32 convs on the card differ from the CPU's by {conv_rel}: TF32?")
+        timings.update({"conv_f32_rel": conv_rel, "conv_stack_bf16_ms": conv_ms["bfloat16"],
+                        "conv_stack_f32_ms": conv_ms["float32"]})
+
+    # ---- test_nnet's likelihood emission, timed ----
+    prior = np.load(os.path.join(savedir, "prior.npy"))
+    decoder = Decoder(model_on(cfg, "cuda"), prior)
+    scp = os.path.join(TRAIN_WORK, f"{family}_timed", "feats.scp")
+    for _ in range(2):  # a warm-up, then the timed pass
+        reader = test_reader()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ArkWriter(scp, os.path.join(os.path.dirname(scp), "likes.ark")) as w:
+            count = decoder.decode_to_writer(reader, w, batch_size=int(conf.get("decode_batch_size", 16)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        reader.close()
+    frames = sum(m.shape[0] for m in read_ark(scp).values())
+    log(f"{family} likelihood emission of the test set ({count} utterances, {frames} frames, batches of 16, features "
+        f"read): {seconds!r} s, {frames / seconds!r} frames/s [{card}]")
+    timings["decode_frames_per_s"] = frames / seconds
+    del decoder
+
+    # ---- one training step by parts ----
+    featdir = ws["train_featdir"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    reader = FeatureReader(os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+                           os.path.join(featdir, "utt2spk"), 0, max_length)
+    ali = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali", "pdf.all.gz")
+    dispenser = AlignmentBatchDispenser(reader, AlignmentCoder(identity_normalizer, NUM_PDFS),
+                                        int(conf["batch_size"]), ali)
+    for _ in range(int(conf["valid_batches"])):  # past the validation carve
+        dispenser.skip_batch()
+    batch = dispenser.get_padded_batch(DeviceBatcher()).to("cuda")
+    reader.close()
+    trainer = Trainer(cfg, TrainerConfig(num_steps=6), device="cuda")
+    state = ckpt.restore_state(os.path.join(savedir, "training", "step2.pt"), trainer.init_state(0))
+    s = ckpt.device_snapshot(state)
+    fwd_ms = median3_ms(lambda: trainer.loss_sum(s.model, batch, train=True))
+    grad_ms = median3_ms(lambda: trainer.gradients(s, batch))
+    step_ms = median3_ms(lambda: trainer.update(s, batch))
+    b, t_pad = batch.inputs.shape[:2]
+    macs = hybrid_family_macs(s.model)
+    flops = 3 * 2 * macs * b * t_pad
+    bound_ms = flops / PEAK_F32 * 1e3
+    real_frames = int(batch.input_lengths.sum().item())
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        warm = [json.loads(line) for line in f][1:]
+    cli_s = sorted(st["step_time"] for st in warm)[len(warm) // 2]
+    parts = {"forward": fwd_ms, "backward": grad_ms - fwd_ms, "TF-Adam": step_ms - grad_ms}
+    log(f"{family} train step at [{b}x{t_pad}, 40] ({real_frames} real frames): update {step_ms!r} ms "
+        f"({real_frames / step_ms * 1e3!r} frames/s); by parts {parts!r} ms; CLI step (median of {len(warm)} after "
+        f"the first, host clock, data wait included) {cli_s!r} s; model {macs / 1e6!r} M MACs a frame, "
+        f"{flops!r} FLOPs a step (forward x 3), f32 bound {bound_ms!r} ms (products are f32 GEMMs of bf16 values at "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s), {bound_ms / step_ms!r} of it reached [{card}]")
+    timings.update({"update_ms": step_ms, "forward_ms": fwd_ms, "backward_ms": grad_ms - fwd_ms,
+                    "adam_ms": step_ms - grad_ms, "cli_step_s": cli_s, "macs_per_frame": macs,
+                    "flops_per_step": flops, "bound_ms": bound_ms})
     return timings
 
 
@@ -2623,6 +2898,7 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     frame_routes = check_frame_routes("served path")
+    check_wfst("served path", config, savedir)
 
     # ---- outputs ----
     feats = {kind: read_ark(os.path.join(d, "feats.scp")) for kind, d in (("train", train_featdir), ("test", test_featdir))}
@@ -2748,6 +3024,14 @@ def main() -> int:
         f"[{card}]")
     log(f"transducer phase: {json.dumps(rnnt_times)} [{card}]")
     log(f"phase transducer path: {time.perf_counter() - t0!r} s")
+
+    # ---- bench.py's TDNN and CNN on the hybrid recipe at full width (no hand kernel on their paths) ----
+    for family in ("tdnn", "cnn"):
+        t0 = time.perf_counter()
+        family_cfg, family_savedir = hybrid_family_path(card, family, train_ws)
+        family_times = check_hybrid_family(card, family, family_cfg, family_savedir, train_ws)
+        log(f"{family} phase: {json.dumps(family_times)} [{card}]")
+        log(f"phase {family} path: {time.perf_counter() - t0!r} s")
 
     # launches: f32, the served path's and the training path's runs
     # together; bf16, the bf16 DNN path's run; kernels 4 and 5, the BiLSTM

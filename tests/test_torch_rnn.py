@@ -41,7 +41,7 @@ from tfkaldi_tpu_torch import synthetic
 from tfkaldi_tpu_torch.cli import main as cli_main
 from tfkaldi_tpu_torch.convert import rnn_from_jax, save_checkpoint, train_state_from_jax
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
-from tfkaldi_tpu_torch.models import GRU, LSTM, RNNConfig, Transformer, build_model
+from tfkaldi_tpu_torch.models import CNN, GRU, LSTM, TDNN, RNNConfig, Transformer, build_model
 from tfkaldi_tpu_torch.nnet import Nnet
 from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -288,10 +288,7 @@ def test_likelihood_ark_matches_jax_decoder(rnn_workspace, tmp_path, cd):
     cfg_path = str(tmp_path / "config.cfg")
     with open(cfg_path, "w") as f:
         config.write(f)
-    gmm_graph = os.path.join(str(tmp_path / "exp"), config.get("nnet", "gmm_name"), "graph")
-    os.makedirs(gmm_graph)
-    with open(os.path.join(gmm_graph, "num_pdfs"), "w") as f:
-        f.write(f"{NUM_PDFS}\n")
+    synthetic.write_parent_gmm(os.path.join(str(tmp_path / "exp"), config.get("nnet", "gmm_name")), NUM_PDFS)
     params = synthetic.random_rnn_pytree(200, 16, 2, NUM_PDFS, gates=GATES[cell], seed=5)
     savedir = os.path.join(str(tmp_path / "exp"), config.get("nnet", "name"))
     save_checkpoint(savedir, rnn_from_jax(params))
@@ -337,9 +334,11 @@ def test_nnet_model_selector(tmp_path):
     assert isinstance(Nnet(config(model="gru"), 4, 5, device="cpu").model, GRU)
     with pytest.raises(ValueError, match="add_layer_period"):
         Nnet(config(model="lstm", add_layer_period="5"), 4, 5, device="cpu")
-    for model, where in (("tdnn", "slice 3"), ("cnn", "slice 3")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{where}.*tfkaldi_tpu.nnet.Nnet"):
-            Nnet(config(model=model), 4, 5, device="cpu")
+    # the TDNN and the CNN; the CNN takes the splice copies as its input channels
+    assert isinstance(Nnet(config(model="tdnn"), 4, 5, device="cpu").model, TDNN)
+    cnn = Nnet(config(model="cnn", context_width="1", cnn_filters="4", cnn_kernels="3x3", cnn_pool="1"), 4, 5,
+               device="cpu").model
+    assert isinstance(cnn, CNN) and cnn.config.num_channels == 3 and cnn.config.freq_dim == 4
     with pytest.raises(ValueError, match="model = transducer and loss = rnnt"):  # ported: it pairs with rnnt
         Nnet(config(model="transducer"), 4, 5, device="cpu")
     # ported in slices 4 and 6: model = conformer turns the conformer blocks on

@@ -4,7 +4,11 @@ The port runs the hybrid recipe of ``config/config_AURORA4.cfg`` on an
 NVIDIA H100: wav → 40-dim log-fbank → per-speaker CMVN → ±5-frame splice →
 the 440→6×2048→2000 relu+batchnorm DNN, trained with the reference's
 optimizer, rollback and checkpoint semantics, then softmax ÷ prior → Kaldi
-ark of log pseudo-likelihoods. ``model = lstm`` or ``gru`` in ``[nnet]``
+ark of log pseudo-likelihoods, decoded by Kaldi's ``latgen-faster-mapped``
+to a WER; the Kaldi GMM steps that give the alignments run from the same
+CLI (:mod:`tfkaldi_tpu_torch.kaldi`). ``model = tdnn`` or ``cnn`` trains
+and decodes the TDNN and CNN families on that pipeline, with no hand
+kernel on their paths. ``model = lstm`` or ``gru`` in ``[nnet]``
 trains and decodes the repo's recurrent network (2 x 512 bidirectional,
 config_AURORA4_ctc.cfg) on the same pipeline under frame cross-entropy,
 and ``loss = ctc`` the character-CTC recipe. ``model = seq2seq`` with

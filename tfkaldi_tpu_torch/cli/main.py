@@ -1,19 +1,28 @@
-"""Pipeline entry point of the port: features, model training, likelihoods.
+"""Pipeline entry point of the port: features, GMMs, model training,
+likelihoods, WFST decode and WER.
 
-Port of :mod:`tfkaldi_tpu.cli.main` on one device for the hybrid recipe,
-the character-CTC recipe, the joint CTC-attention recipe and the
-conformer-transducer recipe, with ``model = dnn``, ``lstm``, ``gru``,
-``transformer`` / ``conformer``, ``seq2seq`` or ``transducer`` in
-``[nnet]``. It runs the four feature steps, ``train_nnet`` and
-``test_nnet``:
+Port of :mod:`tfkaldi_tpu.cli.main` on one device, every step of it, for
+the hybrid recipe, the character-CTC recipe, the joint CTC-attention
+recipe and the conformer-transducer recipe, with any model family of
+``[nnet]`` (``dnn``, ``tdnn``, ``cnn``, ``lstm``, ``gru``, ``transformer``
+/ ``conformer``, ``seq2seq``, ``transducer``):
 
+- the four feature steps compute features and CMVN stats on the device;
+- ``train_{mono,tri,lda}``, ``align_{mono,tri,lda}`` and
+  ``test_{mono,tri,lda}`` run the external Kaldi GMM recipe
+  (:mod:`tfkaldi_tpu_torch.kaldi.gmm`: checked subprocesses in
+  ``[directories] kaldi_egs``); an alignment step leaves per-job pdf
+  archives ``<expdir>/<gmm>/ali/pdf.{j}.gz``;
 - hybrid (``loss = cross_entropy``): ``train_nnet`` shuffles the training
   scp, merges the parent GMM's pdf alignments and trains the model →
   ``<expdir>/<nnet name>/final.pt`` and ``prior.npy``; ``test_nnet`` runs
   CMVN + splice + model + softmax ÷ prior → ``<expdir>/<nnet
-  name>/decode/likelihoods.ark`` with its ``feats.scp``. The WFST decode
-  and WER scoring that follow in the JAX pipeline run in external Kaldi on
-  that ark and are not part of this entry point.
+  name>/decode/likelihoods.ark`` with its ``feats.scp``, then copies the
+  parent GMM's ``final.mdl`` and ``graph/`` and the test set's
+  ``utt2spk`` and ``text`` beside it, runs Kaldi's
+  ``latgen-faster-mapped`` and scoring on the ark
+  (:func:`tfkaldi_tpu_torch.kaldi.decode_wfst.decode_wfst`, into
+  ``decode/kaldi_decode``) and logs the best WER.
 - CTC (``loss = ctc``, config_AURORA4_ctc.cfg), joint CTC-attention
   (``loss = attention``, config_AURORA4_attention.cfg) and RNN-T (``loss =
   rnnt``, config_AURORA4_transducer.cfg): the targets are the training
@@ -25,22 +34,23 @@ conformer-transducer recipe, with ``model = dnn``, ``lstm``, ``gru``,
   ``text`` into ``text.ref_normalized`` and logs the CER and the word-level
   WER under the loss's name.
 
-The GMM steps are not ported yet and raise; ``python -m
-tfkaldi_tpu.cli.main`` runs them.
-
 Usage:
     python -m tfkaldi_tpu_torch.cli.main --config config/config_AURORA4.cfg \\
         --steps dnn_train_features,train_nnet,test_nnet [--device cuda]
+    python -m tfkaldi_tpu_torch.cli.main --config ... --steps all
 """
 
 from __future__ import annotations
 
 import argparse
-import gzip
 import logging
 import os
+import shutil
 import sys
 from configparser import ConfigParser
+
+from tfkaldi_tpu_torch.kaldi import LdaGmm, MonoGmm, TriGmm, merge_alignments
+from tfkaldi_tpu_torch.kaldi.decode_wfst import WfstDecodeOpts, best_wer, decode_wfst
 
 log = logging.getLogger("tfkaldi_tpu_torch")
 
@@ -62,14 +72,35 @@ STEPS = [
     "train_nnet",
     "test_nnet",
 ]
-PORTED_STEPS = {
+# the reference's default-on steps (main.py:11-25; tfkaldi_tpu/cli/main.py:40-54)
+DEFAULT_STEPS = [
     "gmm_train_features",
     "dnn_train_features",
-    "gmm_test_features",
     "dnn_test_features",
+    "train_mono",
+    "align_mono",
+    "train_tri",
+    "align_tri",
+    "train_lda",
+    "align_lda",
     "train_nnet",
     "test_nnet",
-}
+]
+
+
+def resolve_steps(spec: str) -> set[str]:
+    """``--steps``: ``all``, ``default`` or a comma-separated list
+    (tfkaldi_tpu/cli/main.py:160-169). Raises ``ValueError`` naming any
+    unknown step."""
+    if spec == "all":
+        return set(STEPS)
+    if spec == "default":
+        return set(DEFAULT_STEPS)
+    steps = {s.strip() for s in spec.split(",") if s.strip()}
+    unknown = steps - set(STEPS)
+    if unknown:
+        raise ValueError(f"unknown steps: {','.join(sorted(unknown))}")
+    return steps
 
 
 def resolve_labels(config):
@@ -105,18 +136,6 @@ def cmvn_path(config, featdir: str) -> str | None:
 
 def featdir(config, kind: str, section: str) -> str:
     return os.path.join(config.get("directories", f"{kind}_features"), config.get(section, "name"))
-
-
-def merge_alignments(ali_dir: str, num_jobs: int) -> str:
-    """Concatenate per-job pdf archives into ``pdf.all.gz`` (a copy of
-    tfkaldi_tpu/kaldi/gmm.py ``merge_alignments``, replacing the ``cat`` at
-    main.py:140-142)."""
-    out_path = os.path.join(ali_dir, "pdf.all.gz")
-    with gzip.open(out_path, "wt") as out:
-        for i in range(1, num_jobs + 1):
-            with gzip.open(os.path.join(ali_dir, f"pdf.{i}.gz"), "rt") as part:
-                out.write(part.read())
-    return out_path
 
 
 def train_nnet(config, nnet, coder, num_labels: int) -> None:
@@ -208,8 +227,8 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--config", required=True, help="path to the .cfg file")
     parser.add_argument(
-        "--steps", required=True,
-        help=f"comma-separated steps (ported: {','.join(s for s in STEPS if s in PORTED_STEPS)})",
+        "--steps", default="default",
+        help=f"comma-separated steps, 'all', or 'default' (available: {','.join(STEPS)})",
     )
     parser.add_argument("--batch-size", type=int, default=32, help="feature-extraction batch")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
@@ -224,17 +243,11 @@ def main(argv=None) -> int:
     if not config.read(args.config):
         log.error("cannot read config %s", args.config)
         return 1
-    steps = {s.strip() for s in args.steps.split(",") if s.strip()}
-    unknown = steps - set(STEPS)
-    if unknown:
-        log.error("unknown steps: %s", ",".join(sorted(unknown)))
+    try:
+        steps = resolve_steps(args.steps)
+    except ValueError as exc:
+        log.error("%s", exc)
         return 1
-    missing = steps - PORTED_STEPS
-    if missing:
-        raise NotImplementedError(
-            f"steps {','.join(s for s in STEPS if s in missing)} are not in the port yet "
-            "(ROADMAP.md, queue 1); run them with python -m tfkaldi_tpu.cli.main"
-        )
 
     from tfkaldi_tpu_torch.device import resolve_device
 
@@ -264,6 +277,19 @@ def main(argv=None) -> int:
         )
         log.info("------- computing cmvn stats ----------")
         compute_cmvn(out)
+
+    # ---- GMM stages (main.py:77-114), in external Kaldi ----
+    for cls, prefix in [(MonoGmm, "mono"), (TriGmm, "tri"), (LdaGmm, "lda")]:
+        gmm = cls(config)
+        if f"train_{prefix}" in steps:
+            log.info("------- training %s GMM ----------", prefix)
+            gmm.train()
+        if f"align_{prefix}" in steps:
+            log.info("------- aligning %s GMM ----------", prefix)
+            gmm.align()
+        if f"test_{prefix}" in steps:
+            log.info("------- testing %s GMM ----------", prefix)
+            gmm.test()
 
     if not ({"train_nnet", "test_nnet"} & steps):
         return 0
@@ -305,8 +331,31 @@ def main(argv=None) -> int:
         nnet.decode(featreader, ArkWriter(os.path.join(decodedir, "feats.scp"), like_path))
     finally:
         featreader.close()
-    log.info("wrote %s; the WFST decode runs in external Kaldi (latgen-faster-mapped)", like_path)
+    log.info("wrote %s", like_path)
+    decode_wfst_step(config, decodedir, test_featdir)
     return 0
+
+
+def decode_wfst_step(config, decodedir: str, test_featdir: str) -> None:
+    """The hybrid ``test_nnet``'s Kaldi half (tfkaldi_tpu/cli/main.py:446-471):
+    the parent GMM's ``final.mdl`` and ``graph/`` and the test set's
+    ``utt2spk`` and ``text`` into ``decodedir`` beside the likelihood ark,
+    then ``latgen-faster-mapped`` and scoring into
+    ``decodedir/kaldi_decode``; logs the best WER."""
+    log.info("------- decoding testing sets ----------")
+    gmm_exp = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"))
+    shutil.copyfile(os.path.join(gmm_exp, "final.mdl"), os.path.join(decodedir, "final.mdl"))
+    graph_dst = os.path.join(decodedir, "graph")
+    if not os.path.isdir(graph_dst):
+        shutil.copytree(os.path.join(gmm_exp, "graph"), graph_dst)
+    for name in ("utt2spk", "text"):
+        shutil.copyfile(os.path.join(test_featdir, name), os.path.join(decodedir, name))
+    kaldi_decode = os.path.join(decodedir, "kaldi_decode")
+    decode_wfst(
+        graph_dst, decodedir, kaldi_decode, config.get("directories", "kaldi_egs"),
+        WfstDecodeOpts(nj=config.getint("general", "num_jobs"), cmd=config.get("general", "cmd")),
+    )
+    log.info("best WER: %s", best_wer(kaldi_decode))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 
 :func:`dnn_from_jax` maps the JAX DNN pytree (models/dnn.py:95-128,
 ``params`` and ``state`` given as numpy arrays) to the ``state_dict`` of
-:class:`tfkaldi_tpu_torch.models.DNN`, and :func:`rnn_from_jax` the JAX
+:class:`tfkaldi_tpu_torch.models.DNN`, :func:`tdnn_from_jax` the TDNN's
+(the same layout) and :func:`cnn_from_jax` the CNN's (its conv weights
+transposed from HWIO to OIHW), and :func:`rnn_from_jax` the JAX
 LSTM/GRU pytree (models/rnn.py:100-133) to that of
 :class:`~tfkaldi_tpu_torch.models.LSTM` or ``GRU``; the layouts are the
 same, so the arrays are copied as they are. :func:`transformer_from_jax`
@@ -44,6 +46,26 @@ def dnn_from_jax(params, state) -> dict[str, torch.Tensor]:
     for name in ("bn_mean", "bn_var"):
         if name in state:
             sd[name] = _tensor(np.asarray(state[name], np.float32))
+    return sd
+
+
+def tdnn_from_jax(params, state) -> dict[str, torch.Tensor]:
+    """JAX TDNN ``(params, state)`` → ``state_dict``: the DNN's pytree
+    (models/tdnn.py:129-159), its spliced ``w [n_off·fan_in, H]`` as it is."""
+    return dnn_from_jax(params, state)
+
+
+def cnn_from_jax(params, state) -> dict[str, torch.Tensor]:
+    """JAX CNN ``(params, state)`` → ``state_dict`` (models/cnn.py:174-232).
+
+    ``params``: ``{"conv": [{"w" HWIO, "b"[, "beta"]}, ...], "hidden": [...],
+    "out": {...}}``, the conv weights transposed to OIHW; ``state``: the
+    DNN's keys and the per-layer lists ``bn_conv_mean`` / ``bn_conv_var``
+    → ``bn_conv_mean.{l}`` / ``bn_conv_var.{l}``."""
+    sd = dnn_from_jax(params, state)
+    for name in ("bn_conv_mean", "bn_conv_var"):
+        for l, stat in enumerate(state.get(name, ())):
+            sd[f"{name}.{l}"] = _tensor(np.asarray(stat, np.float32))
     return sd
 
 
@@ -110,9 +132,15 @@ def transducer_from_jax(params, state) -> dict[str, torch.Tensor]:
 
 
 def _param_dict(tree) -> dict[str, torch.Tensor]:
-    """A params-shaped pytree (params, Adam ``m`` or ``v``) of the DNN
-    (``hidden``) or of an RNN (``layers``) → the port's parameter names."""
+    """A params-shaped pytree (params, Adam ``m`` or ``v``) of the DNN or
+    TDNN (``hidden``), of the CNN (``conv`` too, HWIO → OIHW) or of an RNN
+    (``layers``) → the port's parameter names."""
     out: dict[str, torch.Tensor] = {}
+    for l, layer in enumerate(tree.get("conv", ())):
+        for name in ("w", "b", "beta"):
+            if name in layer:
+                a = np.asarray(layer[name], np.float32)
+                out[f"conv.{l}.{name}"] = _tensor(a.transpose(3, 2, 0, 1) if name == "w" else a)
     for l, layer in enumerate(tree.get("hidden", ())):
         for name in ("w", "b", "beta"):
             if name in layer:
@@ -130,18 +158,21 @@ def train_state_from_jax(state, config, *, seed: int = 0, device: str | torch.de
     """A JAX ``TrainState`` (any object with the attributes ``params``,
     ``model_state``, ``adam_m``, ``adam_v``, ``adam_t``, ``step`` and
     ``lr_fact``, leaves as numpy arrays; train/trainer.py:63-80) → the
-    port's ``TrainState`` for a ``DNNConfig``, an ``RNNConfig``, a
-    ``TransformerConfig``, a ``Seq2SeqConfig`` or a ``TransducerConfig`` on
-    ``device``; the Adam
+    port's ``TrainState`` for a ``DNNConfig``, a ``TDNNConfig``, a
+    ``CNNConfig``, an ``RNNConfig``, a ``TransformerConfig``, a
+    ``Seq2SeqConfig`` or a ``TransducerConfig`` on ``device``; the Adam
     moments map by the parameters' names. The threefry dropout key does not
     carry over: the port's dropout stream is seeded from ``seed``."""
-    from tfkaldi_tpu_torch.models import DNNConfig, RNNConfig, TransducerConfig, TransformerConfig, build_model
+    from tfkaldi_tpu_torch.models import (CNNConfig, DNNConfig, RNNConfig, TDNNConfig, TransducerConfig,
+                                          TransformerConfig, build_model)
     from tfkaldi_tpu_torch.train.trainer import TrainState
 
     model = build_model(config)
     moments = _param_dict
-    if isinstance(config, DNNConfig):
+    if isinstance(config, (DNNConfig, TDNNConfig)):
         model.load_state_dict(dnn_from_jax(state.params, state.model_state))
+    elif isinstance(config, CNNConfig):
+        model.load_state_dict(cnn_from_jax(state.params, state.model_state))
     elif isinstance(config, RNNConfig):
         model.load_state_dict(rnn_from_jax(state.params))
     else:

@@ -179,14 +179,12 @@ class DNN(nn.Module):
         for l, layer in enumerate(self.hidden):
             if fuse_bn:
                 z, mean_b, var_b = BnReluLayer.apply(h.to(cd), layer.w, layer.b, layer.beta, mask, cfg.bn_eps)
-                self._update_moving(l, mean_b, var_b)
+                _update_moving(self.bn_mean[l], self.bn_var[l], mean_b, var_b, cfg.bn_decay)
             else:
                 z = affine(h, layer.w, layer.b, cd)
                 if cfg.batch_norm:
-                    zf = z.float()
-                    mean_b, var_b, _ = masked_moments(zf, mask)
-                    z = batchnorm(zf, mean_b, var_b, layer.beta, cfg.bn_eps, cd)
-                    self._update_moving(l, mean_b, var_b)
+                    z = masked_batchnorm(z, mask, layer.beta, self.bn_mean[l], self.bn_var[l], train=True,
+                                         eps=cfg.bn_eps, decay=cfg.bn_decay)
                 z = _nonlin(z, cfg.nonlin)
                 if cfg.l2_norm:
                     z = _l2_norm(z)
@@ -200,14 +198,6 @@ class DNN(nn.Module):
         h = activations[self._selected_layers() - 1]
         logits = affine(h, self.out.w, self.out.b, cd)
         return logits.float().reshape(b, t, cfg.num_labels)
-
-    @torch.no_grad()
-    def _update_moving(self, l: int, mean_b, var_b) -> None:
-        """``moving·decay + batch·(1−decay)`` in f32, in place
-        (models/dnn.py:238-243, 329-330)."""
-        d = self.config.bn_decay
-        self.bn_mean[l].copy_(self.bn_mean[l] * d + mean_b * (1.0 - d))
-        self.bn_var[l].copy_(self.bn_var[l] * d + var_b * (1.0 - d))
 
     def _eval_forward(self, inputs):
         cfg = self.config
@@ -231,13 +221,36 @@ class DNN(nn.Module):
                 continue
             z = affine(h, layer.w, layer.b, cfg.compute_dtype)
             if cfg.batch_norm:  # eval BN on the moving stats (activation.py:145-161)
-                z = ((z.float() - self.bn_mean[l]) * scale + layer.beta).to(z.dtype)
+                z = masked_batchnorm(z, None, layer.beta, self.bn_mean[l], self.bn_var[l], train=False,
+                                     eps=cfg.bn_eps, decay=cfg.bn_decay)
             z = _nonlin(z, cfg.nonlin)
             if cfg.l2_norm:
                 z = _l2_norm(z)
             h = z
         logits = affine(h, self.out.w, self.out.b, cfg.compute_dtype)
         return logits.float().reshape(b, t, cfg.num_labels)
+
+
+@torch.no_grad()
+def _update_moving(moving_mean, moving_var, mean_b, var_b, decay: float) -> None:
+    """``moving·decay + batch·(1−decay)`` in f32, in place
+    (models/dnn.py:238-243, 329-330)."""
+    moving_mean.copy_(moving_mean * decay + mean_b * (1.0 - decay))
+    moving_var.copy_(moving_var * decay + var_b * (1.0 - decay))
+
+
+def masked_batchnorm(z, mask, beta, moving_mean, moving_var, *, train: bool, eps: float, decay: float):
+    """Center-only batchnorm of ``z [N, C]`` over its real rows, the JAX
+    package's ``models/dnn.py::_masked_batchnorm``: in training the masked
+    batch moments (f32; ``mask [N]``), with the moving stats updated in
+    place; in eval the moving stats. The result keeps ``z``'s dtype."""
+    zf = z.float()
+    if train:
+        mean, var, _ = masked_moments(zf, mask)
+        _update_moving(moving_mean, moving_var, mean, var, decay)
+    else:
+        mean, var = moving_mean, moving_var
+    return batchnorm(zf, mean, var, beta, eps, z.dtype)
 
 
 def _nonlin(z, kind: str):

@@ -8,10 +8,11 @@ CTC-attention recipe (``loss = attention`` with ``model = seq2seq``,
 config_AURORA4_attention.cfg) and the conformer-transducer recipe (``loss
 = rnnt`` with ``model = transducer``, config_AURORA4_transducer.cfg: the
 blank is the extra final class, added by the model), with the model
-selector and pairing checks of tfkaldi_tpu/nnet.py:53-141 for ``model =
-dnn`` (config_AURORA4.cfg ``[nnet]``), ``lstm`` and ``gru`` (uni- or
-bidirectional), ``transformer`` / ``conformer``, ``seq2seq`` and
-``transducer``; the other families raise ``NotImplementedError``.
+selector and pairing checks of tfkaldi_tpu/nnet.py:53-141 for every
+family of the JAX package: ``model = dnn`` (config_AURORA4.cfg
+``[nnet]``), ``tdnn``, ``cnn`` (the splice copies become its input
+channels), ``lstm`` and ``gru`` (uni- or bidirectional), ``transformer`` /
+``conformer``, ``seq2seq`` and ``transducer``.
 :meth:`Nnet.train` runs the training controller, which writes
 ``<savedir>/final.pt`` and ``<savedir>/prior.npy``; :meth:`Nnet.decode`
 reads them back for the likelihood ark (:mod:`tfkaldi_tpu_torch.convert`),
@@ -39,21 +40,17 @@ from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
 from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.io import ArkWriter
-from tfkaldi_tpu_torch.models import (DNNConfig, RNNConfig, Seq2SeqConfig, TransducerConfig, TransformerConfig,
-                                      build_model)
+from tfkaldi_tpu_torch.models import (CNNConfig, DNNConfig, RNNConfig, Seq2SeqConfig, TDNNConfig, TransducerConfig,
+                                      TransformerConfig, build_model)
 from tfkaldi_tpu_torch.train import NnetTrainOptions, Trainer, TrainerConfig, TrainingController
 from tfkaldi_tpu_torch.utils import MetricsLogger
 
 log = logging.getLogger(__name__)
 
-# families and losses of the JAX package not in the port yet, and their ROADMAP slice
-_UNPORTED = {"tdnn": "slice 3, item 9", "cnn": "slice 3, item 9"}
-
-
 class Nnet:
-    """The acoustic model (DNN, LSTM, GRU, transformer / conformer, the
-    attention seq2seq or the transducer), configured from the ``[nnet]``
-    section."""
+    """The acoustic model (DNN, TDNN, CNN, LSTM, GRU, transformer /
+    conformer, the attention seq2seq or the transducer), configured from
+    the ``[nnet]`` section."""
 
     def __init__(self, conf, input_dim: int, num_labels: int, *, device: str | torch.device = "cuda"):
         """Args:
@@ -76,11 +73,6 @@ class Nnet:
         model_type = self.conf.get("model", "dnn")
         if self.loss_type not in ("cross_entropy", "ctc", "attention", "rnnt"):
             raise ValueError(f"unknown loss {self.loss_type!r}")
-        if model_type in _UNPORTED:
-            raise NotImplementedError(
-                f"model = {model_type} is not in the port yet (ROADMAP.md, queue 1, "
-                f"{_UNPORTED[model_type]}); use tfkaldi_tpu.nnet.Nnet"
-            )
         if (model_type == "transducer") != (self.loss_type == "rnnt"):
             raise ValueError("model = transducer and loss = rnnt go together: the transducer is trained by the "
                              "lattice loss and has no per-frame posteriors for CE/CTC")
@@ -106,6 +98,12 @@ class Nnet:
             if config.subsample > 1 and self.loss_type != "ctc":
                 raise ValueError("subsample > 1 needs loss = ctc (frame-level CE targets require the 1:1 "
                                  "alignment)")
+        elif model_type == "tdnn":
+            config = TDNNConfig.from_config(self.conf, self.input_dim, output_dim)
+        elif model_type == "cnn":
+            # the splice copies become the conv's input channels
+            config = CNNConfig.from_config(self.conf, self.input_dim, output_dim,
+                                           num_channels=2 * self.context_width + 1)
         elif model_type == "dnn":
             config = DNNConfig.from_config(self.conf, self.input_dim, output_dim)
         else:

@@ -21,8 +21,14 @@ same workspace's transcripts, :func:`attention_nnet` that of the joint
 CTC-attention conformer recipe (whose subsampled CTC head wants sparser
 transcripts: ``text_density = 8``, or :func:`retext_featdir` beside
 existing features), :func:`transducer_nnet` that of the
-conformer-transducer recipe (the same encoder and transcripts), and
+conformer-transducer recipe (the same encoder and transcripts),
+:func:`tdnn_nnet` and :func:`cnn_nnet` bench.py's TDNN and CNN, and
 :func:`random_rnn_pytree` seeded LSTM/GRU weights in the JAX layout.
+
+Every config :func:`write_config` writes comes with a stub Kaldi egs
+(:func:`write_stub_kaldi`): shell scripts and fake binaries in place of
+Kaldi's GMM recipe, ``latgen-faster-mapped`` and scoring, so that every
+step of ``cli.main`` runs end to end, to a logged WER, without Kaldi.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from __future__ import annotations
 import gzip
 import os
 import shutil
+import sys
 from configparser import ConfigParser
 
 import numpy as np
@@ -126,10 +133,26 @@ def make_wav_datadir(
     return utts
 
 
+def write_parent_gmm(gmm_exp: str, num_pdfs: int) -> None:
+    """What a trained parent GMM leaves in ``gmm_exp`` for the hybrid
+    recipe's nnet steps: ``final.mdl`` and ``graph/`` (``num_pdfs``,
+    ``HCLG.fst``, ``words.txt``), as the stub egs writes them."""
+    graph = os.path.join(gmm_exp, "graph")
+    os.makedirs(graph, exist_ok=True)
+    for name, text in (("num_pdfs", f"{num_pdfs}\n"), ("HCLG.fst", "stub HCLG\n"), ("words.txt", "<eps> 0\nA 1\n")):
+        with open(os.path.join(graph, name), "w") as f:
+            f.write(text)
+    with open(os.path.join(gmm_exp, "final.mdl"), "w") as f:
+        f.write("stub final.mdl of the parent GMM\n")
+
+
 def write_config(root: str, *, num_pdfs: int, nnet: dict | None = None, dnn_features: dict | None = None) -> str:
     """``config/config_AURORA4.cfg`` with its directories moved under
-    ``root``, ``[nnet]``/``[dnn-features]`` keys overridden, and the parent
-    GMM's ``graph/num_pdfs`` written; returns the config path."""
+    ``root``, ``[nnet]``/``[dnn-features]`` keys overridden, a stub Kaldi
+    egs under ``kaldi_egs`` (:func:`write_stub_kaldi`; ``[general] cmd`` is
+    its ``run.pl``) and the parent GMM's ``final.mdl`` and ``graph/``
+    (``num_pdfs``, ``HCLG.fst``, ``words.txt``) written, as its training
+    would leave them; returns the config path."""
     config = ConfigParser()
     if not config.read(AURORA4_CONFIG):
         raise FileNotFoundError(AURORA4_CONFIG)
@@ -139,14 +162,143 @@ def write_config(root: str, *, num_pdfs: int, nnet: dict | None = None, dnn_feat
     for section, over in (("nnet", nnet), ("dnn-features", dnn_features)):
         for key, value in (over or {}).items():
             config.set(section, key, str(value))
-    graph = os.path.join(root, "expdir", config.get("nnet", "gmm_name"), "graph")
-    os.makedirs(graph, exist_ok=True)
-    with open(os.path.join(graph, "num_pdfs"), "w") as f:
-        f.write(f"{num_pdfs}\n")
+    config.set("general", "cmd", write_stub_kaldi(config.get("directories", "kaldi_egs"), num_pdfs))
+    write_parent_gmm(os.path.join(root, "expdir", config.get("nnet", "gmm_name")), num_pdfs)
     path = os.path.join(root, "config.cfg")
     with open(path, "w") as f:
         config.write(f)
     return path
+
+
+# the stub scorer's results: local/score.sh writes both, best_wer picks the first
+STUB_WERS = {"wer_10": "%WER 5.55 [ 55 / 990, 5 ins, 20 del, 30 sub ]",
+             "wer_11": "%WER 6.66 [ 66 / 990, 6 ins, 25 del, 35 sub ]"}
+
+# bash bodies of the stub Kaldi egs, by path under the egs dir; {bindir},
+# {num_pdfs}, {python}, {helper} and {wer_*} are filled in by write_stub_kaldi
+_STUBS = {
+    # Kaldi's job runner: JOB=1:N over the command, one log per job, the
+    # arguments re-quoted as utils/run.pl does, the fake binaries on PATH
+    "fakebin/run.pl": """export PATH="{bindir}:$PATH"
+while [[ "$1" == --* ]]; do shift 2; done
+spec=$1; shift
+log=$1; shift
+n=${{spec##*:}}
+for j in $(seq 1 "$n"); do
+  thislog=${{log//JOB/$j}}
+  mkdir -p "$(dirname "$thislog")"
+  cmd=$(printf '%q ' "$@")
+  cmd=${{cmd//JOB/$j}}
+  bash -c "$cmd" > "$thislog" 2>&1
+done
+""",
+    # args: [--opt=value]... model HCLG.fst 'ark,s,cs:copy-feats scp:S ark:- |' 'ark:|gzip -c > L'
+    "fakebin/latgen-faster-mapped": """opts=()
+while [[ "$1" == --* ]]; do opts+=("$1"); shift; done
+model=$1; fst=$2; feats=$3; lats=$4
+test -f "$model" && test -f "$fst"
+scp=${{feats#*copy-feats scp:}}; scp=${{scp%% *}}
+test -f "$scp"
+n=$(wc -l < "$scp")
+echo "latgen-faster-mapped ${{opts[*]}} $model $fst"
+echo "features: $scp ($n utterances)"
+echo "lattices of $n utterances" | bash -c "${{lats#ark:|}}"
+""",
+    "fakebin/copy-feats": """echo feats
+""",
+    # transition-ids -> pdf-ids by halving each id (args: final.mdl ark:- ark,t:-)
+    "fakebin/ali-to-pdf": """awk '{{ printf "%s", $1; for (i=2; i<=NF; i++) printf " %d", int($i/2); print "" }}'
+""",
+    "steps/train_mono.sh": """while [[ "$1" == --* ]]; do shift 2; done
+expdir=${{!#}}
+mkdir -p "$expdir"
+echo "stub final.mdl of $(basename "$0")" > "$expdir/final.mdl"
+""",
+    # args: --nj N --cmd C --config F featdir lang srcdir alidir
+    "steps/align_si.sh": """nj=1
+while [[ "$1" == --* ]]; do if [[ "$1" == --nj ]]; then nj=$2; fi; shift 2; done
+featdir=$1; srcdir=$3; alidir=$4
+mkdir -p "$alidir"
+cp "$srcdir/final.mdl" "$alidir/final.mdl"
+{python} {helper} "$featdir" "$alidir" "$nj"
+""",
+    # args: --cmd C --nj N graphdir data decodedir
+    "steps/decode.sh": """while [[ "$1" == --* ]]; do shift 2; done
+graph=$1; data=$2; dir=$3
+test -f "$graph/HCLG.fst" && test -f "$data/feats.scp"
+mkdir -p "$dir"
+echo "{wer_10}" > "$dir/wer_10"
+echo "decoded $(wc -l < "$data/feats.scp") utterances"
+""",
+    "utils/mkgraph.sh": """while [[ "$1" == --* ]]; do shift; done
+graph=${{!#}}
+mkdir -p "$graph"
+echo {num_pdfs} > "$graph/num_pdfs"
+echo "stub HCLG" > "$graph/HCLG.fst"
+printf '<eps> 0\\nA 1\\n' > "$graph/words.txt"
+""",
+    "utils/split_data.sh": """data=$1; nj=$2
+for j in $(seq 1 "$nj"); do
+  mkdir -p "$data/split$nj/$j"
+  cp "$data/feats.scp" "$data/split$nj/$j/feats.scp"
+done
+""",
+    "local/score.sh": """while [[ "$1" == --* ]]; do shift 2; done
+decode_dir=${{!#}}
+echo "{wer_10}" > "$decode_dir/wer_10"
+echo "{wer_11}" > "$decode_dir/wer_11"
+""",
+}
+_STUBS["steps/train_deltas.sh"] = _STUBS["steps/train_lda_mllt.sh"] = _STUBS["steps/train_mono.sh"]
+
+# the align stub's helper: frame-length-matched transition-id alignments
+# (2 x a seeded pdf) per job, read from the featdir with the port's ArkReader
+_ALIGN_HELPER = """import gzip, os, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from tfkaldi_tpu_torch.io import ArkReader
+
+featdir, alidir, nj = sys.argv[1], sys.argv[2], int(sys.argv[3])
+reader = ArkReader(os.path.join(featdir, "feats.scp"))
+rng = np.random.default_rng(0)
+utts = reader.utt_ids
+chunk = -(-len(utts) // nj)
+for j in range(nj):
+    with gzip.open(os.path.join(alidir, f"ali.{{j + 1}}.gz"), "wt") as f:
+        for utt in utts[j * chunk : (j + 1) * chunk]:
+            ali = 2 * rng.integers(0, {num_pdfs}, size=reader.read_utt(utt).shape[0])
+            f.write(utt + " " + " ".join(map(str, ali)) + "\\n")
+"""
+
+
+def write_stub_kaldi(egs: str, num_pdfs: int) -> str:
+    """Lay down a stub Kaldi egs dir at ``egs``: ``steps/{train_mono,
+    train_deltas,train_lda_mllt,align_si,decode}.sh``,
+    ``utils/{mkgraph,split_data}.sh``, ``local/score.sh`` and the binaries
+    ``run.pl``, ``latgen-faster-mapped``, ``copy-feats`` and ``ali-to-pdf``
+    under ``fakebin/``. They check what they are handed and leave what the
+    next step reads: a ``final.mdl``, a graph of ``num_pdfs`` pdfs,
+    transition-id alignments of the featdir's frame counts, the lattice
+    decode's logs (its options, model, graph and split ``feats.scp``) and
+    ``wer_*`` files (:data:`STUB_WERS`). ``run.pl`` puts ``fakebin/`` on
+    ``PATH`` for the commands it runs; ``ali-to-pdf`` is called outside it,
+    so an alignment step needs ``fakebin/`` on the caller's ``PATH``.
+    Returns the absolute path of ``run.pl``."""
+    egs = os.path.abspath(egs)
+    bindir = os.path.join(egs, "fakebin")
+    helper = os.path.join(egs, "local", "emit_ali.py")
+    os.makedirs(os.path.dirname(helper), exist_ok=True)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(helper, "w") as f:
+        f.write(_ALIGN_HELPER.format(root=root, num_pdfs=num_pdfs))
+    fill = dict(bindir=bindir, num_pdfs=num_pdfs, python=sys.executable, helper=helper, **STUB_WERS)
+    for name, body in _STUBS.items():
+        path = os.path.join(egs, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write("#!/bin/bash\nset -e\n" + body.format(**fill))
+        os.chmod(path, 0o755)
+    return os.path.join(bindir, "run.pl")
 
 
 def random_dnn_pytree(
@@ -240,6 +392,29 @@ def transducer_nnet() -> dict:
     if not config.read(AURORA4_TRANSDUCER_CONFIG):
         raise FileNotFoundError(AURORA4_TRANSDUCER_CONFIG)
     return dict(config.items("nnet"))
+
+
+def tdnn_nnet() -> dict:
+    """``[nnet]`` overrides for bench.py's TDNN (``bench_tdnn_tpu``,
+    bench.py:163-186): ``model = tdnn``, 5 x 1024 with the context
+    ``-2,-1,0,1,2;-1,0,1;-1,0,1;-3,0,3;-3,0,3`` over the raw 40 fbanks
+    (``context_width = 0``: the time-delay layers provide the context),
+    batchnorm, bf16. Laid over ``config_AURORA4.cfg`` it keeps that recipe's
+    training keys (batch 128, frame CE on the parent GMM's alignments)."""
+    return {"name": "tdnn_1024_5_bf16", "model": "tdnn", "context_width": "0", "num_hidden_units": "1024",
+            "num_hidden_layers": "5", "tdnn_context": "-2,-1,0,1,2;-1,0,1;-1,0,1;-3,0,3;-3,0,3",
+            "batch_norm": "True", "compute_dtype": "bfloat16"}
+
+
+def cnn_nnet() -> dict:
+    """``[nnet]`` overrides for bench.py's CNN (``bench_cnn_tpu``,
+    bench.py:206-222): ``model = cnn``, filters 64 and 128 with 9x3 and 3x3
+    kernels and frequency pools 3 and 1 over one channel of 40 fbanks
+    (``context_width = 0``), then 4 x 1024 dense layers, batchnorm, bf16.
+    Laid over ``config_AURORA4.cfg`` like :func:`tdnn_nnet`."""
+    return {"name": "cnn_64_128_1024_4_bf16", "model": "cnn", "context_width": "0", "cnn_filters": "64,128",
+            "cnn_kernels": "9x3;3x3", "cnn_pool": "3,1", "num_hidden_units": "1024", "num_hidden_layers": "4",
+            "batch_norm": "True", "compute_dtype": "bfloat16"}
 
 
 def retext_featdir(src: str, dst: str, *, seed: int, density: int) -> None:
