@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: kernels, the served
 path, the training path in f32 and in bf16, the BiLSTM and BiGRU paths,
-the character-CTC recipe, the joint CTC-attention conformer recipe, then
-the conformer-transducer recipe.
+the character-CTC recipe, the joint CTC-attention conformer recipe, the
+conformer-transducer recipe, the text recipes' offline decode, then
+bench.py's TDNN and CNN.
 
     python3 chip_smoke.py
 
@@ -117,9 +118,22 @@ the conformer-transducer recipe.
    greedy and beam transcripts where the margins decide), greedy and
    beam-8 decode timed by encoder and search, and one step timed by parts
    beside the model FLOPs (``transducer_path``, ``check_transducer``).
-11. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
-   count the BiLSTM, the CTC and the transducer paths), then the final
-   JSON line.
+11. Drives the text recipes' offline decode as the JAX package runs it on
+   the three models those phases trained, with one character trigram ARPA
+   estimated from the training transcripts (``text_decode_path``): the
+   attention model's autoregressive beam (``decode_mode = beam``, beam 10,
+   at most 200 tokens) unfused and LM-fused, its first batch's n-best on
+   the card against the CPU's and beam 1 against a greedy walk of the
+   cached step, both timed beside the rescoring decode; the transducer's
+   beam 8 fused (a zero-weight table gives the unfused n-best exactly); the
+   CTC beam 16 fused on the Python beam (the fused route on every batch,
+   kernel 4 once per layer and batch); and ``cli.serve --once`` on one job
+   per recipe, whose ``text`` equals ``Nnet.decode_text``'s.
+12. Drives bench.py's TDNN and CNN on the hybrid recipe at full width
+   (``hybrid_family_path``, ``check_hybrid_family``).
+13. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
+   count the BiLSTM, the CTC, the transducer and, kernel 4, the text
+   decode paths), then the final JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
 """
@@ -188,6 +202,8 @@ RNNT_CLASSES = 36
 PRED_SHAPE = (129, 128, 320)
 PRED_WIDTH = 128
 RNNT_TOL = 1e-5
+# utterances of the first attention decode batch whose beam the CPU replays (text_decode_path)
+REPLAY_ROWS = 8
 # bench.py's TDNN and CNN (bench.py:163-222) on the training workspace: the CNN's f32 conv
 # stack on the card against the CPU, max|diff| / max|ref| (f32 sums in another order; TF32 would
 # give about 1e-3)
@@ -2502,6 +2518,358 @@ def check_transducer(card: str, cfg_path: str, savedir: str, dirs: dict, ctc_gre
     return timings
 
 
+def greedy_walk(model, x, lengths, max_tokens: int) -> list:
+    """Greedy decode of a padded batch by the cached step alone: each row
+    takes the argmax of its running score plus the step's log-posteriors (the
+    lower index on a tie, as the beam's stable sort) until EOS or
+    ``max_tokens`` labels. Returns the label ids per row."""
+    import torch
+
+    dev = model.embed.device
+    with torch.inference_mode():
+        lengths = torch.as_tensor(lengths, dtype=torch.int32)
+        memory = model.encode(torch.as_tensor(x).to(dev), lengths)
+        valid = model.memory_valid(memory, lengths)
+        cross_k, cross_v = model.cross_kv(memory)
+        n = memory.shape[0]
+        cache = model.init_decode_cache(n, max_tokens)
+        tok = torch.full((n,), model.sos_eos_id, dtype=torch.long, device=dev)
+        score = torch.zeros(n, device=dev)
+        ids, done = [[] for _ in range(n)], [False] * n
+        for step in range(max_tokens):
+            logits, cache = model.decode_step_cached(tok, step, cache, cross_k, cross_v, valid)
+            total = score[:, None] + torch.log_softmax(logits, dim=-1)
+            tok = torch.argmax(total, dim=-1)
+            score = total.gather(1, tok[:, None])[:, 0]
+            for i, t in enumerate(tok.tolist()):
+                done[i] = done[i] or t == model.sos_eos_id
+                if not done[i]:
+                    ids[i].append(t)
+            if all(done):
+                break
+    return ids
+
+
+def beam_step_profile(dec, x, lengths, steps: int = 10) -> dict:
+    """``steps`` steps of the attention beam on a padded batch under
+    torch.profiler (after 3 untraced ones): a step's top-level aten ops and
+    device kernels, its device time (the kernels' self time summed) and its
+    host time, and the device's idle share of the window."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from tfkaldi_tpu_torch import profile_frame as pf
+
+    with torch.inference_mode():
+        st = dec.begin(x, lengths)
+        for _ in range(3):
+            cand = dec.candidates(st)
+            dec.advance(st, cand, dec.select(cand))
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                dec.live(st)
+                cand = dec.candidates(st)
+                dec.advance(st, cand, dec.select(cand))
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.events()
+    ops = sum(1 for e in events if e.name.startswith("aten::") and
+              (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    launches = sum(e.count for e in kernels)
+    device_ms = sum(pf._self_device_us(e) for e in kernels) / 1e3 / steps
+    if launches == 0:
+        raise RuntimeError("torch.profiler saw no device event in the attention beam's steps")
+    return {"aten_ops": ops / steps, "kernels": launches / steps, "device_ms": device_ms, "host_ms": host_ms,
+            "idle": 1.0 - device_ms / host_ms}
+
+
+def beam_replay(card_dec, cpu_dec, x, lengths) -> dict:
+    """The card's attention beam step by step with the CPU replaying the
+    card's choices: at each step both compute the candidate scores of the
+    same hypotheses; wherever the CPU's top-K set differs from the card's,
+    the card's choice must be a near tie on the CPU (the CPU's best
+    candidate the card left out at most twice the row's largest card-CPU
+    candidate difference above the card's worst pick). The replayed run
+    must equal the card decoder's own n-best. Returns the counts."""
+    import torch
+
+    neg = -1e30 / 2
+    steps = flips = 0
+    noise_max = excess_max = 0.0
+    with torch.inference_mode():
+        card, cpu = card_dec.begin(x, lengths), cpu_dec.begin(x, lengths)
+        while card_dec.live(card):
+            ck, cc = card_dec.candidates(card), cpu_dec.candidates(cpu)
+            flat = card_dec.select(ck)
+            flat_cpu, ckc, fk = cpu_dec.select(cc), ck.cpu(), flat.cpu()
+            noise = torch.where((ckc > neg) & (cc > neg), (ckc - cc).abs(), 0.0).amax(dim=1)
+            noise_max = max(noise_max, float(noise.max()))
+            for row, (mine, theirs) in enumerate(zip(fk.tolist(), flat_cpu.tolist())):
+                picked, left = sorted(set(mine) - set(theirs)), sorted(set(theirs) - set(mine))
+                if picked:
+                    excess = float(cc[row, left].max() - cc[row, picked].min())
+                    excess_max = max(excess_max, excess)
+                    if excess > 2 * float(noise[row]):
+                        raise AssertionError(f"attention beam step {card.step}, row {row}: the card kept candidates "
+                                             f"{picked} that the CPU scores {excess} below its own (noise "
+                                             f"{float(noise[row])})")
+                    flips += 1
+            card_dec.advance(card, ck, flat)
+            cpu_dec.advance(cpu, cc, fk)
+            steps += 1
+        replayed = [t.cpu() for t in card_dec.close(card)]
+    mine = card_dec.decode_batch_nbest(x, lengths)
+    buf, counts, scores, ranked = (t.numpy() for t in replayed)
+    for row, hyps in enumerate(mine):
+        order = [k for k in sorted(range(buf.shape[1]), key=lambda k: -ranked[row, k]) if scores[row, k] > neg]
+        want = [(buf[row, k, :counts[row, k]].tolist(), float(scores[row, k])) for k in order]
+        if [(ids.tolist(), score) for ids, score in hyps] != want:
+            raise AssertionError(f"the replayed beam differs from the card decoder's on row {row}")
+    return {"steps": steps, "decisions": steps * len(lengths), "near_ties": flips, "noise_max": noise_max,
+            "excess_max": excess_max, "labels": sum(len(h[0][0]) for h in mine)}
+
+
+def text_decode_path(card: str, ws: dict, att_dirs: dict, recipes: dict, rates: dict, device: str = "cuda") -> dict:
+    """The text recipes' offline decode as the JAX package runs it, on the
+    models the CTC, attention and transducer phases trained (``recipes``:
+    each one's config path and model dir; ``rates``: their decode rates).
+    One character trigram ARPA (``synthetic.write_char_arpa``) is estimated
+    from the seeded training transcripts; counts reset before, read after:
+
+    - attention, ``decode_mode = beam`` (beam 10, at most 200 tokens, JAX's
+      default mode) through ``Nnet.load_text_decoder``, unfused and fused
+      (``lm_alpha 0.5``): the card's beam on the first decode batch's
+      first REPLAY_ROWS utterances replayed on the CPU (bf16 both,
+      ``beam_replay``: every top-10 choice the CPU's too, or a near tie
+      within the candidates' card-CPU difference); 10 steps under
+      torch.profiler (``beam_step_profile``: ops, kernels, device time and
+      idle share a step); beam 1 equal to a greedy walk of the same cached
+      step on the card; the test set timed
+      (frames/s, the ``seconds`` split and the step count) beside the
+      rescoring decode's rate;
+    - transducer, beam 8 fused (``lm_path``): the test set timed, the
+      unfused beam right after it on the same model; a zero-weight table (``lm_alpha 0``, ``lm_beta
+      0``) gives the unfused n-best exactly on the first decode batch;
+    - CTC, beam 16 fused: the fused route on every decode batch and the
+      native beam never, kernel 4 once per layer and batch; frames/s;
+    - ``cli.serve --once`` on one job (the test featdir) per recipe: its
+      ``text`` equals ``Nnet.decode_text``'s for the same config (the CTC
+      job's service reads no LM, as the JAX service) and ``DONE`` holds the
+      utterance count.
+
+    Returns the launches of the seven kernels and the timings."""
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch import synthetic
+    from tfkaldi_tpu_torch.cli import serve as cli_serve
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode import ctc as ctc_decode
+    from tfkaldi_tpu_torch.decode.seq2seq import Seq2SeqBeamDecoder
+    from tfkaldi_tpu_torch.decode.streaming import stream_padded_batches
+    from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
+    from tfkaldi_tpu_torch.nnet import Nnet
+    from tfkaldi_tpu_torch.ops import lstm_bidi
+
+    root = os.path.join(TRAIN_WORK, "text_decode")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    arpa = os.path.join(root, "char3.arpa")
+    texts = [os.path.join(ws["train_featdir"], "text"), os.path.join(att_dirs["train"], "text")]
+    n_grams = synthetic.write_char_arpa(arpa, texts)
+    coder = TextCoder(aurora4_normalizer)
+    log(f"text decode LM: a character trigram of {n_grams} n-grams over the {coder.num_labels} labels and </s>, "
+        f"from the training transcripts of the CTC and attention featdirs: {time.perf_counter() - t0!r} s")
+
+    def variant(kind: str, tag: str, **keys) -> str:
+        config = ConfigParser()
+        config.read(recipes[kind][0])
+        for key, value in keys.items():
+            config.set("nnet", key, str(value))
+        path = os.path.join(root, f"config_{tag}.cfg")
+        with open(path, "w") as f:
+            config.write(f)
+        return path
+
+    def nnet(cfg_path: str, dev: str = device):
+        config = ConfigParser()
+        config.read(cfg_path)
+        return Nnet(config, 40, coder.num_labels, device=dev)
+
+    def reader(featdir: str, context: int):
+        return FeatureReader(os.path.join(featdir, "feats.scp"), os.path.join(featdir, "cmvn.scp"),
+                             os.path.join(featdir, "utt2spk"), context, 0)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def timed(decoder, featdir: str, context: int, out: str, passes: int) -> tuple[float, int]:
+        for _ in range(passes):  # warm-ups, then the timed pass
+            if hasattr(decoder, "seconds"):
+                decoder.seconds = dict.fromkeys(decoder.seconds, 0.0)
+                decoder.steps = 0
+            r = reader(featdir, context)
+            sync()
+            t = time.perf_counter()
+            count = decoder.decode_to_file(r, out)
+            sync()
+            seconds = time.perf_counter() - t
+            r.close()
+        return seconds, count
+
+    frames = sum(int(n) for _, _, l in stream_padded_batches(reader(att_dirs["test"], 0), batch_size=16) for n in l)
+    timings = {}
+    reset_counts()
+
+    # ---- attention: the autoregressive beam, JAX's default decode mode ----
+    t_att = time.perf_counter()
+    beam_cfg = variant("attention", "attention_beam", decode_mode="beam")
+    fused_cfg = variant("attention", "attention_beam_lm", decode_mode="beam", lm_path=arpa, lm_alpha=0.5)
+    dec = nnet(beam_cfg).load_text_decoder(coder)
+    if not (isinstance(dec, Seq2SeqBeamDecoder) and dec.beam == 10 and dec.max_tokens == 200 and dec.fusion is None):
+        raise AssertionError(f"decode_mode = beam gave {type(dec).__name__} (beam {getattr(dec, 'beam', None)})")
+    _, x, lengths = next(iter(stream_padded_batches(reader(att_dirs["test"], 0), batch_size=16)))
+    t0 = time.perf_counter()
+    cpu_dec = nnet(beam_cfg, "cpu").load_text_decoder(coder)
+    rows = REPLAY_ROWS
+    replay = beam_replay(dec, cpu_dec, x[:rows], lengths[:rows])
+    log(f"attention beam 10 (bf16), card against CPU on the first decode batch's first {rows} utterances (the CPU "
+        f"replays the card's choices; {rows} rows keep the CPU's share of the phase short): {replay['decisions']} "
+        f"top-10 choices over {replay['steps']} steps, {replay['near_ties']} of them near ties where the CPU's top "
+        f"10 differ (the left-out candidate at most {replay['excess_max']!r} above the card's pick, within twice "
+        f"the step's card-CPU candidate difference, at most {replay['noise_max']!r}); the replay equals the card "
+        f"decoder's n-best ({replay['labels']} labels in the best hypotheses); {time.perf_counter() - t0!r} s")
+    del cpu_dec
+    prof = beam_step_profile(dec, x, lengths)
+    timings.update({f"attention_step_{k}": v for k, v in prof.items()})
+    log(f"attention beam 10 step on the first decode batch (B·K = {dec.beam * len(lengths)}), 10 steps under "
+        f"torch.profiler: {prof['aten_ops']!r} top-level aten ops and {prof['kernels']!r} device kernels a step, "
+        f"device time {prof['device_ms']!r} ms against {prof['host_ms']!r} ms of host time a step: the device idle "
+        f"{prof['idle']!r} of it [{card}]")
+    beam1 = Seq2SeqBeamDecoder(dec.model, coder, beam_width=1, max_tokens=dec.max_tokens).decode_batch(x, lengths)
+    walk = greedy_walk(dec.model, x, lengths, dec.max_tokens)
+    differ = [i for i, (a, b) in enumerate(zip(beam1, walk)) if not np.array_equal(a, b)]
+    log(f"attention beam 1 vs a greedy walk of the cached step on the card: {len(beam1) - len(differ)} of "
+        f"{len(beam1)} rows identical ({sum(len(a) for a in beam1)} labels)")
+    if differ:
+        raise AssertionError(f"beam 1 differs from the greedy walk on rows {differ}")
+    fused = nnet(fused_cfg).load_text_decoder(coder)
+    if fused.fusion is None or fused.fusion.table.shape[1] != coder.num_labels + 1:
+        raise AssertionError("the fused attention decoder has no table over the alphabet and </s>")
+    outs = {}
+    for tag, d in (("beam10", dec), ("beam10_lm", fused)):
+        outs[tag] = os.path.join(root, f"attention_{tag}.txt")
+        seconds, count = timed(d, att_dirs["test"], 0, outs[tag], passes=1)  # the card is warm
+        split = {part: v * 1e3 for part, v in d.seconds.items()}
+        timings[f"attention_{tag}_frames_per_s"] = frames / seconds
+        timings.update({f"attention_{tag}_{part}_ms": v for part, v in split.items()})
+        timings[f"attention_{tag}_steps"] = d.steps
+        log(f"attention {tag} decode of the test set ({count} utterances, {frames} frames, batches of 16, at most "
+            f"{d.max_tokens} tokens, features read): {seconds!r} s, {frames / seconds!r} frames/s; ms by part: "
+            f"encoder + cross_kv {split['encoder']!r}, step loop {split['steps']!r} ({d.steps} steps, "
+            f"{split['steps'] / max(d.steps, 1)!r} ms a step), forced close {split['close']!r}; rest (features "
+            f"read, batching, text) {seconds * 1e3 - sum(split.values())!r}; the rescoring decode (the recipe's mode) "
+            f"{rates['attention']!r} frames/s [{card}]")
+    del dec, fused
+    log(f"phase text decode, attention: {time.perf_counter() - t_att!r} s")
+
+    # ---- transducer: beam 8 with the LM ----
+    t_rnnt = time.perf_counter()
+    rnnt_cfg = variant("rnnt", "transducer_lm", lm_path=arpa, lm_alpha=0.5)
+    zero_cfg = variant("rnnt", "transducer_lm0", lm_path=arpa, lm_alpha=0, lm_beta=0)
+    fused = nnet(rnnt_cfg).load_text_decoder(coder)
+    if not (isinstance(fused, TransducerBeamDecoder) and fused.beam == 8 and fused.fusion is not None):
+        raise AssertionError(f"the transducer config with lm_path gave {type(fused).__name__} without a table")
+    zero = nnet(zero_cfg).load_text_decoder(coder)
+    if zero.fusion.table.any():
+        raise AssertionError("the zero-weight fusion table is not all zeros")
+    plain = TransducerBeamDecoder(zero.model, coder, beam_width=zero.beam, max_symbols_per_frame=zero.max_symbols)
+    outs["rnnt"] = os.path.join(root, "transducer_beam8_lm.txt")
+    rate = {}
+    for tag, d in (("beam8_lm", fused), ("beam8", plain)):  # back to back: the host's pace moves between calls
+        seconds, count = timed(d, att_dirs["test"], 0, outs["rnnt"] if d is fused else os.devnull, passes=1)
+        rate[tag] = frames / seconds
+        timings[f"transducer_{tag}_frames_per_s"] = rate[tag]
+    log(f"transducer beam 8 decode of the test set ({count} utterances, {frames} frames, features read), fused "
+        f"{rate['beam8_lm']!r} frames/s, unfused {rate['beam8']!r} right after it; the transducer phase's unfused "
+        f"beam 8 {rates['rnnt']!r} [{card}]")
+    a, b = zero.decode_batch_nbest(x, lengths), plain.decode_batch_nbest(x, lengths)
+    if [[(i.tolist(), s) for i, s in r] for r in a] != [[(i.tolist(), s) for i, s in r] for r in b]:
+        raise AssertionError("the zero-weight fused transducer beam differs from the unfused beam")
+    log(f"transducer zero-weight table (lm_alpha 0, lm_beta 0): n-best ids and scores equal to the unfused beam's on "
+        f"the first decode batch's {len(a)} utterances")
+    del fused, zero, plain
+    log(f"phase text decode, transducer: {time.perf_counter() - t_rnnt!r} s")
+
+    # ---- CTC: beam 16 with the FusionScorer (the Python beam) ----
+    t_ctc = time.perf_counter()
+    ctc_cfg = variant("ctc", "ctc_lm", lm_path=arpa, lm_alpha=0.5)
+    ctc_nnet = nnet(ctc_cfg)
+    dec = ctc_nnet.load_text_decoder(coder)
+    if dec.fusion_scorer is None or dec.beam_width != 16:
+        raise AssertionError("the CTC config with lm_path gave no fused beam 16")
+    c = lstm_bidi.CELL
+    runs0, fwd0, step0 = dict(ctc_decode.beam_runs), c.fwd_persistent_launches, c.fwd_launches
+    outs["ctc"] = os.path.join(root, "ctc_beam16_lm.txt")
+    seconds, count = timed(dec, ws["test_featdir"], ctc_nnet.context_width, outs["ctc"], passes=1)
+    batches = -(-count // 16)
+    runs = {k: ctc_decode.beam_runs[k] - runs0[k] for k in runs0}
+    fwd = c.fwd_persistent_launches - fwd0
+    timings["ctc_beam16_lm_frames_per_s"] = frames / seconds
+    log(f"CTC beam 16 fused decode of the test set ({count} utterances, {frames} frames, {batches} batches, the "
+        f"Python beam with the FusionScorer, features read): {seconds!r} s, {frames / seconds!r} frames/s; beam runs "
+        f"{runs}; kernel 4 persistent launches {fwd}, step route {c.fwd_launches - step0}; the native unfused beam "
+        f"16 {rates['ctc']!r} frames/s [{card}]")
+    if runs != {"native": 0, "python": 0, "fused": batches}:
+        raise AssertionError(f"the fused CTC decode ran beams {runs}, want fused on each of {batches} batches only")
+    if fwd != RNN_LAYERS * batches or c.fwd_launches != step0:
+        raise AssertionError(f"kernel 4 launched {fwd} times on the fused CTC decode, want {RNN_LAYERS} x {batches}")
+    del dec
+    log(f"phase text decode, CTC: {time.perf_counter() - t_ctc!r} s")
+
+    # ---- the spool server for text models ----
+    t_spool = time.perf_counter()
+    ctc_text = os.path.join(recipes["ctc"][1], "decode", "text")  # the CTC phase's decode_text, no LM
+    for kind, cfg_path, featdir, want in (("ctc", recipes["ctc"][0], ws["test_featdir"], ctc_text),
+                                          ("attention", fused_cfg, att_dirs["test"], outs["beam10_lm"]),
+                                          ("rnnt", rnnt_cfg, att_dirs["test"], outs["rnnt"])):
+        spool_in, spool_out = os.path.join(root, f"spool_{kind}", "in"), os.path.join(root, f"spool_{kind}", "out")
+        shutil.copytree(featdir, os.path.join(spool_in, "job0"))
+        t0 = time.perf_counter()
+        rc = cli_serve.main(["--config", cfg_path, "--watch", spool_in, "--out", spool_out, "--once",
+                             "--device", device])
+        serve_s = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"cli.serve {kind}: rc {rc}")
+        with open(os.path.join(spool_out, "job0", "text")) as f:
+            got = f.read()
+        with open(want) as f:
+            expected = f.read()
+        with open(os.path.join(spool_out, "job0", "DONE")) as f:
+            done = f.read()
+        log(f"cli.serve --once, {kind} job of {len(got.splitlines())} utterances (model load included): "
+            f"{serve_s!r} s; text equal to decode_text's: {got == expected}; DONE {done.strip()!r}")
+        if got != expected or done != f"{len(expected.splitlines())}\n":
+            raise AssertionError(f"the {kind} spool job's text or DONE marker differs from decode_text's")
+    log(f"phase text decode, spool: {time.perf_counter() - t_spool!r} s")
+    launches = seven_counters()
+    log(f"text decode path launches of the seven kernels {launches}")
+    want_fwd = RNN_LAYERS * 2 * batches  # the fused decode and the CTC spool job
+    if launches["lstm_fwd_persistent"] != want_fwd or any(v for k, v in launches.items() if k != "lstm_fwd_persistent"):
+        raise AssertionError(f"text decode path launches {launches}: want lstm_fwd_persistent {want_fwd}, all else 0")
+    return {"lstm_fwd": launches["lstm_fwd_persistent"]}, timings
+
+
 def seven_counters() -> dict:
     """Every launch counter of the seven kernels, the recurrences' by route."""
     from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
@@ -3025,6 +3393,18 @@ def main() -> int:
     log(f"transducer phase: {json.dumps(rnnt_times)} [{card}]")
     log(f"phase transducer path: {time.perf_counter() - t0!r} s")
 
+    # ---- the text recipes' offline decode as the JAX package runs it (kernel 4 on the fused CTC beam) ----
+    t0 = time.perf_counter()
+    text_launches, text_times = text_decode_path(
+        card, train_ws, att_dirs,
+        {"ctc": (ctc_cfg, ctc_savedir), "attention": (att_cfg, att_savedir), "rnnt": (rnnt_cfg, rnnt_savedir)},
+        {"ctc": ctc_times["beam_frames_per_s"], "attention": att_times["decode_frames_per_s"],
+         "rnnt": rnnt_times["beam8_frames_per_s"]})
+    for name, count in text_launches.items():
+        rnn_launches[name] += count
+    log(f"text decode phase: {json.dumps(text_times)} [{card}]")
+    log(f"phase text decode path: {time.perf_counter() - t0!r} s")
+
     # ---- bench.py's TDNN and CNN on the hybrid recipe at full width (no hand kernel on their paths) ----
     for family in ("tdnn", "cnn"):
         t0 = time.perf_counter()
@@ -3035,7 +3415,8 @@ def main() -> int:
 
     # launches: f32, the served path's and the training path's runs
     # together; bf16, the bf16 DNN path's run; kernels 4 and 5, the BiLSTM
-    # path's, the CTC path's and the transducer path's runs together
+    # path's, the CTC path's, the transducer path's and (kernel 4) the text
+    # decode path's runs together
     total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
     kernels = [
         dict(name="fused_ffn_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",

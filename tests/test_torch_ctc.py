@@ -47,7 +47,7 @@ from tfkaldi_tpu.train import TrainerConfig as JaxTrainerConfig
 from tfkaldi_tpu.utils import wer as jax_wer
 from tfkaldi_tpu_torch import synthetic
 from tfkaldi_tpu_torch.cli import main as cli_main
-from tfkaldi_tpu_torch.convert import train_state_from_jax
+from tfkaldi_tpu_torch.convert import save_checkpoint, train_state_from_jax
 from tfkaldi_tpu_torch.data.batching import DeviceBatcher, PaddedBatch
 from tfkaldi_tpu_torch.data.dispenser import TextBatchDispenser
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
@@ -363,5 +363,17 @@ def test_unported_text_losses_and_lm_fusion_raise(tmp_path):
         Nnet(config(loss="rnnt"), 4, 35, device="cpu")
     with pytest.raises(ValueError, match="model = seq2seq and loss = attention"):  # ported: it pairs with seq2seq
         Nnet(config(loss="attention"), 4, 35, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Nnet(config(loss="ctc", lm_path="lm.arpa"), 4, 35, device="cpu").load_text_decoder(None)
+    # LM fusion follows the JAX package's rules (nnet.py:446-460)
+    text = tmp_path / "text"
+    text.write_text("u1 THE MARKET\nu2 SHARES OF THE BANK\n")
+    arpa = str(tmp_path / "char3.arpa")
+    synthetic.write_char_arpa(arpa, [str(text)])
+    coder = TextCoder(aurora4_normalizer)
+    with pytest.raises(ValueError, match="needs beam_width > 1"):
+        Nnet(config(loss="ctc", lm_path=arpa), 4, 35, device="cpu").load_text_decoder(coder)
+    net = Nnet(config(loss="ctc", lm_path=arpa, beam_width="4", lm_alpha="0.7", lm_beta="0.2"), 4, 35, device="cpu")
+    save_checkpoint(net.savedir, net.model.state_dict())
+    dec = net.load_text_decoder(coder)
+    assert dec.beam_width == 4 and dec.fusion_scorer.id_to_token == list(coder.alphabet) + ["<blank>"]
+    assert (dec.fusion_scorer.alpha, dec.fusion_scorer.beta) == (0.7, 0.2)
+    assert net.load_text_decoder(coder, ctc_lm=False).fusion_scorer is None  # the decode service's CTC decoder

@@ -123,3 +123,43 @@ def test_text_decode_kernels_match_plain(cuda, beam):
         np.testing.assert_array_equal(got[i], want[i])
     if beam > 1:
         assert ctc_decode.beam_runs["python"] == 0 and ctc_decode.beam_runs["native"] >= 2
+
+
+def test_fused_beam_route_counts(cuda, tmp_path):
+    """The recipe's 2 x 512 BiLSTM (f32, seeded weights) at beam 16 fused with
+    a character trigram: the fused route runs (``beam_runs["fused"]`` once a
+    batch, the native beam never), kernel 4 launches once per layer and call
+    on the persistent route, and the transcripts equal those of the plain
+    version's log-posteriors through the same fused beam where the margins
+    are clear."""
+    from tfkaldi_tpu_torch.decode.lm import ArpaLM, FusionScorer
+
+    input_dim, b = 200, 8
+    params = synthetic.random_rnn_pytree(input_dim, 512, 2, V, gates=4, seed=4)
+    params["out"]["w"] *= 4.0
+    model = build_model(RNNConfig(input_dim=input_dim, num_labels=V, num_layers=2, hidden_units=512,
+                                  bidirectional=True, compute_dtype=torch.float32, cell="lstm"))
+    model.load_state_dict(rnn_from_jax(params))
+    rng = np.random.default_rng(2)
+    text = tmp_path / "text"
+    text.write_text("".join(f"u{i} {synthetic.transcript(rng, 300)}\n" for i in range(40)))
+    synthetic.write_char_arpa(str(tmp_path / "char3.arpa"), [str(text)])
+    coder = TextCoder(aurora4_normalizer)
+    scorer = FusionScorer(ArpaLM.load(str(tmp_path / "char3.arpa")), list(coder.alphabet) + ["<blank>"], alpha=0.5)
+    decoder = ctc_decode.CTCDecoder(model.to(cuda), coder, BLANK, beam_width=16, fusion_scorer=scorer)
+    lengths = rng.integers(204, T + 1, b).astype(np.int32)
+    inputs = rng.standard_normal((b, T, input_dim)).astype(np.float32)
+    ctc_decode.beam_runs.update(native=0, python=0, fused=0)
+    before = lstm_bidi.CELL.fwd_persistent_launches
+    got = decoder.decode_batch(inputs, lengths)
+    assert lstm_bidi.CELL.fwd_persistent_launches == before + 2  # 2 layers, 1 call
+    assert ctc_decode.beam_runs == {"native": 0, "python": 0, "fused": 1}
+    assert [len(f) for f in decoder.last_label_frames] == [len(g) for g in got]
+    with plain_lstm():
+        want = decoder.decode_batch(inputs, lengths)
+        want_lp = decoder.log_probs(inputs, lengths)
+    top2 = np.sort(want_lp, axis=-1)[..., -2:]
+    clear = [i for i, n in enumerate(lengths) if (top2[i, :n, 1] - top2[i, :n, 0] > LOG_TOL).all()]
+    assert len(clear) >= b // 2
+    for i in clear:
+        np.testing.assert_array_equal(got[i], want[i])

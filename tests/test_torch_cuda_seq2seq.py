@@ -13,6 +13,12 @@ bf16, the card's distance from the CPU f32 result within 2x the CPU bf16
 result's (+ 1e-5). The key biases' gradients are 0 in exact arithmetic
 (the softmax ignores a shift of a whole row), so they are rounding noise on
 both sides and are held below 1e-4 of the key weights' gradient instead.
+The autoregressive beam (unfused, and fused with a character trigram
+written by ``synthetic.write_char_arpa``): the card's n-best against the
+CPU's, scores within 1e-4 where the n-best lists agree (at least half the
+rows), the best hypothesis identical wherever the top two scores lie
+further apart than twice the runs' score difference; beam 1 equals a
+greedy walk of the cached step on the card.
 The BiLSTM encoder's kernels against their plain versions on the card: the
 rule of tests/test_torch_cuda_rnn.py (f32 within 1e-5, bf16 by the 2x rule),
 carried through the encoder and the decoder on top (1e-4 for gradients).
@@ -25,8 +31,12 @@ import numpy as np
 import pytest
 import torch
 
+from tfkaldi_tpu_torch import synthetic
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
-from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder
+from tfkaldi_tpu_torch.data.target_coder import TextCoder
+from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+from tfkaldi_tpu_torch.decode.lm import ArpaLM, DenseFusionTable
+from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder, Seq2SeqBeamDecoder
 from tfkaldi_tpu_torch.models import Seq2SeqConfig
 from tfkaldi_tpu_torch.ops import lstm_bidi, rnn_bidi
 from tfkaldi_tpu_torch.train import checkpoint as ckpt
@@ -176,6 +186,77 @@ def test_rescoring_on_card_matches_cpu(cuda):
         if len(final) < 2 or final[-1] - final[-2] > 1e-3:
             np.testing.assert_array_equal(got[i], want[i])
     assert sum(same_nbest) >= len(xl) // 2, same_nbest
+
+
+def char_lm(tmp_path, columns):
+    """A character trigram over the recipe's alphabet from seeded transcripts,
+    as a dense fusion table with ``columns``."""
+    rng = np.random.default_rng(5)
+    text = tmp_path / "text"
+    text.write_text("".join(f"u{i} {synthetic.transcript(rng, 300)}\n" for i in range(40)))
+    synthetic.write_char_arpa(str(tmp_path / "char3.arpa"), [str(text)])
+    alphabet = TextCoder(aurora4_normalizer).alphabet
+    return DenseFusionTable(ArpaLM.load(str(tmp_path / "char3.arpa")), alphabet, columns(alphabet), alpha=0.5,
+                            beta=0.5)
+
+
+def check_nbest(got, want, tol=1e-4):
+    """The rule of the transducer's card test: n-best lists that agree have
+    scores within ``tol``, and their best ids are identical wherever the top
+    two scores lie further apart than twice the two runs' difference; at
+    least half the rows agree."""
+    agree = 0
+    for g_row, w_row in zip(got, want):
+        if len(g_row) != len(w_row) or not all(np.array_equal(a[0], b[0]) for a, b in zip(g_row, w_row)):
+            continue
+        agree += 1
+        diff = max(abs(a[1] - b[1]) for a, b in zip(g_row, w_row))
+        assert diff <= tol * max(1.0, abs(w_row[0][1])), diff
+        if len(w_row) < 2 or w_row[0][1] - w_row[1][1] > 2 * diff:
+            np.testing.assert_array_equal(g_row[0][0], w_row[0][0])
+    assert agree >= len(want) // 2, (agree, len(want))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_attention_beam_on_card_matches_cpu(cuda, fused, tmp_path):
+    cfg = _config()
+    model = _state(Trainer(cfg, TrainerConfig(loss_type="attention"), device="cpu"), 8).model
+    batch = _batch(9, b=6, t=128)
+    x, xl = batch.inputs.numpy(), batch.input_lengths.numpy()
+    table = char_lm(tmp_path, lambda alphabet: list(alphabet) + ["</s>"]) if fused else None
+    want = Seq2SeqBeamDecoder(model, _IdCoder(), beam_width=4, max_tokens=24, fusion_table=table)
+    got = Seq2SeqBeamDecoder(copy.deepcopy(model).to(cuda), _IdCoder(), beam_width=4, max_tokens=24,
+                             fusion_table=table)
+    assert got._lm_table is None or got._lm_table.is_cuda
+    check_nbest(got.decode_batch_nbest(x, xl), want.decode_batch_nbest(x, xl))
+    assert got.steps == want.steps > 0
+
+
+def test_attention_beam1_equals_greedy_walk_on_card(cuda):
+    cfg = _config()
+    model = _state(Trainer(cfg, TrainerConfig(loss_type="attention"), device="cpu"), 10).model.to(cuda)
+    batch = _batch(11, b=4, t=96)
+    x, xl = batch.inputs.numpy(), batch.input_lengths.numpy()
+    L = 16
+    got = Seq2SeqBeamDecoder(model, _IdCoder(), beam_width=1, max_tokens=L).decode_batch(x, xl)
+    with torch.no_grad():
+        mem = model.encode(batch.inputs.to(cuda), batch.input_lengths)
+        valid = model.memory_valid(mem, batch.input_lengths)
+        ck, cv = model.cross_kv(mem)
+        cache = model.init_decode_cache(len(xl), L)
+        tok, score = torch.full((len(xl),), V, device=cuda), torch.zeros(len(xl), device=cuda)
+        ids, done = [[] for _ in xl], [False] * len(xl)
+        for s in range(L):
+            logits, cache = model.decode_step_cached(tok, s, cache, ck, cv, valid)
+            total = score[:, None] + torch.log_softmax(logits, dim=-1)  # as the beam adds them
+            tok = torch.argmax(total, dim=-1)
+            score = total.gather(1, tok[:, None])[:, 0]
+            for i, t in enumerate(tok.tolist()):
+                done[i] = done[i] or t == V
+                if not done[i]:
+                    ids[i].append(t)
+    for g, w in zip(got, ids):
+        np.testing.assert_array_equal(g, w)
 
 
 @contextlib.contextmanager

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_cuda_seq2seq import char_lm, check_nbest
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
 from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
 from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
@@ -238,3 +239,22 @@ def test_decode_on_card_matches_cpu(cuda, beam):
     got = make(copy.deepcopy(model).to(cuda)).decode_batch(x, xl)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_fused_beam_on_card_matches_cpu(cuda, tmp_path):
+    """Beam 4 fused with a character trigram over the alphabet (alpha 0.5,
+    beta 0.5) on the card and on the CPU (f32), by the n-best rule of
+    tests/test_torch_cuda_seq2seq.py; a zero-weight table gives the unfused
+    n-best exactly on the card."""
+    model = Trainer(_config(), TrainerConfig(loss_type="rnnt"), device="cpu").init_state(8).model
+    batch = _batch(9, b=6, t=128)
+    x, xl = batch.inputs.numpy(), batch.input_lengths.numpy()
+    table = char_lm(tmp_path, list)
+    want = TransducerBeamDecoder(model, _IdCoder(), beam_width=4, fusion_table=table).decode_batch_nbest(x, xl)
+    card = copy.deepcopy(model).to(cuda)
+    got = TransducerBeamDecoder(card, _IdCoder(), beam_width=4, fusion_table=table).decode_batch_nbest(x, xl)
+    check_nbest(got, want)
+    table.table[:] = 0.0
+    zero = TransducerBeamDecoder(card, _IdCoder(), beam_width=4, fusion_table=table).decode_batch_nbest(x, xl)
+    base = TransducerBeamDecoder(card, _IdCoder(), beam_width=4).decode_batch_nbest(x, xl)
+    assert [[(i.tolist(), s) for i, s in row] for row in zero] == [[(i.tolist(), s) for i, s in row] for row in base]

@@ -17,8 +17,9 @@ output and CTC heads carried over by ``convert.seq2seq_from_jax``:
 - padding invariance of the loss in both axes (frames and labels);
 - ``nbest_prefixes``, and ``CTCRescoreDecoder.decode_batch`` (identical
   transcripts, attention scores within 1e-5 relative) against the JAX ones;
-- an overfit canary for the rescoring decode; the ``Nnet`` pairing and the
-  decode modes that are not ported; ``cli.main --steps
+- an overfit canary for the rescoring decode; the ``Nnet`` pairing and its
+  decode modes (``beam``, the default, and ``rescoring``, which reads no
+  ``lm_path``); ``cli.main --steps
   dnn_train_features,dnn_test_features,train_nnet,test_nnet`` on a tiny
   attention workspace.
 """
@@ -44,12 +45,12 @@ from tfkaldi_tpu.train import Trainer as JaxTrainer
 from tfkaldi_tpu.train import TrainerConfig as JaxTrainerConfig
 from tfkaldi_tpu_torch import synthetic
 from tfkaldi_tpu_torch.cli import main as cli_main
-from tfkaldi_tpu_torch.convert import seq2seq_from_jax, train_state_from_jax
+from tfkaldi_tpu_torch.convert import save_checkpoint, seq2seq_from_jax, train_state_from_jax
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
 from tfkaldi_tpu_torch.data.target_coder import TextCoder
 from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
 from tfkaldi_tpu_torch.decode import ctc_beam
-from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder
+from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder, Seq2SeqBeamDecoder
 from tfkaldi_tpu_torch.models import AttentionSeq2Seq, Seq2SeqConfig
 from tfkaldi_tpu_torch.nnet import Nnet
 from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -68,6 +69,8 @@ ENCODERS = {
 
 
 class _IdCoder:
+    alphabet = ["a", "b", "c", "d"]
+
     def decode(self, ids):
         return " ".join(str(i) for i in np.asarray(ids))
 
@@ -388,11 +391,12 @@ def test_nnet_pairing_and_unported_decodes(tmp_path):
     assert net.model.vocab_size == V + 1 and net.model.sos_eos_id == V
     with pytest.raises(ValueError, match="per-frame posteriors"):
         net.decode(None, None)
-    with pytest.raises(NotImplementedError, match="item 14"):  # decode_mode = beam, the default
-        net.load_text_decoder(None)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Nnet(config(model="seq2seq", loss="attention", decode_mode="rescoring", lm_path="lm.arpa"), 5, V,
-             device="cpu").load_text_decoder(None)
+    save_checkpoint(net.savedir, net.model.state_dict())
+    assert isinstance(net.load_text_decoder(_IdCoder()), Seq2SeqBeamDecoder)  # decode_mode = beam, the default
+    # decode_mode = rescoring reads no lm_path (nnet.py:366-377): the file is never opened
+    rescoring = Nnet(config(model="seq2seq", loss="attention", ctc_weight="0.3", decode_mode="rescoring",
+                            lm_path="lm.arpa"), 5, V, device="cpu")
+    assert isinstance(rescoring.load_text_decoder(_IdCoder()), CTCRescoreDecoder)
     with pytest.raises(ValueError, match="subsample > 1 needs loss = ctc"):
         Nnet(config(model="conformer", num_blocks="1", subsample="4"), 5, V, device="cpu")
 

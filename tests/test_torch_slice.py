@@ -186,7 +186,8 @@ def test_port_imports_without_jax():
             "tfkaldi_tpu_torch.utils.wer, tfkaldi_tpu_torch.data.dispenser, tfkaldi_tpu_torch.ops.rnnt_loss, "
             "tfkaldi_tpu_torch.models.transducer, tfkaldi_tpu_torch.decode.transducer, "
             "tfkaldi_tpu_torch.decode.transducer_beam, tfkaldi_tpu_torch.models.tdnn, tfkaldi_tpu_torch.models.cnn, "
-            "tfkaldi_tpu_torch.kaldi, tfkaldi_tpu_torch.kaldi.gmm, tfkaldi_tpu_torch.kaldi.decode_wfst; "
+            "tfkaldi_tpu_torch.kaldi, tfkaldi_tpu_torch.kaldi.gmm, tfkaldi_tpu_torch.kaldi.decode_wfst, "
+            "tfkaldi_tpu_torch.decode.lm, tfkaldi_tpu_torch.serve; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)

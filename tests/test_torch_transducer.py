@@ -40,7 +40,8 @@ from tfkaldi_tpu.ops import rnnt_loss as jax_rnnt
 from tfkaldi_tpu.train import Trainer as JaxTrainer
 from tfkaldi_tpu.train import TrainerConfig as JaxTrainerConfig
 from tfkaldi_tpu_torch import synthetic
-from tfkaldi_tpu_torch.convert import train_state_from_jax, transducer_from_jax
+from tfkaldi_tpu_torch.convert import save_checkpoint, train_state_from_jax, transducer_from_jax
+from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
 from tfkaldi_tpu_torch.models import Transducer, TransducerConfig, build_model
 from tfkaldi_tpu_torch.nnet import Nnet
@@ -389,8 +390,20 @@ def test_nnet_pairing_and_decodes(tmp_path):
     assert net.model.vocab_size == V + 1 and not net.model.config.enc_bidirectional
     with pytest.raises(ValueError, match="per-frame posteriors"):
         net.decode(None, None)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Nnet(config(model="transducer", loss="rnnt", lm_path="lm.arpa"), 5, V, device="cpu").load_text_decoder(None)
+    # LM fusion follows the JAX package's rules (nnet.py:400-432): beam only, the table over the alphabet
+    arpa = tmp_path / "bigram.arpa"
+    arpa.write_text("\\data\\\nngram 1=3\nngram 2=1\n\n\\1-grams:\n-0.5\ta\t-0.3\n-0.7\tb\n-99\t<s>\n\n"
+                    "\\2-grams:\n-0.2\ta b\n\n\\end\\\n")
+
+    class _Coder:
+        alphabet = ["a", "b", "c", "d"]
+
+    with pytest.raises(ValueError, match="needs beam_width > 1"):
+        Nnet(config(model="transducer", loss="rnnt", lm_path=str(arpa)), 5, V, device="cpu").load_text_decoder(_Coder())
+    net = Nnet(config(model="transducer", loss="rnnt", lm_path=str(arpa), beam_width="3"), 5, V, device="cpu")
+    save_checkpoint(net.savedir, net.model.state_dict())
+    dec = net.load_text_decoder(_Coder())
+    assert isinstance(dec, TransducerBeamDecoder) and dec.beam == 3 and dec.fusion.table.shape == (V + 1, V)
     with pytest.raises(ValueError, match="add_layer_period"):
         Nnet(config(model="transducer", loss="rnnt", add_layer_period="3"), 5, V, device="cpu")
 

@@ -13,6 +13,12 @@ causal conformer-s2 encoder):
 - beam: n-best ids identical to ``TransducerBeamDecoder``'s and the scores
   within SCORE_TOL (1e-4) absolute, for seeds 0-2; beam 1 equals greedy;
   n-best sorted and unique; ``decode_batch_aligned``; ``decode_to_file``;
+- the LM-fused beam (a trigram ``DenseFusionTable`` over the 4 labels, the
+  same ARPA file on both sides): n-best ids identical to JAX's fused
+  ``TransducerBeamDecoder`` and scores within SCORE_TOL, the best
+  hypothesis' frames and acoustic (pre-fusion) posteriors as JAX's; a
+  zero-weight table (``lm_alpha 0``, ``lm_beta 0``) gives the unfused
+  n-best exactly;
 - end to end: ``cli.main --steps dnn_train_features,dnn_test_features,
   train_nnet,test_nnet --device cpu`` on config_AURORA4_transducer.cfg's
   ``[nnet]`` at tiny width writes ``decode/text`` and logs the CER.
@@ -28,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+from tfkaldi_tpu.decode.lm import ArpaLM as JaxArpaLM
+from tfkaldi_tpu.decode.lm import DenseFusionTable as JaxDenseFusionTable
 from tfkaldi_tpu.decode.transducer import TransducerDecoder as JaxTransducerDecoder
 from tfkaldi_tpu.decode.transducer_beam import TransducerBeamDecoder as JaxTransducerBeamDecoder
 from tfkaldi_tpu.models.rnn import GRU as JaxGRU
@@ -41,6 +49,7 @@ from tfkaldi_tpu_torch.convert import rnn_from_jax, transducer_from_jax
 from tfkaldi_tpu_torch.data.target_coder import TextCoder
 from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
 from tfkaldi_tpu_torch.decode import transducer as transducer_decode
+from tfkaldi_tpu_torch.decode.lm import ArpaLM, DenseFusionTable
 from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
 from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
 from tfkaldi_tpu_torch.models import GRU, LSTM, RNNConfig, Transducer, TransducerConfig
@@ -187,6 +196,55 @@ def test_decode_to_file(tmp_path, monkeypatch):
         assert dec.decode_to_file(None, str(out)) == 2
         lines = out.read_text().splitlines()
         assert [line.split()[0] for line in lines] == ["utt1", "utt2"]
+
+
+TOKENS = ["a", "b", "c", "d"]  # the 4 labels as LM tokens
+TRIGRAM_ARPA = ("\\data\\\nngram 1=5\nngram 2=4\nngram 3=2\n\n\\1-grams:\n-0.6\ta\t-0.3\n-0.7\tb\t-0.2\n"
+                "-0.9\tc\n-1.1\td\n-99\t<s>\t-0.3\n\n\\2-grams:\n-0.2\ta b\t-0.1\n-0.9\tb a\n-0.3\t<s> a\t-0.1\n"
+                "-0.6\t<s> c\n\n\\3-grams:\n-0.25\t<s> a b\n-0.45\ta b a\n\n\\end\\\n")
+
+
+@pytest.fixture(scope="module")
+def arpa(tmp_path_factory):
+    path = tmp_path_factory.mktemp("lm") / "tri.arpa"
+    path.write_text(TRIGRAM_ARPA)
+    return str(path)
+
+
+@pytest.mark.parametrize("seed,enc", [(0, "lstm"), (1, "lstm"), (2, "conformer")])
+def test_fused_beam_matches_jax(seed, enc, arpa):
+    """Beam 3, two expansions a frame, the trigram fused at alpha 0.8, beta
+    0.3: the n-best, and the best hypothesis' frames and posteriors (the
+    acoustic ones, before fusion) as JAX's."""
+    jm, params, state, model = tiny(seed, enc)
+    x, lens = random_batch(np.random.default_rng(seed + 20), b=2, t=10)
+    jtable = JaxDenseFusionTable(JaxArpaLM.load(arpa), TOKENS, TOKENS, alpha=0.8, beta=0.3)
+    table = DenseFusionTable(ArpaLM.load(arpa), TOKENS, TOKENS, alpha=0.8, beta=0.3)
+    jdec = JaxTransducerBeamDecoder(jm, params, state, _IdCoder(), beam_width=3, max_symbols_per_frame=2,
+                                    fusion_table=jtable)
+    dec = TransducerBeamDecoder(model, _IdCoder(), beam_width=3, max_symbols_per_frame=2, fusion_table=table)
+    want, got = jdec.decode_batch_nbest(x, lens), dec.decode_batch_nbest(x, lens)
+    for g_row, w_row in zip(got, want):
+        assert len(g_row) == len(w_row)
+        for (g_ids, g_score), (w_ids, w_score) in zip(g_row, w_row):
+            np.testing.assert_array_equal(g_ids, w_ids)
+            assert abs(g_score - w_score) <= SCORE_TOL, (g_score, w_score)
+    assert sum(len(ids) for row in got for ids, _ in row) > 0
+    for (gi, gf, gc), (wi, wf, wc) in zip(dec.decode_batch_aligned(x, lens), jdec.decode_batch_aligned(x, lens)):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gf, wf)
+        np.testing.assert_allclose(gc, wc, atol=CONF_TOL)
+
+
+def test_zero_weight_fusion_equals_unfused(arpa):
+    _, _, _, model = tiny(3)
+    x, lens = random_batch(np.random.default_rng(23), b=3, t=10)
+    zero = DenseFusionTable(ArpaLM.load(arpa), TOKENS, TOKENS, alpha=0.0, beta=0.0)
+    assert not zero.table.any()
+    base = TransducerBeamDecoder(model, _IdCoder(), beam_width=4).decode_batch_nbest(x, lens)
+    fused = TransducerBeamDecoder(model, _IdCoder(), beam_width=4, fusion_table=zero).decode_batch_nbest(x, lens)
+    for a, b in zip(base, fused):
+        assert [(ids.tolist(), score) for ids, score in a] == [(ids.tolist(), score) for ids, score in b]
 
 
 # ---------------------------------------------------------------------------

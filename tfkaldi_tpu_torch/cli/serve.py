@@ -1,6 +1,7 @@
-"""Decode-service entry point of the port: load the DNN once, then serve a spool.
+"""Decode-service entry point of the port: load the trained net once, then serve a spool.
 
-Port of the spool mode of :mod:`tfkaldi_tpu.cli.serve` (hybrid recipe)::
+Port of the spool mode of :mod:`tfkaldi_tpu.cli.serve` (the hybrid recipe's
+likelihoods, or the text of a CTC, transducer or attention model)::
 
     python -m tfkaldi_tpu_torch.cli.serve --config config.cfg \\
         --watch /spool/in --out /spool/out [--once] [--poll 1.0] [--device cuda]
@@ -56,13 +57,8 @@ def main(argv=None) -> int:
     with ArkReader(os.path.join(featdir(config, "train", "dnn-features"), "feats.scp")) as reader:
         input_dim = reader.read_utt_data(0).shape[1]
     coder, num_labels = resolve_labels(config)
-    if coder is not None:
-        raise NotImplementedError(
-            "text-target models in the spool server are not in the port yet (ROADMAP.md, queue 1, "
-            "item 17); use python -m tfkaldi_tpu.cli.serve"
-        )
     nnet = Nnet(config, input_dim, num_labels, device=args.device)
-    service = DecodeService(nnet, args.watch, args.out, batch_size=args.batch_size)
+    service = DecodeService(nnet, args.watch, args.out, coder=coder, batch_size=args.batch_size)
     if args.once:
         log.info("processed %d job(s)", service.process_pending())
     else:

@@ -12,8 +12,16 @@ forward runs on the device, then:
   comes back in one D2H copy, and the host runs the prefix beam search: the
   native C++ one (:mod:`~tfkaldi_tpu_torch.decode.native_beam`, the
   utterances over the host's threads) when it is built, else the Python
-  twin (:mod:`~tfkaldi_tpu_torch.decode.ctc_beam`). :data:`beam_runs`
-  counts the batches each one decoded.
+  twin (:mod:`~tfkaldi_tpu_torch.decode.ctc_beam`);
+- fused beam (``fusion_scorer``, an ARPA LM's
+  :class:`~tfkaldi_tpu_torch.decode.lm.FusionScorer`): the Python beam
+  with the scorer and the label-time backtrace, as the JAX package does
+  (the native beam scores acoustics only). The constructor's arguments
+  choose this route.
+
+:data:`beam_runs` counts the batches each beam decoded: ``native``,
+``python`` (the unfused beam where the native one did not build) and
+``fused``.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from tfkaldi_tpu_torch.decode.ctc_beam import ctc_beam_search_py
 from tfkaldi_tpu_torch.decode.streaming import pick_stream
 
 # batches decoded by each beam search since the last reset
-beam_runs = {"native": 0, "python": 0}
+beam_runs = {"native": 0, "python": 0, "fused": 0}
 
 
 def collapse_ctc_path(path: np.ndarray, blank_id: int) -> np.ndarray:
@@ -63,12 +71,14 @@ class CTCDecoder:
     run; Python beam: the best prefix's backtrace); None after the native
     beam, which returns transcripts only."""
 
-    def __init__(self, model: nn.Module, coder: TargetCoder, blank_id: int, beam_width: int = 1):
+    def __init__(self, model: nn.Module, coder: TargetCoder, blank_id: int, beam_width: int = 1,
+                 fusion_scorer=None):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.coder = coder
         self.blank_id = int(blank_id)
         self.beam_width = int(beam_width)
+        self.fusion_scorer = fusion_scorer
         self.last_label_frames = None
         self.last_label_confs = None
 
@@ -109,15 +119,18 @@ class CTCDecoder:
             self.last_label_frames, self.last_label_confs = frames, confs
             return out
         log_probs = self.log_probs(inputs, lengths)
-        if native_beam.available():
+        if self.fusion_scorer is not None:
+            beam_runs["fused"] += 1
+        elif native_beam.available():
             beam_runs["native"] += 1
             self.last_label_frames = self.last_label_confs = None
             return native_beam.ctc_beam_search_batch_native(log_probs, out_lengths, self.blank_id, self.beam_width)
-        beam_runs["python"] += 1
+        else:
+            beam_runs["python"] += 1
         out, frames, confs = [], [], []
         for i in range(log_probs.shape[0]):
             ids, fr, cf = ctc_beam_search_py(log_probs[i, : int(out_lengths[i])], self.blank_id, self.beam_width,
-                                             return_alignment=True)
+                                             scorer=self.fusion_scorer, return_alignment=True)
             out.append(ids)
             frames.append(fr)
             confs.append(cf)

@@ -1,8 +1,8 @@
 """CTC prefix beam search (Hannun et al. 2014-style) over log posteriors.
 
-A copy of :mod:`tfkaldi_tpu.decode.ctc_beam` without its LM-fusion
-``scorer`` (ROADMAP.md queue 1, item 15); :func:`nbest_prefixes` is the
-first pass of attention rescoring
+A copy of :mod:`tfkaldi_tpu.decode.ctc_beam`, with its LM-fusion ``scorer``
+(:class:`tfkaldi_tpu_torch.decode.lm.FusionScorer`); :func:`nbest_prefixes`
+is the first pass of attention rescoring
 (:class:`tfkaldi_tpu_torch.decode.seq2seq.CTCRescoreDecoder`). The device
 computes the frame log-posteriors of a whole batch in one call
 (:mod:`tfkaldi_tpu_torch.decode.ctc`); the sequential prefix search runs on
@@ -48,6 +48,7 @@ def beam_step(
     frame: np.ndarray,
     blank_id: int,
     beam_width: int,
+    scorer=None,
     align: dict[tuple, tuple] | None = None,
     frame_index: int = 0,
 ) -> dict[tuple, list[float]]:
@@ -55,6 +56,11 @@ def beam_step(
 
     ``beams`` maps prefix tuples to ``[log P(ends in blank), log P(ends in
     non-blank)]``; this is the search's only state.
+
+    ``scorer`` enables shallow fusion: ``scorer(prefix, new_id)`` returns
+    the additive log-score (``alpha·ln P_lm + beta``) paid each time a new
+    label extends a prefix (repeat-collapses and blanks emit nothing, so
+    they pay nothing: the fusion points of Hannun et al. 2014).
 
     ``align`` (with the current global ``frame_index``) maintains the
     label-time backtrace: a dict (from ``initial_alignments``) mapping
@@ -89,9 +95,11 @@ def beam_step(
                 # repeat without separator extends the SAME prefix...
                 acc(prefix, 1, p_nb + p)
                 # ...and extends it only from the blank-ended mass
-                acc(prefix + (v,), 1, p_b + p)
+                bonus = scorer(prefix, int(v)) if scorer is not None else 0.0
+                acc(prefix + (v,), 1, p_b + p + bonus)
             else:
-                acc(prefix + (v,), 1, p_tot + p)
+                bonus = scorer(prefix, int(v)) if scorer is not None else 0.0
+                acc(prefix + (v,), 1, p_tot + p + bonus)
     pruned = dict(
         sorted(
             nxt.items(),
@@ -141,14 +149,16 @@ def alignment_of(
 
 
 def ctc_beam_search_py(
-    log_probs: np.ndarray, blank_id: int, beam_width: int = 16, return_alignment: bool = False,
+    log_probs: np.ndarray, blank_id: int, beam_width: int = 16, scorer=None, return_alignment: bool = False,
 ):
-    """Most probable label sequence under the CTC marginal.
+    """Most probable label sequence under the CTC marginal, shallow-fused
+    with a language model when ``scorer`` is given (see :func:`beam_step`).
 
     Args:
         log_probs: ``[T, V]`` frame log-posteriors (already length-trimmed).
         blank_id: blank class index.
         beam_width: number of prefixes kept per frame.
+        scorer: optional ``(prefix, new_id) -> additive log-score``.
         return_alignment: also return the best hypothesis' label-time
             backtrace (see ``beam_step``'s ``align``).
 
@@ -160,7 +170,7 @@ def ctc_beam_search_py(
     beams = initial_beams()
     align = initial_alignments() if return_alignment else None
     for t in range(log_probs.shape[0]):
-        beams = beam_step(beams, log_probs[t], blank_id, beam_width, align=align, frame_index=t)
+        beams = beam_step(beams, log_probs[t], blank_id, beam_width, scorer, align=align, frame_index=t)
     best = best_prefix(beams)
     if return_alignment:
         frames, confs = alignment_of(align, best)

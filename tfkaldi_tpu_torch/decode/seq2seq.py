@@ -1,9 +1,36 @@
-"""Attention rescoring: the two-pass text decode of the joint CTC-attention
-model.
+"""Attention seq2seq text decode: the autoregressive beam and attention
+rescoring.
 
-Port of :class:`tfkaldi_tpu.decode.seq2seq.CTCRescoreDecoder`
-(decode/seq2seq.py:270-435). Per padded batch of the test set
-(:func:`~tfkaldi_tpu_torch.decode.streaming.pick_stream`):
+Port of :mod:`tfkaldi_tpu.decode.seq2seq` (``Seq2SeqBeamDecoder``,
+decode/seq2seq.py:43-268, and ``CTCRescoreDecoder``, :270-435).
+
+:class:`Seq2SeqBeamDecoder` (``decode_mode = beam``) is a step-synchronous
+batched beam: at step s every live hypothesis has emitted s labels, so the
+``[B, K]`` beam advances in lockstep through the model's KV-cached step
+(:meth:`~tfkaldi_tpu_torch.models.seq2seq.AttentionSeq2Seq.
+decode_step_cached`) and scores a ``[B, K, V+1]`` candidate matrix (column 0
+a finished hypothesis holding, 1..V extending by a label; emitting EOS
+finishes a hypothesis without storing a token). The top ``K`` of the
+``K·(V+1)`` candidates come from a stable descending sort, so equal scores
+keep the lower index first, as ``lax.top_k`` breaks ties (every dead beam's
+``_NEG + logp`` rounds to ``_NEG``). The caches are regathered by parent
+beam on every step; label buffers are written with the JAX package's
+masked compares. JAX's ``while_loop`` is a Python loop on the device
+(``begin``, then ``candidates``, ``select`` and ``advance`` while ``live``,
+then ``close``; a caller may drive the steps itself, e.g. to replay one
+device's choices on another) whose exit test (any hypothesis alive and
+unfinished, and fewer than ``max_tokens`` steps) is one host read a step;
+hypotheses still open after it take a forced EOS close, which pays the
+fused ``</s>`` term. Ranking applies the GNMT ``((5+len)/6)^α`` length
+penalty when ``length_penalty > 0``. An optional
+:class:`~tfkaldi_tpu_torch.decode.lm.DenseFusionTable` over ``alphabet +
+["</s>"]`` adds the LM term to every extension, EOS included.
+:attr:`Seq2SeqBeamDecoder.seconds` accumulates the host-clock time of the
+encoder and ``cross_kv``, of the step loop and of the forced close;
+:attr:`Seq2SeqBeamDecoder.steps` counts the loop's steps.
+
+:class:`CTCRescoreDecoder` (``decode_mode = rescoring``), per padded batch
+of the test set (:func:`~tfkaldi_tpu_torch.decode.streaming.pick_stream`):
 
 - pass 1: the encoder and the CTC head's ``log_softmax`` on the device,
   one D2H copy of the log-posteriors, then the Python prefix beam
@@ -16,15 +43,15 @@ Port of :class:`tfkaldi_tpu.decode.seq2seq.CTCRescoreDecoder`
 - the rerank: ``w·logP_ctc + (1−w)·logP_att``, unfilled slots left at
   ``-inf`` whatever the weights.
 
-The autoregressive ``Seq2SeqBeamDecoder`` (and its LM fusion) is not
-ported (ROADMAP.md, items 14-15). :attr:`CTCRescoreDecoder.seconds`
-accumulates the host-clock time of pass 1 (to the log-posteriors on the
-host), the beam and pass 2 (to the scores on the host); :data:`rescored`
-counts the batches and the hypotheses pass 2 scored since the last reset.
+:attr:`CTCRescoreDecoder.seconds` accumulates the host-clock time of pass 1
+(to the log-posteriors on the host), the beam and pass 2 (to the scores on
+the host); :data:`rescored` counts the batches and the hypotheses pass 2
+scored since the last reset.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -32,10 +59,214 @@ import torch
 
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.ctc_beam import beam_step, initial_beams, nbest_prefixes
+from tfkaldi_tpu_torch.decode.lm import lm_extension_scores
 from tfkaldi_tpu_torch.decode.streaming import pick_stream
+
+_NEG = -1e30  # score of dead hypotheses and illegal candidates
 
 # batches and hypotheses scored by pass 2 since the last reset
 rescored = {"batches": 0, "hypotheses": 0}
+
+
+@dataclasses.dataclass
+class _Beam:
+    """A batch's beam between steps (tensors on the decoder's device):
+    the memory's cross-attention K/V and valid frames per hypothesis, the
+    self-attention caches, the token fed next, the label buffers, their
+    counts, the scores and the finished flags, and the steps taken."""
+
+    cross_k: torch.Tensor  # [blocks, B·K, T', D]
+    cross_v: torch.Tensor
+    mem_valid: torch.Tensor  # [B·K, T']
+    cache: dict  # k, v: [blocks, B·K, L+1, D] f32
+    tok: torch.Tensor  # [B·K]
+    buf: torch.Tensor  # [B, K, L]
+    counts: torch.Tensor  # [B, K]
+    scores: torch.Tensor  # [B, K]
+    finished: torch.Tensor  # [B, K]
+    step: int = 0
+
+
+def _write_text(decoder, reader: FeatureReader, outfile: str, batch_size: int, bucket_multiple: int) -> int:
+    """Stream the test set through ``decoder.decode_batch`` and write a Kaldi
+    ``text`` file (``utt_id transcription`` per line). Returns #utterances."""
+    count = 0
+    with open(outfile, "w") as fid:
+        for utt_ids, inputs, lengths in pick_stream(reader)(reader, batch_size=batch_size,
+                                                            bucket_multiple=bucket_multiple):
+            for utt_id, ids in zip(utt_ids, decoder.decode_batch(inputs, lengths)):
+                fid.write(f"{utt_id} {decoder.coder.decode(ids)}\n")
+                count += 1
+    return count
+
+
+class Seq2SeqBeamDecoder:
+    """Batched autoregressive beam of an :class:`~tfkaldi_tpu_torch.models.
+    seq2seq.AttentionSeq2Seq` on its device: ``beam_width`` hypotheses per
+    utterance, at most ``max_tokens`` labels each; ``length_penalty`` α > 0
+    ranks by ``score / ((5 + len) / 6)^α`` (GNMT), 0 by the raw scores (so
+    beam 1 is greedy); ``fusion_table`` (a
+    :class:`~tfkaldi_tpu_torch.decode.lm.DenseFusionTable` with one column
+    per emittable id, EOS included) adds shallow fusion."""
+
+    def __init__(self, model, coder, *, beam_width: int = 4, max_tokens: int = 100, length_penalty: float = 0.0,
+                 fusion_table=None):
+        if beam_width < 1:
+            raise ValueError("beam_width must be >= 1")
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.coder = coder
+        self.beam = int(beam_width)
+        self.max_tokens = int(max_tokens)
+        self.length_penalty = float(length_penalty)
+        if fusion_table is not None and fusion_table.table.shape[1] != model.vocab_size:
+            raise ValueError(f"attention fusion table needs one column per emittable id incl. EOS: got "
+                             f"{fusion_table.table.shape[1]}, want {model.vocab_size} (build with column_tokens = "
+                             "alphabet + ['</s>'])")
+        self.fusion = fusion_table
+        self._lm_table = None if fusion_table is None else torch.as_tensor(fusion_table.table).to(self.device)
+        self.seconds = {"encoder": 0.0, "steps": 0.0, "close": 0.0}
+        self.steps = 0
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _lm(self, logp, buf, counts):
+        return logp if self.fusion is None else logp + lm_extension_scores(self.fusion, self._lm_table, buf, counts)
+
+    def begin(self, inputs, lengths) -> _Beam:
+        """Encode a padded batch and set up its beam: every hypothesis empty,
+        only beam 0 alive, SOS fed at position 0."""
+        model, k, L, dev = self.model, self.beam, self.max_tokens, self.device
+        inputs = torch.as_tensor(inputs, dtype=torch.float32).to(dev, non_blocking=True)
+        lengths = torch.as_tensor(np.asarray(lengths), dtype=torch.int32)
+        memory = model.encode(inputs, lengths)  # [B, T', D]
+        b, t, d = memory.shape
+        # cross-attention K/V once from the memory, beams on the batch axis: [blocks, B·K, T', D]
+        cross_k, cross_v = model.cross_kv(memory)
+        nb = cross_k.shape[0]
+        scores = torch.full((b, k), _NEG, device=dev)
+        scores[:, 0] = 0.0
+        return _Beam(
+            cross_k=cross_k[:, :, None].expand(nb, b, k, t, d).reshape(nb, b * k, t, d),
+            cross_v=cross_v[:, :, None].expand(nb, b, k, t, d).reshape(nb, b * k, t, d),
+            mem_valid=model.memory_valid(memory, lengths)[:, None].expand(b, k, t).reshape(b * k, t),
+            cache=model.init_decode_cache(b * k, L, dev),
+            tok=torch.full((b * k,), model.sos_eos_id, dtype=torch.long, device=dev),
+            buf=torch.zeros(b, k, L, dtype=torch.long, device=dev),
+            counts=torch.zeros(b, k, dtype=torch.long, device=dev),
+            scores=scores,
+            finished=torch.zeros(b, k, dtype=torch.bool, device=dev),
+        )
+
+    def live(self, st: _Beam) -> bool:
+        """JAX's ``while_loop`` cond, one host read: a step is taken while
+        some hypothesis is alive (not pruned to ``_NEG``) and unfinished, and
+        fewer than ``max_tokens`` steps were taken."""
+        return st.step < self.max_tokens and bool(((st.scores > _NEG / 2) & ~st.finished).any())
+
+    def candidates(self, st: _Beam) -> torch.Tensor:
+        """One cached decoder step: the ``[B, K·(V+1)]`` candidate scores
+        (per beam, column 0 a finished hypothesis holding, 1+v extending by v,
+        with the LM term when fused; at the buffer cap only EOS). Writes the
+        fed token's K/V into the cache."""
+        b, k = st.scores.shape
+        v_total, eos = self.model.vocab_size, self.model.sos_eos_id
+        logits, st.cache = self.model.decode_step_cached(st.tok, st.step, st.cache, st.cross_k, st.cross_v,
+                                                         st.mem_valid)
+        logp = self._lm(torch.log_softmax(logits, dim=-1).reshape(b, k, v_total), st.buf, st.counts)
+        hold = torch.where(st.finished, st.scores, _NEG)
+        extend = torch.where(st.finished[:, :, None], _NEG, st.scores[:, :, None] + logp)
+        is_eos = torch.arange(v_total, device=logp.device)[None, None, :] == eos
+        extend = torch.where(is_eos | (st.counts < self.max_tokens)[:, :, None], extend, _NEG)
+        return torch.cat([hold[:, :, None], extend], dim=2).reshape(b, k * (v_total + 1))
+
+    def select(self, cand: torch.Tensor) -> torch.Tensor:
+        """The flat indices ``[B, K]`` of the top ``K`` candidates: a stable
+        descending sort, so equal scores keep the lower index first, as
+        ``lax.top_k``."""
+        return torch.sort(cand, dim=1, descending=True, stable=True)[1][:, :self.beam]
+
+    def advance(self, st: _Beam, cand: torch.Tensor, flat: torch.Tensor) -> None:
+        """Commit the chosen candidates ``flat [B, K]``: regather the beams
+        by parent, append the emitted labels, mark EOS finished, and feed the
+        labels at the next position."""
+        b, k = flat.shape
+        L, v1 = self.max_tokens, self.model.vocab_size + 1
+        parent = torch.div(flat, v1, rounding_mode="floor")
+        choice = flat % v1  # 0 = hold, 1+v = emit v
+        label = (choice - 1).clamp(min=0)
+        emits_eos = choice == 1 + self.model.sos_eos_id
+        extends = (choice > 0) & ~emits_eos
+        buf = torch.gather(st.buf, 1, parent[:, :, None].expand(b, k, L))
+        counts = torch.gather(st.counts, 1, parent)
+        st.finished = torch.gather(st.finished, 1, parent) | emits_eos
+        # the masked compare write; rows that do not extend point past the buffer
+        slot = torch.arange(L, device=flat.device)[None, None, :] == torch.where(extends, counts, L)[:, :, None]
+        st.buf = torch.where(slot, label[:, :, None], buf)
+        st.counts = counts + extends.long()
+        # beams reorder: regather the caches by parent ([blocks, B, K, L+1, D] on the B·K axis)
+        order = (torch.arange(b, device=flat.device)[:, None] * k + parent).reshape(-1)
+        st.cache = {key: val.index_select(1, order) for key, val in st.cache.items()}
+        st.tok = label.reshape(b * k)  # the token fed at the next position
+        st.scores = torch.gather(cand, 1, flat)
+        st.step += 1
+
+    def close(self, st: _Beam):
+        """Close the open hypotheses with their EOS log-probability (and the
+        fused ``</s>`` term), so every score is a whole sequence's: ``(buf
+        [B, K, L], counts, scores, ranked [B, K])``, ``ranked`` with the
+        length penalty."""
+        b, k = st.scores.shape
+        logits, _ = self.model.decode_step_cached(st.tok, st.step, st.cache, st.cross_k, st.cross_v, st.mem_valid)
+        logp = self._lm(torch.log_softmax(logits, dim=-1).reshape(b, k, -1), st.buf, st.counts)
+        scores = torch.where(st.finished, st.scores, st.scores + logp[:, :, self.model.sos_eos_id])
+        ranked = scores
+        if self.length_penalty > 0.0:
+            ranked = scores / ((5.0 + st.counts.float()) / 6.0) ** self.length_penalty
+        return st.buf, st.counts, scores, ranked
+
+    def search(self, inputs, lengths):
+        """The beam over a padded batch: ``(buf [B, K, L], counts, scores,
+        ranked [B, K])`` on the device (raw and length-penalised scores)."""
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            st = self.begin(inputs, lengths)
+            self._sync()
+            t1 = time.perf_counter()
+            while self.live(st):
+                cand = self.candidates(st)
+                self.advance(st, cand, self.select(cand))
+            t2 = time.perf_counter()
+            out = self.close(st)
+            self._sync()
+            t3 = time.perf_counter()
+        for part, seconds in (("encoder", t1 - t0), ("steps", t2 - t1), ("close", t3 - t2)):
+            self.seconds[part] += seconds
+        self.steps += st.step
+        return out
+
+    def decode_batch_nbest(self, inputs, lengths) -> list[list[tuple[np.ndarray, float]]]:
+        """Per row, the surviving hypotheses as ``(label_ids, log_score)``,
+        best first by the length-penalised rank (raw scores reported)."""
+        buf, counts, scores, ranked = (x.cpu().numpy() for x in self.search(inputs, lengths))
+        out = []
+        for bi in range(buf.shape[0]):
+            order = np.argsort(-ranked[bi], kind="stable")
+            out.append([(buf[bi, kk, :counts[bi, kk]].astype(np.int32), float(scores[bi, kk]))
+                        for kk in order if scores[bi, kk] > _NEG / 2])
+        return out
+
+    def decode_batch(self, inputs, lengths) -> list[np.ndarray]:
+        """``[B, T, F]`` padded features → best-hypothesis label ids."""
+        return [h[0][0] for h in self.decode_batch_nbest(inputs, lengths)]
+
+    def decode_to_file(self, reader: FeatureReader, outfile: str, *, batch_size: int = 16,
+                       bucket_multiple: int = 128) -> int:
+        """Stream the test set and write a Kaldi ``text`` file
+        (``utt_id transcription`` per line). Returns #utterances."""
+        return _write_text(self, reader, outfile, batch_size, bucket_multiple)
 
 
 class CTCRescoreDecoder:
@@ -141,12 +372,4 @@ class CTCRescoreDecoder:
                        bucket_multiple: int = 128) -> int:
         """Stream the test set and write a Kaldi ``text`` file
         (``utt_id transcription`` per line). Returns #utterances."""
-        count = 0
-        with open(outfile, "w") as fid:
-            for utt_ids, inputs, lengths in pick_stream(reader)(
-                reader, batch_size=batch_size, bucket_multiple=bucket_multiple
-            ):
-                for utt_id, ids in zip(utt_ids, self.decode_batch(inputs, lengths)):
-                    fid.write(f"{utt_id} {self.coder.decode(ids)}\n")
-                    count += 1
-        return count
+        return _write_text(self, reader, outfile, batch_size, bucket_multiple)

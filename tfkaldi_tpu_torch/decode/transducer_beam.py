@@ -1,7 +1,7 @@
 """Transducer (RNN-T) beam search, batched and offline.
 
 Port of :mod:`tfkaldi_tpu.decode.transducer_beam` (``_merge_equal_prefixes``,
-``_beam_scan`` without LM fusion, ``TransducerBeamDecoder``): a
+``_beam_scan``, ``TransducerBeamDecoder``): a
 frame-synchronous beam of ``K`` hypotheses per utterance with bounded
 per-frame expansions and exact prefix merging. Per encoder frame each beam
 either finishes the frame (takes the blank) or extends by one label and
@@ -17,16 +17,22 @@ stable descending sort, so equal scores keep the lower index first, as
 ``_NEG + logp`` rounds to ``_NEG``). Label buffers are written with the
 JAX package's masked compares.
 
-LM shallow fusion (``fusion_table``) and the online beam
-(``OnlineTransducerBeamDecoder``) are not ported (ROADMAP.md, items 15
-and 16).
+LM shallow fusion (``fusion_table``, a
+:class:`~tfkaldi_tpu_torch.decode.lm.DenseFusionTable` over the coder's
+alphabet, placed on the device once): every label extension gains the LM
+term of its prefix, padded with 0 on the blank column (the blank is a
+lattice move, not a label), and the recorded confidences stay the acoustic,
+pre-fusion posteriors. The online beam (``OnlineTransducerBeamDecoder``) is
+not ported (ROADMAP.md, item 16).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from tfkaldi_tpu_torch.decode.lm import lm_extension_scores
 from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
 
 _NEG = -1e30  # score of retired beams and illegal candidates
@@ -52,12 +58,13 @@ def _merge_equal_prefixes(scores, buf, counts, active=None):
 
 
 def _beam_scan(model, beam: int, max_symbols: int, enc, frame_valid, proj, carry, buf, counts, scores, buf_len,
-               frame_buf, conf_buf, fcount):
+               frame_buf, conf_buf, fcount, fusion=None, lm_table=None):
     """The frame-synchronous beam over ``enc [B, T, J]``: ``proj [B, K,
     J]``, carry leaves ``[B·K, H]``, ``buf``/``frame_buf``/``conf_buf [B, K,
     L]`` (labels, the global frame that emitted each and its posterior),
-    ``counts``/``scores [B, K]``, ``fcount [B]`` valid frames so far.
-    Returns the advanced ``(proj, carry, buf, frame_buf, conf_buf, counts,
+    ``counts``/``scores [B, K]``, ``fcount [B]`` valid frames so far;
+    ``fusion`` / ``lm_table``: an optional dense fusion LM and its table on
+    the device. Returns the advanced ``(proj, carry, buf, frame_buf, conf_buf, counts,
     scores, fcount)``."""
     b, t, j = enc.shape
     k, v_total, blank = beam, model.vocab_size, model.blank_id
@@ -76,7 +83,10 @@ def _beam_scan(model, beam: int, max_symbols: int, enc, frame_valid, proj, carry
         if forced:  # after max_symbols expansions every active beam takes the blank
             return proj, carry, buf, frame_buf, conf_buf, counts, stay, torch.zeros_like(active)
         can_extend = (active & (counts < buf_len))[:, :, None] & label_ok
-        extend = torch.where(can_extend, scores[:, :, None] + logp, _NEG)
+        extend = scores[:, :, None] + logp
+        if fusion is not None:  # the LM term of each label, 0 on the blank column
+            extend = extend + F.pad(lm_extension_scores(fusion, lm_table, buf, counts), (0, 1))
+        extend = torch.where(can_extend, extend, _NEG)
         cand = torch.cat([stay[:, :, None], extend], dim=2).reshape(b, k * (v_total + 1))
         top_scores, flat_idx = torch.sort(cand, dim=1, descending=True, stable=True)
         top_scores, flat_idx = top_scores[:, :k], flat_idx[:, :k]
@@ -123,15 +133,17 @@ class TransducerBeamDecoder(TransducerDecoder):
     """Batched transducer beam search emitting text transcriptions:
     ``beam_width`` hypotheses per utterance, ``max_symbols_per_frame``
     emissions a frame at most, ``max_tokens`` labels a hypothesis (default
-    ``T' · max_symbols_per_frame``)."""
+    ``T' · max_symbols_per_frame``); ``fusion_table`` adds shallow fusion."""
 
     def __init__(self, model, coder, *, beam_width: int = 4, max_symbols_per_frame: int = 4,
-                 max_tokens: int | None = None):
+                 max_tokens: int | None = None, fusion_table=None):
         if beam_width < 1:
             raise ValueError("beam_width must be >= 1")
         super().__init__(model, coder, max_symbols_per_frame=max_symbols_per_frame)
         self.beam = int(beam_width)
         self.max_tokens = max_tokens
+        self.fusion = fusion_table
+        self._lm_table = None if fusion_table is None else torch.as_tensor(fusion_table.table).to(self.device)
 
     def search(self, enc, frame_valid):
         """The beam over an encoded batch: ``(tokens, frames, confs [B, K,
@@ -150,7 +162,8 @@ class TransducerBeamDecoder(TransducerDecoder):
             zeros = torch.zeros(b, k, buf_len, dtype=torch.long, device=dev)
             out = _beam_scan(model, k, self.max_symbols, enc, frame_valid, proj.reshape(b, k, j), carry, zeros,
                              torch.zeros(b, k, dtype=torch.long, device=dev), scores, buf_len, zeros,
-                             torch.zeros(b, k, buf_len, device=dev), torch.zeros(b, dtype=torch.long, device=dev))
+                             torch.zeros(b, k, buf_len, device=dev), torch.zeros(b, dtype=torch.long, device=dev),
+                             self.fusion, self._lm_table)
         _, _, buf, frame_buf, conf_buf, counts, scores, _ = out
         return buf, frame_buf, conf_buf, counts, scores
 

@@ -3,8 +3,10 @@ decoder with cross-attention, trained on teacher-forced targets.
 
 Port of :mod:`tfkaldi_tpu.models.seq2seq` (``Seq2SeqConfig``,
 ``AttentionSeq2Seq``: init, ``encode``, ``decode_step_logits``,
-``ctc_logits``, ``apply_joint``, ``apply_seq2seq``, ``sos_eos_id``,
-``vocab_size``, ``output_lengths``). Parameters keep the JAX pytree's names
+``ctc_logits``, ``apply_joint``, ``apply_seq2seq``, the KV-cached step
+``init_decode_cache`` / ``cross_kv`` / ``_mha_one`` /
+``decode_step_cached``, ``sos_eos_id``, ``vocab_size``,
+``output_lengths``). Parameters keep the JAX pytree's names
 (``enc.*`` the encoder's, ``embed``, ``dec_blocks.{i}.{ln_self,self,
 ln_cross,cross,ln_ffn,ffn}``, ``ln_final``, ``out``, and ``embed_proj``
 and ``ctc_head`` where configured), so
@@ -23,22 +25,30 @@ and ``ctc_head`` where configured), so
   (:mod:`~tfkaldi_tpu_torch.models.transformer`).
 - SOS and EOS share the id ``num_labels``, also the CTC head's blank.
 
-The KV-cached step (``init_decode_cache``, ``cross_kv``, ``_mha_one``,
-``decode_step_cached``) serves only the autoregressive beam, which is not
-ported (ROADMAP.md, item 14).
+The KV-cached step serves the autoregressive beam
+(:class:`tfkaldi_tpu_torch.decode.seq2seq.Seq2SeqBeamDecoder`): it advances
+every hypothesis one position, reading per-block self-attention K/V caches
+``[blocks, N, L+1, D]`` in f32 (K/V are projected in ``compute_dtype``,
+widened on write and narrowed again on read, as the JAX package does) and
+the memory's cross-attention K/V computed once; its position term is row
+``step`` of the cache-length f64 table, and its f32 logits come from the
+``compute_dtype`` product, as the grid forward's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from tfkaldi_tpu_torch.layers import affine, product
 from tfkaldi_tpu_torch.models.rnn import GRU, LSTM, RNNConfig
 from tfkaldi_tpu_torch.models.transformer import (
+    _NEG,
     Params,
     Transformer,
     TransformerConfig,
@@ -129,6 +139,12 @@ class Seq2SeqConfig:
             hidden_units=self.enc_units, bidirectional=self.enc_bidirectional, dropout=self.dropout,
             compute_dtype=self.compute_dtype, cell=self.enc_type,
         )
+
+
+@functools.lru_cache(maxsize=16)
+def _positions_on(t: int, d: int, device: torch.device) -> torch.Tensor:
+    """:func:`sinusoidal_positions` ``[t, d]`` on ``device``, copied once."""
+    return torch.from_numpy(sinusoidal_positions(t, d)).to(device)
 
 
 class _DecBlock(nn.Module):
@@ -292,3 +308,74 @@ class AttentionSeq2Seq(nn.Module):
         return self.teacher_forced(memory, lengths, labels, label_lengths, train=train, generator=generator)
 
     forward = apply_seq2seq
+
+    # ------------------------------------------------------------------
+    # the KV-cached autoregressive step (models/seq2seq.py:393-487)
+    # ------------------------------------------------------------------
+
+    def init_decode_cache(self, n: int, max_len: int, device=None) -> dict[str, torch.Tensor]:
+        """Zeroed self-attention K/V caches, ``[blocks, N, max_len+1, D]``
+        f32 each (position p holds the K/V of the token fed at step p)."""
+        cfg = self.config
+        shape = (cfg.dec_blocks, n, max_len + 1, cfg.d_model)
+        device = self.embed.device if device is None else device
+        return {"k": torch.zeros(shape, device=device), "v": torch.zeros(shape, device=device)}
+
+    def cross_kv(self, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every block's cross-attention K/V of the memory, ``[blocks, N,
+        T', D]`` f32 each, projected in ``compute_dtype``: once a batch."""
+        dtype = self.config.compute_dtype
+        mem = memory.to(dtype)
+        ks = [affine(mem, blk.cross.wk, blk.cross.bk, dtype) for blk in self.dec_blocks]
+        vs = [affine(mem, blk.cross.wv, blk.cross.bv, dtype) for blk in self.dec_blocks]
+        return torch.stack(ks).float(), torch.stack(vs).float()
+
+    def _mha_one(self, q, keys, values, p, key_valid, dtype) -> torch.Tensor:
+        """One-query attention: ``q [N, D]`` over the projected ``keys`` /
+        ``values [N, Tk, D]`` (f32, narrowed to ``dtype`` here);
+        ``key_valid [N, Tk]``."""
+        n, d = q.shape
+        tk = keys.shape[1]
+        nh = self.config.num_heads
+        dh = d // nh
+        qh = q.reshape(n, nh, 1, dh)
+        kh = keys.to(dtype).reshape(n, tk, nh, dh).permute(0, 2, 3, 1)  # [N, h, dh, Tk]
+        vh = values.to(dtype).reshape(n, tk, nh, dh).transpose(1, 2)  # [N, h, Tk, dh]
+        scores = product(qh, kh, dtype) * (1.0 / np.sqrt(dh))  # [N, h, 1, Tk]
+        scores = torch.where(key_valid[:, None, None, :], scores, _NEG)
+        attn = torch.softmax(scores, dim=-1).to(dtype)
+        ctx = product(attn, vh, dtype).to(dtype)  # [N, h, 1, dh]
+        return affine(ctx.reshape(n, d), p.wo, p.bo, dtype)
+
+    def decode_step_cached(self, tok: torch.Tensor, step: int, cache: dict, cross_k: torch.Tensor,
+                           cross_v: torch.Tensor, mem_valid: torch.Tensor):
+        """Advance one position: ``tok [N]`` is the token at sequence
+        position ``step`` (SOS at 0, else the label emitted before). Writes
+        slot ``step`` of ``cache`` in place and returns ``([N, V] f32 logits,
+        cache)``. A finished hypothesis' logits are unused and its slots past
+        its length hold garbage that no live query reads (a query at position
+        p reads slots <= p)."""
+        cfg = self.config
+        dtype, eps = cfg.compute_dtype, cfg.ln_eps
+        n = tok.shape[0]
+        cache_len = cache["k"].shape[2]
+        device = tok.device
+        h = self.embed[tok.long()] * math.sqrt(float(self.embed_dim))
+        if self.embed_dim != cfg.d_model:
+            h = h @ self.embed_proj
+        h = (h + _positions_on(cache_len, cfg.d_model, device)[step]).to(dtype)
+        slot_valid = (torch.arange(cache_len, device=device) <= step)[None, :].expand(n, cache_len)
+        for l, blk in enumerate(self.dec_blocks):
+            z = layernorm(h, blk.ln_self, eps)
+            p = blk.self
+            q = affine(z, p.wq, p.bq, dtype)
+            cache["k"][l, :, step] = affine(z, p.wk, p.bk, dtype).float()
+            cache["v"][l, :, step] = affine(z, p.wv, p.bv, dtype).float()
+            h = h + self._mha_one(q, cache["k"][l], cache["v"][l], p, slot_valid, dtype)
+            z = layernorm(h, blk.ln_cross, eps)
+            p = blk.cross
+            h = h + self._mha_one(affine(z, p.wq, p.bq, dtype), cross_k[l], cross_v[l], p, mem_valid, dtype)
+            z = layernorm(h, blk.ln_ffn, eps)
+            h = h + feed_forward(z, blk.ffn, dtype)
+        h = layernorm(h, self.ln_final, eps)
+        return product(h, self.out.w, dtype) + self.out.b.float(), cache

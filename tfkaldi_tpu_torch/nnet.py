@@ -17,8 +17,11 @@ channels), ``lstm`` and ``gru`` (uni- or bidirectional), ``transformer`` /
 ``<savedir>/final.pt`` and ``<savedir>/prior.npy``; :meth:`Nnet.decode`
 reads them back for the likelihood ark (:mod:`tfkaldi_tpu_torch.convert`),
 :meth:`Nnet.decode_text` reads ``final.pt`` for a CTC text decode, the
-attention model's rescoring decode (``decode_mode = rescoring``) or the
-transducer's greedy (``beam_width = 1``) or beam search.
+attention model's autoregressive beam (``decode_mode = beam``, the default)
+or rescoring decode (``decode_mode = rescoring``), or the transducer's
+greedy (``beam_width = 1``) or beam search; ``[nnet] lm_path`` (with
+``lm_alpha`` and ``lm_beta``) fuses an ARPA LM into the CTC, transducer and
+attention beams.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from tfkaldi_tpu_torch.data.batching import DeviceBatcher
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.ctc import CTCDecoder
 from tfkaldi_tpu_torch.decode.decoder import Decoder
-from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder
+from tfkaldi_tpu_torch.decode.lm import ArpaLM, FusionScorer, fusion_from_config
+from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder, Seq2SeqBeamDecoder
 from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
 from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
 from tfkaldi_tpu_torch.device import resolve_device
@@ -161,47 +165,59 @@ class Nnet:
         prior = np.load(os.path.join(self.savedir, "prior.npy"))
         return Decoder(self.model, prior)
 
-    def load_text_decoder(self, coder) -> CTCDecoder | CTCRescoreDecoder | TransducerDecoder:
-        """Load ``final.pt`` onto the device for a text decode: for ``loss =
-        ctc`` greedy (``beam_width = 1``) or the prefix beam of that width;
-        for ``loss = attention`` with ``decode_mode = rescoring``, CTC n-best
-        then attention rescoring (nnet.py:362-377); for ``loss = rnnt`` the
-        transducer's beam search when ``beam_width > 1``, else its greedy
-        search, at most ``max_symbols_per_frame`` labels a frame
-        (nnet.py:400-432)."""
+    def load_text_decoder(self, coder, *, ctc_lm: bool = True):
+        """Load ``final.pt`` onto the device for a text decode, by the rules of
+        tfkaldi_tpu/nnet.py:354-470:
+
+        - ``loss = attention``: ``decode_mode = rescoring`` gives CTC n-best
+          then attention rescoring (``beam_width`` 10 by default; it reads
+          no ``lm_path``); ``decode_mode = beam`` (the default) the
+          autoregressive beam (``beam_width`` 1 by default), fused with
+          ``lm_path``'s table over ``alphabet + ["</s>"]``;
+        - ``loss = rnnt``: the beam search when ``beam_width > 1``, fused
+          with the table over ``alphabet``; else the greedy search, at most
+          ``max_symbols_per_frame`` labels a frame;
+        - ``loss = ctc``: greedy (``beam_width = 1``) or the prefix beam of
+          that width, fused with ``lm_path``'s ``FusionScorer`` over
+          ``alphabet + ["<blank>"]`` when ``ctc_lm`` (the decode service
+          passes False: the JAX service's CTC decoder reads no LM).
+
+        ``lm_path`` with ``beam_width <= 1`` raises ``ValueError``."""
         if self.loss_type not in ("ctc", "attention", "rnnt"):
             raise ValueError("decode_text requires loss = ctc, rnnt or attention")
-        if self.conf.get("lm_path", ""):
-            raise NotImplementedError(
-                "lm_path (LM shallow fusion) is not in the port yet (ROADMAP.md, queue 1, item 15); "
-                "use tfkaldi_tpu.nnet.Nnet.decode_text"
-            )
+        conf = self.conf
+        beam_width = int(conf.get("beam_width", 1))
+        max_tokens = int(conf.get("max_decode_tokens", 100))
         if self.loss_type == "attention":
-            mode = self.conf.get("decode_mode", "beam")
-            if mode != "rescoring":
-                raise NotImplementedError(
-                    f"decode_mode = {mode} (the autoregressive attention beam) is not in the port yet "
-                    "(ROADMAP.md, queue 1, item 14); use decode_mode = rescoring, or tfkaldi_tpu.nnet.Nnet"
-                )
-            return CTCRescoreDecoder(
-                self._load_model(), coder, beam_width=int(self.conf.get("beam_width", 10)),
-                rescore_weight=float(self.conf.get("rescore_weight", 0.5)),
-                max_tokens=int(self.conf.get("max_decode_tokens", 100)),
-            )
+            if conf.get("decode_mode", "beam") == "rescoring":
+                return CTCRescoreDecoder(self._load_model(), coder, beam_width=int(conf.get("beam_width", 10)),
+                                         rescore_weight=float(conf.get("rescore_weight", 0.5)),
+                                         max_tokens=max_tokens)
+            # the EOS column carries the LM's end-of-sentence term
+            fusion = fusion_from_config(conf, coder, list(coder.alphabet) + ["</s>"])
+            return Seq2SeqBeamDecoder(self._load_model(), coder, beam_width=beam_width, max_tokens=max_tokens,
+                                      length_penalty=float(conf.get("length_penalty", 0.0)), fusion_table=fusion)
         if self.loss_type == "rnnt":
-            beam_width = int(self.conf.get("beam_width", 1))
-            max_symbols = int(self.conf.get("max_symbols_per_frame", 4))
+            max_symbols = int(conf.get("max_symbols_per_frame", 4))
             if beam_width > 1:
+                fusion = fusion_from_config(conf, coder, list(coder.alphabet))
                 return TransducerBeamDecoder(self._load_model(), coder, beam_width=beam_width,
-                                             max_symbols_per_frame=max_symbols)
+                                             max_symbols_per_frame=max_symbols, fusion_table=fusion)
+            if conf.get("lm_path", ""):
+                raise ValueError("lm_path needs beam_width > 1 in [nnet]")
             return TransducerDecoder(self._load_model(), coder, max_symbols_per_frame=max_symbols)
-        return CTCDecoder(self._load_model(), coder, self.blank_id,
-                          beam_width=int(self.conf.get("beam_width", 1)))
+        scorer = None
+        if ctc_lm and conf.get("lm_path", ""):
+            if beam_width <= 1:
+                raise ValueError("lm_path needs beam_width > 1 in [nnet]")
+            # the blank is an extra non-text class past the alphabet
+            scorer = FusionScorer(ArpaLM.load(conf["lm_path"]), list(coder.alphabet) + ["<blank>"],
+                                  alpha=float(conf.get("lm_alpha", 0.5)), beta=float(conf.get("lm_beta", 0.0)))
+        return CTCDecoder(self._load_model(), coder, self.blank_id, beam_width=beam_width, fusion_scorer=scorer)
 
     def decode_text(self, reader: FeatureReader, coder, outfile: str) -> int:
-        """Decode a test set to a Kaldi ``text`` file with the CTC decoder,
-        the attention rescoring decoder or the transducer's search
-        (nnet.py:339-472);
+        """Decode a test set to a Kaldi ``text`` file with the decoder of
+        :meth:`load_text_decoder` (nnet.py:339-472);
         returns the number of utterances."""
         count = self.load_text_decoder(coder).decode_to_file(
             reader,

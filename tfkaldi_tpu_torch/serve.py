@@ -1,12 +1,16 @@
-"""Persistent decode service over a filesystem spool (hybrid mode).
+"""Persistent decode service over a filesystem spool.
 
-Port of :class:`tfkaldi_tpu.serve.DecodeService`. The model is loaded once
-onto the device, then decode jobs are processed as they arrive.
+Port of :class:`tfkaldi_tpu.serve.DecodeService` (serve.py:35-175). The
+model is loaded once onto the device, then decode jobs are processed as they
+arrive.
 
 Job contract: a job is a directory dropped under ``watch_dir`` holding a
 featdir (``feats.scp``, ``cmvn.scp`` unless CMVN is disabled, ``utt2spk``).
-The service writes ``out_dir/<job>/likelihoods.{ark}`` with its
-``feats.scp`` plus a ``DONE`` marker holding the utterance count, and skips
+The service writes ``out_dir/<job>/likelihoods.ark`` with its ``feats.scp``
+(the hybrid recipe) or ``out_dir/<job>/text`` (``loss = ctc | rnnt |
+attention``: the decoder of :meth:`tfkaldi_tpu_torch.nnet.Nnet.
+load_text_decoder`, whose CTC beam reads no ``lm_path`` here, as in the JAX
+service) plus a ``DONE`` marker holding the utterance count, and skips
 jobs already marked ``DONE`` or ``FAILED``, so it is restart-safe. A job
 that raises is quarantined with a ``FAILED`` marker holding the traceback.
 """
@@ -27,15 +31,24 @@ log = logging.getLogger(__name__)
 class DecodeService:
     """Model-resident decode worker over a filesystem spool."""
 
-    def __init__(self, nnet, watch_dir: str, out_dir: str, *, batch_size: int = 16):
-        """``nnet``: a :class:`tfkaldi_tpu_torch.nnet.Nnet`."""
+    def __init__(self, nnet, watch_dir: str, out_dir: str, *, coder=None, batch_size: int = 16):
+        """``nnet``: a :class:`tfkaldi_tpu_torch.nnet.Nnet`; ``coder``: its
+        text coder, required for the text-target losses."""
         self.nnet = nnet
         self.watch_dir = watch_dir
         self.out_dir = out_dir
+        self.coder = coder
         self.batch_size = batch_size
+        self.text = nnet.loss_type in ("ctc", "rnnt", "attention")
         os.makedirs(watch_dir, exist_ok=True)
         os.makedirs(out_dir, exist_ok=True)
-        self._decoder = nnet.load_decoder()  # weights loaded once
+        # weights loaded once
+        if self.text:
+            if coder is None:
+                raise ValueError("text-decode service needs a target coder")
+            self._decoder = nnet.load_text_decoder(coder, ctc_lm=False)
+        else:
+            self._decoder = nnet.load_decoder()
 
     def _pending_jobs(self) -> list[str]:
         jobs = []
@@ -66,12 +79,15 @@ class DecodeService:
             self.nnet.context_width,
             0,  # max_input_length is not used by the decode stream
         )
-        ark = os.path.join(outdir, "likelihoods.ark")
-        if os.path.isfile(ark):
-            os.remove(ark)
         try:
-            with ArkWriter(os.path.join(outdir, "feats.scp"), ark) as writer:
-                count = self._decoder.decode_to_writer(reader, writer, batch_size=self.batch_size)
+            if self.text:
+                count = self._decoder.decode_to_file(reader, os.path.join(outdir, "text"), batch_size=self.batch_size)
+            else:
+                ark = os.path.join(outdir, "likelihoods.ark")
+                if os.path.isfile(ark):
+                    os.remove(ark)
+                with ArkWriter(os.path.join(outdir, "feats.scp"), ark) as writer:
+                    count = self._decoder.decode_to_writer(reader, writer, batch_size=self.batch_size)
         finally:
             reader.close()
         with open(os.path.join(outdir, "DONE"), "w") as f:

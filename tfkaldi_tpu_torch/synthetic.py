@@ -23,7 +23,9 @@ transcripts: ``text_density = 8``, or :func:`retext_featdir` beside
 existing features), :func:`transducer_nnet` that of the
 conformer-transducer recipe (the same encoder and transcripts),
 :func:`tdnn_nnet` and :func:`cnn_nnet` bench.py's TDNN and CNN, and
-:func:`random_rnn_pytree` seeded LSTM/GRU weights in the JAX layout.
+:func:`random_rnn_pytree` seeded LSTM/GRU weights in the JAX layout, and
+:func:`write_char_arpa` a character n-gram ARPA file estimated from a
+workspace's transcripts (test data for the LM-fused beams).
 
 Every config :func:`write_config` writes comes with a stub Kaldi egs
 (:func:`write_stub_kaldi`): shell scripts and fake binaries in place of
@@ -34,9 +36,11 @@ step of ``cli.main`` runs end to end, to a logged WER, without Kaldi.
 from __future__ import annotations
 
 import gzip
+import math
 import os
 import shutil
 import sys
+from collections import Counter
 from configparser import ConfigParser
 
 import numpy as np
@@ -588,3 +592,64 @@ def make_train_workspace(
         "context": config.getint("nnet", "context_width"),
         "alignments": alignments,
     }
+
+
+def write_char_arpa(path: str, text_files: list[str], *, coder=None, order: int = 3,
+                    discount: float = 0.5) -> int:
+    """Write an ARPA backoff n-gram (a character trigram by default) over the
+    coder's tokens, estimated from the transcripts of Kaldi ``text`` files
+    (``utt transcription`` per line, normalised by ``coder``; default the
+    aurora4 character coder), ``.gz``-compressed when ``path`` ends so.
+    Unigrams are add-one estimates over the whole alphabet and ``</s>``
+    (``<s>`` gets log10 -99), so every token is covered; higher orders keep
+    each seen n-gram with an absolute ``discount`` and give its history the
+    backoff weight that normalises it. Returns the number of n-grams."""
+    coder = coder or _TEXT_CODER
+    counts = [Counter() for _ in range(order + 1)]
+    for name in text_files:
+        with open(name) as f:
+            for line in f:
+                parts = line.split(maxsplit=1)
+                if len(parts) < 2:
+                    continue
+                toks = ["<s>"] + coder.target_normalizer(parts[1].strip(), coder.alphabet).split(" ") + ["</s>"]
+                for n in range(1, order + 1):
+                    for i in range(len(toks) - n + 1):
+                        counts[n][tuple(toks[i:i + n])] += 1
+    vocab = list(coder.alphabet) + ["</s>"]
+    total = sum(counts[1][(w,)] for w in vocab)
+    logp = {(w,): math.log10((counts[1][(w,)] + 1) / (total + len(vocab))) for w in vocab}
+    logp[("<s>",)] = -99.0
+    backoff: dict[tuple, float] = {}
+
+    def prob(context: tuple, word: str) -> float:  # the model so far, log10, as ArpaLM.score backs off
+        if context + (word,) in logp:
+            return logp[context + (word,)]
+        if not context:
+            return logp[(word,)]
+        return backoff.get(context, 0.0) + prob(context[1:], word)
+
+    for n in range(2, order + 1):
+        by_history: dict[tuple, dict[str, int]] = {}
+        for gram, c in counts[n].items():
+            by_history.setdefault(gram[:-1], {})[gram[-1]] = c
+        for hist, nexts in by_history.items():
+            total = sum(nexts.values())
+            kept = {w: (c - discount) / total for w, c in nexts.items()}
+            lower = sum(10.0 ** prob(hist[1:], w) for w in nexts)
+            for w, p in kept.items():
+                logp[hist + (w,)] = math.log10(p)
+            backoff[hist] = math.log10((1.0 - sum(kept.values())) / max(1.0 - lower, 1e-12))
+    opener = gzip.open if path.endswith(".gz") else open
+    grams = [sorted(g for g in logp if len(g) == n) for n in range(1, order + 1)]
+    with opener(path, "wt") as f:
+        f.write("\\data\\\n")
+        for n, listed in enumerate(grams, 1):
+            f.write(f"ngram {n}={len(listed)}\n")
+        for n, listed in enumerate(grams, 1):
+            f.write(f"\n\\{n}-grams:\n")
+            for g in listed:
+                bo = f"\t{backoff[g]:.6f}" if g in backoff and n < order else ""
+                f.write(f"{logp[g]:.6f}\t{' '.join(g)}{bo}\n")
+        f.write("\n\\end\\\n")
+    return sum(len(g) for g in grams)
