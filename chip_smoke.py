@@ -129,11 +129,25 @@ bench.py's TDNN and CNN.
    CTC beam 16 fused on the Python beam (the fused route on every batch,
    kernel 4 once per layer and batch); and ``cli.serve --once`` on one job
    per recipe, whose ``text`` equals ``Nnet.decode_text``'s.
-12. Drives bench.py's TDNN and CNN on the hybrid recipe at full width
+12. Drives ``cli.serve --stream`` as users start it (``streaming_path``):
+   the 32 test wavs in 100 ms chunks from 16 concurrent clients over the
+   socket, on the transducer phase's ``final.pt`` with the recipe as
+   written (beam 8, 16 slots), then 4 and 1 at a time for the chunk-reply
+   latency, with ``--beam-width 1`` and with the text decode phase's
+   trigram as ``lm_path``; then the CTC recipe unidirectional (seeded
+   weights): greedy, beam 16 with the trigram, ``--endpoint`` and a run
+   that reads back timestamps, confidences and words. Every final against
+   the card's offline decode of the offline features (kernel 2; the CTC's
+   offline forward kernel 4, one direction): identical or the first
+   differing decision a near tie, its margin printed; the streamed encoder
+   by the bf16 rule and the fused front-end's frames against the offline
+   ones; latency p50 / p95, tick p50, real-time factor, ticks and rows.
+13. Drives bench.py's TDNN and CNN on the hybrid recipe at full width
    (``hybrid_family_path``, ``check_hybrid_family``).
-13. Prints one JSON line of per-kernel results (all seven; kernels 4 and 5
-   count the BiLSTM, the CTC, the transducer and, kernel 4, the text
-   decode paths), then the final JSON line.
+14. Prints one JSON line of per-kernel results (all seven; kernel 2 counts
+   the streaming path's offline features too, kernels 4 and 5 count the
+   BiLSTM, the CTC, the transducer and, kernel 4, the text decode and
+   streaming paths), then the final JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
 """
@@ -2870,6 +2884,687 @@ def text_decode_path(card: str, ws: dict, att_dirs: dict, recipes: dict, rates: 
     return {"lstm_fwd": launches["lstm_fwd_persistent"]}, timings
 
 
+STREAM_CHUNK = 1600  # samples a client chunk: 100 ms at 16 kHz
+STREAM_SLOTS = 16  # MultiStreamServer.DEFAULT_SLOTS: the rows of every server tick
+STREAM_CLIENT_TIMEOUT = 300.0  # seconds a client socket waits for a reply before the run fails
+# the fused front-end's frames (batch 1, 12 frames a call) against the offline extractor's (32 wavs a
+# call), err/max(|ref|, 1): the f64 DFT products of other row counts may round otherwise, then f32
+STREAM_FEAT_TOL = 1e-6
+# the unidirectional CTC model's seeded output layer: N(0, 1)/sqrt(H) * gain, and a blank bias
+CTC_OUT_GAIN = 8.0
+CTC_BLANK_BIAS = 6.0
+
+
+@contextlib.contextmanager
+def stream_server(cfg_path: str, *flags: str):
+    """``cli.serve.main([--config cfg, --stream, --port-file f, *flags],
+    stop=...)`` in a thread; yields ``(host, port, server)`` once the port
+    file is written (the ``MultiStreamServer`` caught as it is built). On
+    exit the server is stopped and joined; an exception of ``main`` or a
+    return code other than 0 raises."""
+    import threading
+
+    from tfkaldi_tpu_torch import serve as serve_mod
+    from tfkaldi_tpu_torch.cli import serve as cli_serve
+
+    root = os.path.join(TRAIN_WORK, "streaming")
+    os.makedirs(root, exist_ok=True)
+    port_file = os.path.join(root, f"port_{time.perf_counter_ns()}")
+    servers, rc, errors = [], [], []
+    build = serve_mod.MultiStreamServer.__init__
+
+    def init(self, *args, **kwargs):
+        build(self, *args, **kwargs)
+        servers.append(self)
+
+    stop = threading.Event()
+
+    def run():
+        try:
+            rc.append(cli_serve.main(["--config", cfg_path, "--stream", "--port-file", port_file, *flags],
+                                     stop=stop.is_set))
+        except BaseException as exc:  # re-raised on the phase's thread
+            errors.append(exc)
+
+    serve_mod.MultiStreamServer.__init__ = init
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        deadline = time.time() + 300
+        address = []
+        while len(address) != 2:
+            if errors or not thread.is_alive() or time.time() > deadline:
+                raise RuntimeError(f"cli.serve --stream {' '.join(flags)} did not come up: {errors or rc}")
+            time.sleep(0.05)
+            if os.path.exists(port_file):
+                with open(port_file) as f:
+                    address = f.read().split()
+        yield address[0], int(address[1]), servers[0]
+    finally:
+        serve_mod.MultiStreamServer.__init__ = build
+        stop.set()
+        thread.join(timeout=120)
+    if thread.is_alive():
+        raise RuntimeError("the streaming server did not stop within 120 s")
+    if errors:
+        raise errors[0]
+    if rc != [0]:
+        raise RuntimeError(f"cli.serve --stream returned {rc}")
+
+
+def stream_clients(host: str, port: int, audios: list, concurrency: int, requests: bool = False) -> dict:
+    """``stream_transcribe`` clients, ``concurrency`` at once, over
+    ``audios``: each one's final, its partial count and (``requests``) its
+    timestamps, confidences and words read back on the same connection; the
+    client-side reply latency of every chunk (send to reply) and of every
+    finish; the wall time. A client's error, an ``E`` reply or a missing
+    reply (the socket timeout) raises."""
+    import queue
+    import socket
+    import threading
+
+    import numpy as np
+
+    from tfkaldi_tpu_torch import serve as serve_mod
+
+    todo = queue.Queue()
+    for i in range(len(audios)):
+        todo.put(i)
+    out = [None] * len(audios)
+    chunk_s, finish_s, errors = [], [], []
+
+    def one(i: int):
+        samples = np.ascontiguousarray(audios[i], dtype="<f4")
+        mine, partials, final = [], 0, None
+        with socket.create_connection((host, port), timeout=STREAM_CLIENT_TIMEOUT) as sock:
+            gen = serve_mod._send_audio(sock, samples, STREAM_CHUNK)
+            while True:
+                t = time.perf_counter()
+                try:
+                    next(gen)
+                except StopIteration as end:
+                    final = end.value
+                    (finish_s if partials == -(-len(samples) // STREAM_CHUNK) else mine).append(
+                        time.perf_counter() - t)
+                    break
+                mine.append(time.perf_counter() - t)
+                partials += 1
+            extra = {}
+            if requests:
+                extra["times"] = np.frombuffer(serve_mod._request(sock, serve_mod.MSG_TIMES_REQ, serve_mod.MSG_TIMES),
+                                               "<f8")
+                extra["confs"] = np.frombuffer(serve_mod._request(sock, serve_mod.MSG_CONF_REQ, serve_mod.MSG_CONF),
+                                               "<f8")
+                extra["words"] = json.loads(serve_mod._request(sock, serve_mod.MSG_WORDS_REQ, serve_mod.MSG_WORDS))
+        chunk_s.extend(mine)
+        return {"final": final, "partials": partials, "early": partials < -(-len(samples) // STREAM_CHUNK), **extra}
+
+    def worker():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                out[i] = one(i)
+            except Exception as exc:  # re-raised on the phase's thread
+                errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads) or errors:
+        raise RuntimeError(f"streaming clients failed: {errors or 'a client hung'}")
+    return {"results": out, "chunk_s": chunk_s, "finish_s": finish_s, "wall_s": wall}
+
+
+def _pct(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, np.float64), q)) if len(values) else float("nan")
+
+
+def stream_replay(ext, wavs: list, encode, cmvn=None) -> list:
+    """The wavs through the fused front-end and ``encode`` as the server's
+    slots run them: STREAM_SLOTS rows a batch (a wav a row, empty rows to
+    fill it), STREAM_CHUNK-sample pushes from each row's start, length 0
+    once a row's audio ends, then the flush of every row. Each push's
+    frames are CMVN'd by ``apply_cmvn32`` (when given; frames past a row's
+    count zero, as the fused call leaves them) and go to ``encode(feats,
+    counts, carry) -> (per-row outputs, carry)``; the flush calls
+    ``encode(None, None, carry)``. Every call has the shapes a server tick
+    has, and every op of the path works row by row, so a row's numbers are
+    its slot's. Returns per wav ``(frames before CMVN, outputs)``,
+    concatenated."""
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32
+    from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor
+
+    out = []
+    for g in range(0, len(wavs), STREAM_SLOTS):
+        group = wavs[g: g + STREAM_SLOTS]
+        online = FusedOnlineFeatureExtractor(ext)
+        online.reset(STREAM_SLOTS)
+        frames = [[] for _ in group]
+        outs = [[] for _ in group]
+        carry = None
+        longest = max(len(w) for w in group)
+        with torch.inference_mode():
+            for p in [*range(0, longest, STREAM_CHUNK), None]:
+                if p is not None:
+                    chunk = np.zeros((STREAM_SLOTS, STREAM_CHUNK), np.float32)
+                    lens = np.zeros((STREAM_SLOTS,), np.int64)
+                    for r, w in enumerate(group):
+                        part = w[p: p + STREAM_CHUNK]
+                        chunk[r, : len(part)] = part
+                        lens[r] = len(part)
+                    f, k = online.step(chunk, lens)
+                else:
+                    f, k = online.flush()
+                if not f.shape[1]:
+                    continue
+                for r in range(len(group)):
+                    frames[r].append(f[r, : int(k[r])])
+                if cmvn is not None:
+                    f = apply_cmvn32(f, cmvn)
+                    past = torch.arange(f.shape[1], device=f.device)[None, :] >= torch.as_tensor(k, device=f.device)[:, None]
+                    f[past] = 0.0
+                ys, carry = encode(f, k, carry)
+                for r in range(len(group)):
+                    outs[r].append(ys[r])
+            ys, carry = encode(None, None, carry)
+            for r in range(len(group)):
+                outs[r].append(ys[r])
+        out += [(torch.cat(fr), torch.cat(o)) for fr, o in zip(frames, outs)]
+    return out
+
+
+def greedy_node(model, e_off, e_rep, ids_off, fr_off, ids_rep, fr_rep):
+    """Where two greedy transducer searches part: the first emission
+    ``(label, frame)`` that differs, at the node they share (the frame, and
+    the labels emitted before it). Its decision evaluated on both encoder
+    outputs: ``(offline log-prob margin of its choice over the other's,
+    max|log-prob difference| between the two encoders there)``."""
+    import torch
+
+    blank = model.blank_id
+    k = 0
+    while k < min(len(ids_off), len(ids_rep)) and (ids_off[k], fr_off[k]) == (ids_rep[k], fr_rep[k]):
+        k += 1
+    frames = [f[k] for f in (fr_off, fr_rep) if k < len(f)]
+    t = min(frames)
+    choice_off = int(ids_off[k]) if k < len(ids_off) and fr_off[k] == t else blank
+    choice_rep = int(ids_rep[k]) if k < len(ids_rep) and fr_rep[k] == t else blank
+    dev = e_off.device
+    with torch.inference_mode():
+        proj, carry = model.predict_step(torch.full((1,), blank, device=dev),
+                                         torch.ones(1, dtype=torch.bool, device=dev), model.init_pred_carry(1))
+        for label in ids_off[:k]:
+            proj, carry = model.predict_step(torch.full((1,), int(label), device=dev),
+                                             torch.ones(1, dtype=torch.bool, device=dev), carry)
+        lo = torch.log_softmax(model.joint_step(e_off[t: t + 1], proj).float(), -1)[0]
+        lr = torch.log_softmax(model.joint_step(e_rep[t: t + 1], proj).float(), -1)[0]
+    return float(lo[choice_off] - lo[choice_rep]), float((lr - lo).abs().max())
+
+
+def nbest_tie(hyp: str, off: list, rep: list):
+    """The beam rule: ``off`` / ``rep`` are ``[(text, score)]`` n-bests
+    (best first) of the offline and the replayed search. A replayed best
+    ``hyp`` that is not the offline best is a near tie when it is in the
+    offline n-best and its offline score is within twice the largest score
+    difference of the hypotheses both n-bests hold: ``(gap, noise)``, else
+    None."""
+    off_s, rep_s = dict(off), dict(rep)
+    noise = max((abs(off_s[h] - rep_s[h]) for h in off_s if h in rep_s), default=0.0)
+    if hyp not in off_s:
+        return None
+    gap = off[0][1] - off_s[hyp]
+    return (gap, noise) if gap <= 2 * noise else None
+
+
+def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: str = "cuda") -> tuple[dict, dict]:
+    """``cli.serve --stream`` on the card as users start it, on the 32 test
+    wavs of the training workspace, in STREAM_CHUNK chunks:
+
+    - the transducer recipe as written on the transducer phase's ``final.pt``
+      (beam 8, 16 slots, the pooled CMVN of its training featdir), 16
+      concurrent clients; then 4 and 1 at a time (4 wavs, 1 wav) for the
+      chunk-reply latency; ``--beam-width 1``; and the text decode phase's
+      character trigram as ``lm_path`` (the fused beam);
+    - the CTC recipe with ``bidirectional = False`` (and ``context_width =
+      0``: the streaming transcribers feed unspliced frames, as the JAX
+      package's do) on a seeded ``final.pt``: greedy, beam 16 with the
+      trigram (the Python beam and its ``FusionScorer``), greedy with
+      ``--endpoint`` (an early final is the decode of the audio pushed
+      until it), and greedy with every client reading back its timestamps,
+      confidences and words.
+
+    ``stream_replay`` runs the wavs through the same front-end and model
+    calls in the slots' batch shapes, so each served final must equal the
+    search on its replayed numbers exactly. Against the card's offline
+    decoder on the offline extractor's features (kernel 2) with the same
+    f32 CMVN (the CTC's offline forward runs kernel 4 with one direction),
+    a final is identical, or the first decision where the replayed and the
+    offline numbers part is a near tie, its margin printed. The replayed
+    transducer encoder is held to the bf16 rule against an f32-compute
+    encode, the fused front-end's frames to the offline extractor's. Counts
+    reset before, read after. Returns the seven kernels' launches and the
+    timings."""
+    import dataclasses
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.convert import save_checkpoint
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode.ctc_beam import beam_step, initial_beams, nbest_prefixes
+    from tfkaldi_tpu_torch.decode.lm import ArpaLM, DenseFusionTable, FusionScorer
+    from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
+    from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
+    from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32
+    from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
+    from tfkaldi_tpu_torch.io import read_wav, read_wavfiles
+    from tfkaldi_tpu_torch.models import Transducer
+    from tfkaldi_tpu_torch.nnet import Nnet
+    from tfkaldi_tpu_torch.serve import MultiStreamServer, global_cmvn
+
+    t_phase = time.perf_counter()
+    root = os.path.join(TRAIN_WORK, "streaming")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    arpa = os.path.join(TRAIN_WORK, "text_decode", "char3.arpa")  # the text decode phase's trigram
+    if not os.path.isfile(arpa):
+        raise FileNotFoundError(arpa)
+    coder = TextCoder(aurora4_normalizer)
+    blank = coder.num_labels
+    base = ConfigParser()
+    base.read(ws["cfg_path"])
+    wav_scp = read_wavfiles(os.path.join(base.get("directories", "test_data"), "wav.scp"))
+    rates, audio = set(), []
+    for utt in wav_scp:
+        rate, sig = read_wav(wav_scp[utt])
+        rates.add(rate)
+        audio.append(np.asarray(sig, np.float32))
+    if rates != {16000} or len(audio) != 32:
+        raise AssertionError(f"the test data: {len(audio)} wavs at {rates} Hz, want 32 at 16000")
+    rate = 16000
+    all32 = list(range(32))
+    dev = torch.device(device)
+    if MultiStreamServer.DEFAULT_SLOTS != STREAM_SLOTS:
+        raise AssertionError(f"MultiStreamServer.DEFAULT_SLOTS {MultiStreamServer.DEFAULT_SLOTS}")
+
+    def variant(src: str, tag: str, **keys) -> str:
+        config = ConfigParser()
+        config.read(src)
+        for key, value in keys.items():
+            config.set("nnet", key, str(value))
+        path = os.path.join(root, f"config_{tag}.cfg")
+        with open(path, "w") as f:
+            config.write(f)
+        return path
+
+    def offline_feats(wavs):  # padded to whole seconds, as prepare_data pads (kernel 2's bulk route)
+        batch = np.zeros((len(wavs), -(-max(len(w) for w in wavs) // rate) * rate), np.float32)
+        for i, w in enumerate(wavs):
+            batch[i, : len(w)] = w
+        with torch.inference_mode():
+            return ext(batch, np.asarray([len(w) for w in wavs]))
+
+    def padded(rows: list):
+        """Per-row ``[T_i, J]`` tensors → ``([B, T_max, J], valid [B, T_max])``."""
+        t_max = max(max(r.shape[0] for r in rows), 1)
+        x = torch.zeros(len(rows), t_max, rows[0].shape[-1], device=dev)
+        for i, r in enumerate(rows):
+            x[i, : r.shape[0]] = r
+        lens = torch.as_tensor([r.shape[0] for r in rows], device=dev)
+        return x, torch.arange(t_max, device=dev)[None, :] < lens[:, None]
+
+    reset_counts()
+    frame_calls = ctc_forwards = 0
+    timings = {"audio_s": sum(len(a) for a in audio) / rate}
+
+    # ---- offline features (kernel 2) against the slots' front-end ----
+    t0 = time.perf_counter()
+    ext = FeatureExtractor(FeatureOpts.from_config(dict(base.items("dnn-features"))), rate, dev)
+    raw, nframes = offline_feats(audio)
+    frame_calls += 1
+    empty = [torch.zeros(0, device=dev)] * STREAM_SLOTS
+    feat_err, feat_exact = 0.0, 0
+    for i, (f, _) in enumerate(stream_replay(ext, audio, lambda f, k, carry: (empty, carry))):
+        ref = raw[i, : nframes[i]]
+        if f.shape != ref.shape:
+            raise AssertionError(f"wav {i}: the fused front-end emitted {tuple(f.shape)} frames, offline {ref.shape}")
+        feat_err = max(feat_err, float(((f - ref).abs() / ref.abs().clamp(min=1.0)).max()))
+        feat_exact += bool(torch.equal(f, ref))
+    log(f"streaming: the fused front-end ({STREAM_SLOTS} rows, {STREAM_CHUNK}-sample pushes) against the offline "
+        f"extractor (kernel 2, the 32 wavs in one batch): frames equal in count, bit-identical on {feat_exact} of 32 "
+        f"wavs, max err/max(|ref|,1) {feat_err!r} (gate {STREAM_FEAT_TOL}: f64 products of other row counts) "
+        f"{time.perf_counter() - t0!r} s [{card}]")
+    if feat_err > STREAM_FEAT_TOL:
+        raise AssertionError(f"the fused front-end's frames differ from the offline extractor's: {feat_err}")
+    timings["feature_max_err"] = feat_err
+
+    def served(cfg: str, flags: tuple, runs: list) -> list:
+        """One server; each run ``(tag, wav indices, concurrency,
+        requests)`` a batch of clients; returns each run's results, with the
+        server's ticks, rows and tick times over it."""
+        out = []
+        with stream_server(cfg, "--device", device, *flags) as (host, port, server):
+            if server.num_slots != STREAM_SLOTS or server.chunk_size != STREAM_CHUNK:
+                raise AssertionError(f"the server has {server.num_slots} slots of {server.chunk_size} samples")
+            for tag, idx, conc, requests in runs:
+                server.tick_durations.clear()
+                ticks, rows = server.ticks, server.rows_pushed
+                res = stream_clients(host, port, [audio[i] for i in idx], conc, requests)
+                res.update(tag=tag, idx=idx, ticks=server.ticks - ticks, rows_pushed=server.rows_pushed - rows,
+                           tick_s=list(server.tick_durations), audio_s=sum(len(audio[i]) for i in idx) / rate)
+                log(f"streaming {tag}: {len(idx)} wavs ({res['audio_s']!r} s of audio), {conc} concurrent clients: "
+                    f"chunk reply p50 {_pct(res['chunk_s'], 50) * 1e3!r} ms, p95 {_pct(res['chunk_s'], 95) * 1e3!r} "
+                    f"ms ({len(res['chunk_s'])} replies), finish reply p50 {_pct(res['finish_s'], 50) * 1e3!r} ms; "
+                    f"engine tick p50 {_pct(res['tick_s'], 50) * 1e3!r} ms against the {STREAM_CHUNK / rate * 1e3!r} "
+                    f"ms chunk period; {res['ticks']} ticks, {res['rows_pushed']} rows pushed "
+                    f"({res['rows_pushed'] / max(res['ticks'], 1)!r} a tick); wall {res['wall_s']!r} s, real-time "
+                    f"factor {res['wall_s'] / res['audio_s']!r} [{card}]")
+                for key, value in (("chunk_p50_ms", _pct(res["chunk_s"], 50) * 1e3),
+                                   ("chunk_p95_ms", _pct(res["chunk_s"], 95) * 1e3),
+                                   ("tick_p50_ms", _pct(res["tick_s"], 50) * 1e3),
+                                   ("rtf", res["wall_s"] / res["audio_s"]), ("ticks", res["ticks"]),
+                                   ("rows_pushed", res["rows_pushed"])):
+                    timings[f"{tag}: {key}"] = value
+                out.append(res)
+        return out
+
+    def judge(tag: str, res: dict, replay: list, offline: list, explain) -> dict:
+        """Each served final: equal to the search on its slot's replayed
+        numbers, else the run fails; against the offline decode identical,
+        or ``explain(i)`` a near tie ``(margin, noise)``, else it fails."""
+        same, ties = 0, []
+        for j, i in enumerate(res["idx"]):
+            got = res["results"][j]["final"]
+            if got != replay[i]:
+                raise AssertionError(f"streaming {tag}: wav {i}'s served final is not the decode of its slot's own "
+                                     f"numbers:\n  served {got!r}\n  replay {replay[i]!r}")
+            if got == offline[i]:
+                same += 1
+                continue
+            tie = explain(i)
+            if tie is None:
+                raise AssertionError(f"streaming {tag}: wav {i} final differs from the offline decode and no near tie "
+                                     f"explains it:\n  served  {got!r}\n  offline {offline[i]!r}")
+            ties.append((i, *[float(v) for v in tie]))
+        log(f"streaming {tag}: finals identical to the card's offline decode on {same} of {len(res['idx'])} wavs "
+            f"(and each equal to its slot's replay); near ties {len(ties)} (wav, offline margin, card-replay "
+            f"difference): {ties}")
+        return {"identical": same, "near_ties": len(ties)}
+
+    verdicts = {}
+
+    # ---- the transducer recipe as written ----
+    t0 = time.perf_counter()
+    rnnt_cfg = recipes["rnnt"][0]
+    rconf = ConfigParser()
+    rconf.read(rnnt_cfg)
+    model = Nnet(rconf, 40, coder.num_labels, device=dev)._load_model().eval()
+    beam = int(rconf.get("nnet", "beam_width"))
+    max_sym = int(rconf.get("nnet", "max_symbols_per_frame", fallback="4"))
+    cmvn = global_cmvn(att_dirs["train"])
+    x = apply_cmvn32(raw, cmvn)
+    n_t = torch.as_tensor(nframes, device=dev)
+    m32 = Transducer(dataclasses.replace(model.config, compute_dtype=torch.float32)).to(dev).eval()
+    m32.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        enc_off, enc32 = model.encode(x, n_t), m32.encode(x, n_t)
+    del m32
+    t_out = model.output_lengths(n_t).tolist()
+    valid_off = torch.arange(enc_off.shape[1], device=dev)[None, :] < torch.as_tensor(t_out, device=dev)[:, None]
+
+    def rnnt_encode(f, k, carry):
+        carry = model.enc.init_stream_carry(STREAM_SLOTS, dev) if carry is None else carry
+        if f is None:
+            y, m, carry = model.encode_stream_flush(carry)
+        else:
+            y, m, carry = model.encode_stream(f, torch.as_tensor(np.asarray(k), device=dev), carry)
+        return [y[r, : int(c)] for r, c in enumerate(m.tolist())], carry
+
+    enc_rep = [e for _, e in stream_replay(ext, audio, rnnt_encode, cmvn)]
+    d_rep = d_off = d_ro = 0.0
+    bad = []
+    for i, e in enumerate(enc_rep):
+        if e.shape[0] != t_out[i]:
+            raise AssertionError(f"wav {i}: {e.shape[0]} replayed encoder frames, offline {t_out[i]}")
+        ref = enc32[i, : t_out[i]]
+        a, b = float((e - ref).abs().max()), float((enc_off[i, : t_out[i]] - ref).abs().max())
+        d_rep, d_off = max(d_rep, a), max(d_off, b)
+        d_ro = max(d_ro, float((e - enc_off[i, : t_out[i]]).abs().max()))
+        if not bf16_close(a, b):
+            bad.append((i, a, b))
+    log(f"streaming transducer encoder (bf16), replayed in the slots' shapes against the offline encode of the batch: "
+        f"max|replay - offline| {d_ro!r}; from the f32-compute encode: replay {d_rep!r}, offline {d_off!r} (bf16 rule "
+        f"per wav: within {RNN_BF16_RATIO}x + {RNN_F32_TOL}); {time.perf_counter() - t0!r} s")
+    if bad:
+        raise AssertionError(f"the streamed encoder is outside the bf16 rule on wavs {bad}")
+    timings.update(rnnt_encoder_replay_vs_offline=d_ro, rnnt_encoder_replay_vs_f32=d_rep,
+                   rnnt_encoder_offline_vs_f32=d_off)
+
+    def searched(dec, rows: list) -> list:
+        """``dec.search`` over per-row encoder outputs in batches of the
+        slots' row count (each row on its own in a batch of the server's
+        size); the host copies, row by row."""
+        out = []
+        for g in range(0, len(rows), STREAM_SLOTS):
+            group = rows[g: g + STREAM_SLOTS]
+            enc, valid = padded(group + [group[0][:0]] * (STREAM_SLOTS - len(group)))
+            res = [t.cpu().numpy() for t in dec.search(enc, valid)]
+            out += [[t[r] for t in res] for r in range(len(group))]
+        return out
+
+    def whole(dec):  # the offline decode: the 32 rows of the offline batch together
+        res = [t.cpu().numpy() for t in dec.search(enc_off, valid_off)]
+        return [[t[r] for t in res] for r in range(32)]
+
+    def nbest(rows):
+        out = []
+        for buf, _, _, counts, scores in rows:
+            order = np.argsort(-scores, kind="stable")
+            out.append([(coder.decode(buf[k, : counts[k]]), float(scores[k])) for k in order if scores[k] > -1e29])
+        return out
+
+    greedy = TransducerDecoder(model, coder, max_symbols_per_frame=max_sym)
+    g_off, g_rep = whole(greedy), searched(greedy, enc_rep)
+    ali = {side: [(r[0][: r[3]].tolist(), r[1][: r[3]].tolist()) for r in rows]
+           for side, rows in (("off", g_off), ("rep", g_rep))}
+    table = DenseFusionTable(ArpaLM.load(arpa), list(coder.alphabet), list(coder.alphabet), alpha=0.5, beta=0.0)
+    beams = {}
+    for tag, fusion in (("beam", None), ("beam_lm", table)):
+        dec = TransducerBeamDecoder(model, coder, beam_width=beam, max_symbols_per_frame=max_sym, fusion_table=fusion)
+        beams[tag] = (nbest(whole(dec)), nbest(searched(dec, enc_rep)))
+
+    def beam_verdict(tag: str, res: dict, key: str) -> dict:
+        off, rep = beams[key]
+        return judge(tag, res, [h[0][0] for h in rep], [h[0][0] for h in off],
+                     lambda i: nbest_tie(rep[i][0][0], off[i], rep[i]))
+
+    runs = served(rnnt_cfg, (), [("transducer beam 8, 16 streams", all32, 16, False),
+                                 ("transducer beam 8, 4 streams", all32[:4], 4, False),
+                                 ("transducer beam 8, 1 stream", all32[:1], 1, False)])
+    for res in runs:
+        verdicts[res["tag"]] = beam_verdict(res["tag"], res, "beam")
+    (res,) = served(rnnt_cfg, ("--beam-width", "1"), [("transducer greedy, 16 streams", all32, 16, False)])
+    verdicts[res["tag"]] = judge(
+        res["tag"], res, [coder.decode(ids) for ids, _ in ali["rep"]], [coder.decode(ids) for ids, _ in ali["off"]],
+        lambda i: greedy_node(model, enc_off[i, : t_out[i]], enc_rep[i], *ali["off"][i], *ali["rep"][i]))
+    fused_cfg = variant(rnnt_cfg, "transducer_lm", lm_path=arpa, lm_alpha=0.5)
+    (res,) = served(fused_cfg, (), [("transducer beam 8 + trigram, 16 streams", all32, 16, False)])
+    verdicts[res["tag"]] = beam_verdict(res["tag"], res, "beam_lm")
+    del model, enc_off, enc_rep, enc32
+    log(f"phase streaming, transducer: {time.perf_counter() - t0!r} s")
+
+    # ---- the CTC recipe, unidirectional, seeded ----
+    t0 = time.perf_counter()
+    ctc_cfg = variant(recipes["ctc"][0], "ctc_uni", bidirectional="False", context_width=0, name="ctc_unilstm_512_2")
+    cconf = ConfigParser()
+    cconf.read(ctc_cfg)
+    cnet = Nnet(cconf, 40, coder.num_labels, device=dev)
+    gen = torch.Generator().manual_seed(13)
+    cnet.model.reset_parameters(gen)
+    with torch.no_grad():
+        w = cnet.model.out.w
+        w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(w.shape[0]) * CTC_OUT_GAIN)
+        cnet.model.out.b[blank] = CTC_BLANK_BIAS
+    save_checkpoint(cnet.savedir, cnet.model.state_dict())
+    cmodel = cnet._load_model().eval()
+    ccmvn = global_cmvn(ws["train_featdir"])
+    width = int(cconf.get("nnet", "beam_width"))
+
+    def offline_lp(raw_feats, counts):
+        nonlocal ctc_forwards
+        with torch.inference_mode():
+            lp = torch.log_softmax(cmodel(apply_cmvn32(raw_feats, ccmvn), torch.as_tensor(counts, device=dev))
+                                   .float(), -1).cpu().numpy()
+        ctc_forwards += 1
+        return [lp[i, : counts[i]] for i in range(len(counts))]
+
+    def ctc_encode(f, k, carry):
+        carry = cmodel.init_stream_carry(STREAM_SLOTS, dev) if carry is None else carry
+        if f is None:
+            return [torch.zeros(0, blank + 1, device=dev)] * STREAM_SLOTS, carry
+        y, carry = cmodel.apply_stream(f, torch.as_tensor(np.asarray(k), device=dev), carry)
+        lp = torch.log_softmax(y.float(), -1)
+        return [lp[r, : int(c)] for r, c in enumerate(k)], carry
+
+    def replay_lp(wavs):
+        return [lp.cpu().numpy() for _, lp in stream_replay(ext, wavs, ctc_encode, ccmvn)]
+
+    lp_off, lp_rep = offline_lp(raw, nframes), replay_lp(audio)
+    lp_diff = max(float(np.abs(r - o).max()) for r, o in zip(lp_rep, lp_off))
+    log(f"streaming CTC (2 x 512 unidirectional LSTM, bf16, seeded): log-posteriors replayed in the slots' shapes "
+        f"against the offline forward (kernel 4, one direction): max|diff| {lp_diff!r}")
+    timings["ctc_logprob_replay_vs_offline"] = lp_diff
+
+    def greedy_text(lp):
+        path = lp.argmax(-1)
+        keep = np.ones(len(path), bool)
+        keep[1:] = path[1:] != path[:-1]
+        ids = path[keep]
+        return coder.decode(ids[ids != blank])
+
+    def frame_flip(a, b):
+        """The first frame whose argmax the two log-posteriors part on:
+        ``(margin of a's pick over b's under a, max|a - b| there)``."""
+        flips = np.flatnonzero(a.argmax(-1) != b.argmax(-1))
+        if not len(flips):
+            return None
+        t = flips[0]
+        return a[t].max() - a[t, b[t].argmax()], np.abs(a[t] - b[t]).max()
+
+    scorer = FusionScorer(ArpaLM.load(arpa), list(coder.alphabet) + ["<blank>"], alpha=0.5, beta=0.0)
+
+    def ctc_nbest(lp):
+        beams_ = initial_beams()
+        for t in range(lp.shape[0]):
+            beams_ = beam_step(beams_, lp[t].astype(np.float64), blank, width, scorer)
+        return [(coder.decode(np.asarray(p, np.int32)), s) for p, s in nbest_prefixes(beams_, width)]
+
+    def beam_divergence(lp_a, lp_b):
+        """The two prefix beams (offline ``a``, replay ``b``) frame by frame:
+        at the first frame their kept prefixes differ, ``a``'s margin for
+        keeping its own over ``b``'s (the best score ``a`` kept that ``b``
+        dropped less the least ``a`` gives one ``b`` kept, scored by a
+        4x-wide step of the same beams), against the largest score
+        difference of the prefixes both wide steps hold; at the end, if the
+        kept sets never parted, the offline gap between the two bests.
+        ``(margin, noise)`` when the margin is within twice the noise, else
+        None."""
+        ba, bb = initial_beams(), initial_beams()
+
+        def totals(beams_):
+            return dict(nbest_prefixes(beams_, len(beams_)))
+
+        for t in range(lp_a.shape[0]):
+            fa, fb = lp_a[t].astype(np.float64), lp_b[t].astype(np.float64)
+            na, nb = beam_step(ba, fa, blank, width, scorer), beam_step(bb, fb, blank, width, scorer)
+            if set(na) != set(nb):
+                wa = totals(beam_step(ba, fa, blank, 4 * width, scorer))
+                wb = totals(beam_step(bb, fb, blank, 4 * width, scorer))
+                noise = max((abs(wa[p] - wb[p]) for p in wa if p in wb), default=0.0)
+                margin = (max(wa[p] for p in set(na) - set(nb))
+                          - min(wa.get(q, -math.inf) for q in set(nb) - set(na)))
+                return (margin, noise) if margin <= 2 * noise else None
+            ba, bb = na, nb
+        sa, sb = totals(ba), totals(bb)
+        best_a, best_b = max(sa, key=sa.get), max(sb, key=sb.get)
+        noise = max(abs(sa[p] - sb[p]) for p in sa if p in sb)
+        margin = sa[best_a] - sa[best_b]
+        return (margin, noise) if margin <= 2 * noise else None
+
+    want_off = [greedy_text(lp) for lp in lp_off]
+    want_rep = [greedy_text(lp) for lp in lp_rep]
+    (cg,) = served(ctc_cfg, ("--beam-width", "1"), [("CTC greedy, 16 streams", all32, 16, False)])
+    verdicts[cg["tag"]] = judge(cg["tag"], cg, want_rep, want_off, lambda i: frame_flip(lp_off[i], lp_rep[i]))
+    ctc_lm_cfg = variant(ctc_cfg, "ctc_uni_lm", lm_path=arpa, lm_alpha=0.5)
+    (cb,) = served(ctc_lm_cfg, (), [("CTC beam 16 + trigram, 16 streams", all32, 16, False)])
+    t1 = time.perf_counter()
+    nb_off, nb_rep = [ctc_nbest(lp) for lp in lp_off], [ctc_nbest(lp) for lp in lp_rep]
+    timings["ctc_beam16_lm_host_s"] = time.perf_counter() - t1
+    verdicts[cb["tag"]] = judge(cb["tag"], cb, [h[0][0] for h in nb_rep], [h[0][0] for h in nb_off],
+                                lambda i: beam_divergence(lp_off[i], lp_rep[i]))
+    (ce,) = served(ctc_cfg, ("--beam-width", "1", "--endpoint"), [("CTC greedy --endpoint, 16 streams", all32, 16,
+                                                                   False)])
+    early = [i for i, r in enumerate(ce["results"]) if r["early"]]
+    ep_off, ep_rep = list(lp_off), list(lp_rep)
+    if early:  # an early final is the decode of the audio pushed until the endpoint
+        cut = [audio[i][: (ce["results"][i]["partials"] + 1) * STREAM_CHUNK] for i in early]
+        raw_cut, n_cut = offline_feats(cut)
+        frame_calls += 1
+        for i, off, rep in zip(early, offline_lp(raw_cut, n_cut), replay_lp(cut)):
+            ep_off[i], ep_rep[i] = off, rep
+    verdicts[ce["tag"]] = judge(ce["tag"], ce, [greedy_text(lp) for lp in ep_rep], [greedy_text(lp) for lp in ep_off],
+                                lambda i: frame_flip(ep_off[i], ep_rep[i]))
+    log(f"streaming CTC --endpoint (the default rules: no speech and 5 s of blanks, speech and 1 s of blanks, 20 s): "
+        f"{len(early)} early finals of 32 (wavs {early}), each the decode of the audio pushed until it")
+    timings["ctc_endpoint_early_finals"] = len(early)
+    (ca,) = served(ctc_cfg, ("--beam-width", "1"), [("CTC greedy + alignment requests, 16 streams", all32, 16, True)])
+    verdicts[ca["tag"]] = judge(ca["tag"], ca, want_rep, want_off, lambda i: frame_flip(lp_off[i], lp_rep[i]))
+    frame_s = ext.frame_step / rate
+    for i, r in enumerate(ca["results"]):
+        n_labels = len(r["final"].split())
+        path = lp_rep[i].argmax(-1)
+        keep = np.ones(len(path), bool)
+        keep[1:] = path[1:] != path[:-1]
+        frames = np.flatnonzero(keep)[path[keep] != blank]
+        if not (len(r["times"]) == len(r["confs"]) == n_labels == len(frames)
+                and np.array_equal(r["times"], frames * frame_s) and np.all((r["confs"] >= 0) & (r["confs"] <= 1))
+                and all(set(w) == {"word", "start", "end", "confidence"} and w["start"] <= w["end"]
+                        for w in r["words"]) and len(r["words"]) <= n_labels):
+            raise AssertionError(f"wav {i}: alignment answers {len(r['times'])} times, {len(r['confs'])} "
+                                 f"confidences, {len(r['words'])} words for {n_labels} labels")
+    log(f"streaming CTC alignment requests (S, C, W after each final): 32 of 32 answers of the right shapes: one "
+        f"time and one confidence a label, the times those of the replay's emission frames, confidences in [0, 1], "
+        f"{sum(len(r['words']) for r in ca['results'])} word spans")
+    del cmodel, cnet
+    log(f"phase streaming, CTC: {time.perf_counter() - t0!r} s")
+
+    launches = seven_counters()
+    want = {"frame_preemph": frame_calls, "lstm_fwd_persistent": RNN_LAYERS * ctc_forwards}
+    log(f"streaming path launches of the seven kernels {launches} (the offline references: kernel 2 {frame_calls} "
+        f"feature calls, kernel 4 {ctc_forwards} CTC forwards of {RNN_LAYERS} layers; the streaming path itself "
+        f"runs none)")
+    if any(v != want.get(k, 0) for k, v in launches.items()):
+        raise AssertionError(f"streaming path launches {launches}, want {want} and all else 0")
+    timings["verdicts"] = verdicts
+    frame_routes = check_frame_routes("streaming path")
+    log(f"phase streaming: {time.perf_counter() - t_phase!r} s")
+    return {"frame_preemph": frame_calls, "lstm_fwd": RNN_LAYERS * ctc_forwards, "frame_routes": frame_routes}, timings
+
+
 def seven_counters() -> dict:
     """Every launch counter of the seven kernels, the recurrences' by route."""
     from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
@@ -3405,6 +4100,14 @@ def main() -> int:
     log(f"text decode phase: {json.dumps(text_times)} [{card}]")
     log(f"phase text decode path: {time.perf_counter() - t0!r} s")
 
+    # ---- cli.serve --stream: the transducer and CTC recipes over the socket (no hand kernel on the path) ----
+    t0 = time.perf_counter()
+    stream_launches, stream_times = streaming_path(
+        card, train_ws, att_dirs, {"ctc": (ctc_cfg, ctc_savedir), "rnnt": (rnnt_cfg, rnnt_savedir)})
+    rnn_launches["lstm_fwd"] += stream_launches["lstm_fwd"]
+    log(f"streaming phase: {json.dumps(stream_times)} [{card}]")
+    log(f"phase streaming path: {time.perf_counter() - t0!r} s")
+
     # ---- bench.py's TDNN and CNN on the hybrid recipe at full width (no hand kernel on their paths) ----
     for family in ("tdnn", "cnn"):
         t0 = time.perf_counter()
@@ -3418,6 +4121,7 @@ def main() -> int:
     # path's, the CTC path's, the transducer path's and (kernel 4) the text
     # decode path's runs together
     total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
+    total["frame_preemph"] += stream_launches["frame_preemph"]
     kernels = [
         dict(name="fused_ffn_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
              replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=total["fused_ffn"], **ffn["float32"]),
@@ -3425,7 +4129,8 @@ def main() -> int:
              replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=bf16_launches["fused_ffn"], **ffn["bfloat16"]),
         dict(name="frame_preemph", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/frame_preemph.cu",
              replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=total["frame_preemph"],
-             launches_by_route={r: frame_routes[r] + train_frame_routes[r] for r in frame_routes}, **framing),
+             launches_by_route={r: frame_routes[r] + train_frame_routes[r] + stream_launches["frame_routes"][r]
+                                for r in frame_routes}, **framing),
         dict(name="bn_dgrad_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
              replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=total["bn_dgrad"], **bn["float32"]),
         dict(name="bn_dgrad_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",

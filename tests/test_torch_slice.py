@@ -161,7 +161,8 @@ def test_unported_steps_and_flags_name_the_jax_entry_point(slice_run):
     # every step of the JAX pipeline is in the port (tests/test_torch_cli_full_pipeline.py runs them
     # all); a step the pipeline does not have is refused before anything runs
     assert cli_main.main(["--config", slice_run["cfg"], "--steps", "train_mono,no_such_step", "--device", "cpu"]) == 1
-    with pytest.raises(NotImplementedError, match="tfkaldi_tpu.cli.serve"):
+    # --stream is ported; the hybrid recipe has no streaming transcriber, as in the JAX package
+    with pytest.raises(ValueError, match="no streaming transcriber"):
         cli_serve.main(["--config", slice_run["cfg"], "--stream", "--device", "cpu"])
 
 
@@ -187,7 +188,8 @@ def test_port_imports_without_jax():
             "tfkaldi_tpu_torch.models.transducer, tfkaldi_tpu_torch.decode.transducer, "
             "tfkaldi_tpu_torch.decode.transducer_beam, tfkaldi_tpu_torch.models.tdnn, tfkaldi_tpu_torch.models.cnn, "
             "tfkaldi_tpu_torch.kaldi, tfkaldi_tpu_torch.kaldi.gmm, tfkaldi_tpu_torch.kaldi.decode_wfst, "
-            "tfkaldi_tpu_torch.decode.lm, tfkaldi_tpu_torch.serve; "
+            "tfkaldi_tpu_torch.decode.lm, tfkaldi_tpu_torch.serve, tfkaldi_tpu_torch.frontend.online, "
+            "tfkaldi_tpu_torch.decode.online, tfkaldi_tpu_torch.decode.endpoint, tfkaldi_tpu_torch.decode.words; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)

@@ -25,6 +25,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tfkaldi_tpu.data.batching import PaddedBatch as JaxPaddedBatch
@@ -207,3 +208,15 @@ def check_trajectory(jax_model, config, params, state, *, steps: int, f: int, se
     want_buffers = dict(want.model.named_buffers())
     for name, buf in port_state.model.named_buffers():
         np.testing.assert_allclose(buf.numpy(), want_buffers[name].numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Import into a test module to run it on one intra-op torch thread: the
+    port's streaming steps are many small ops, and a worker's threads only
+    contend with the other test workers; the worker gets its threads back
+    after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

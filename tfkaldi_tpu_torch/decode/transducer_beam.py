@@ -22,8 +22,13 @@ LM shallow fusion (``fusion_table``, a
 alphabet, placed on the device once): every label extension gains the LM
 term of its prefix, padded with 0 on the blank column (the blank is a
 lattice move, not a label), and the recorded confidences stay the acoustic,
-pre-fusion posteriors. The online beam (``OnlineTransducerBeamDecoder``) is
-not ported (ROADMAP.md, item 16).
+pre-fusion posteriors.
+
+:class:`OnlineTransducerBeamDecoder` (decode/transducer_beam.py:380-585)
+carries the whole beam state (encoder carry, projections, prediction
+carries, label buffers and backtraces, counts, scores, frame counter)
+between chunks: the search is causal, so the chunked beam equals
+:class:`TransducerBeamDecoder` on the whole utterance at any chunking.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from tfkaldi_tpu_torch.decode.lm import lm_extension_scores
+from tfkaldi_tpu_torch.decode.online import host_arrays, row_mask
 from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
 
 _NEG = -1e30  # score of retired beams and illegal candidates
@@ -197,3 +203,129 @@ class TransducerBeamDecoder(TransducerDecoder):
             out.append((buf[bi, kk, :n].astype(np.int32), frame_buf[bi, kk, :n].astype(np.int64),
                         conf_buf[bi, kk, :n].astype(np.float64)))
         return out
+
+
+class OnlineTransducerBeamDecoder:
+    """Streaming transducer beam search for a unidirectional or causal
+    encoder. Already emitted labels are not final: ``best()`` is each row's
+    current best prefix, which later frames may rewrite. ``max_tokens``
+    bounds a hypothesis' labels; ``fusion_table`` adds shallow fusion."""
+
+    def __init__(self, model, *, beam_width: int = 4, max_symbols_per_frame: int = 4, max_tokens: int = 1024,
+                 fusion_table=None):
+        model.validate_streamable()
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.beam = int(beam_width)
+        self.max_symbols = int(max_symbols_per_frame)
+        self.max_tokens = int(max_tokens)
+        self.fusion = fusion_table
+        self._lm_table = None if fusion_table is None else torch.as_tensor(fusion_table.table).to(self.device)
+        self._state = None
+
+    def _fresh_state(self, b: int):
+        """``(enc_carry, proj [B, K, J], pred_carry, buf, frame_buf,
+        conf_buf [B, K, L], counts, scores [B, K], fcount [B])``: every beam
+        primed with the start token, only beam 0 live."""
+        model, k, dev, L = self.model, self.beam, self.device, self.max_tokens
+        proj, pred = model.predict_step(torch.full((b * k,), model.blank_id, dtype=torch.long, device=dev),
+                                        torch.ones(b * k, dtype=torch.bool, device=dev), model.init_pred_carry(b * k))
+        scores = torch.full((b, k), _NEG, device=dev)
+        scores[:, 0] = 0.0
+        return (model.enc.init_stream_carry(b, dev), proj.reshape(b, k, -1), pred,
+                torch.zeros(b, k, L, dtype=torch.long, device=dev), torch.zeros(b, k, L, dtype=torch.long, device=dev),
+                torch.zeros(b, k, L, device=dev), torch.zeros(b, k, dtype=torch.long, device=dev), scores,
+                torch.zeros(b, dtype=torch.long, device=dev))
+
+    @torch.inference_mode()
+    def reset(self, batch_size: int) -> None:
+        self._state = self._fresh_state(batch_size)
+
+    def _scan(self, enc, n_out, enc_carry, state):
+        """The beam over one chunk's encoder frames from ``state``."""
+        _, proj, pred, buf, frame_buf, conf_buf, counts, scores, fcount = state
+        valid = torch.arange(enc.shape[1], device=self.device)[None, :] < n_out[:, None]
+        (proj, pred, buf, frame_buf, conf_buf, counts, scores,
+         fcount) = _beam_scan(self.model, self.beam, self.max_symbols, enc, valid, proj, pred, buf, counts, scores,
+                              self.max_tokens, frame_buf, conf_buf, fcount, self.fusion, self._lm_table)
+        return enc_carry, proj, pred, buf, frame_buf, conf_buf, counts, scores, fcount
+
+    @torch.inference_mode()
+    def step(self, chunk, lengths) -> list[np.ndarray]:
+        """Consume a ``[B, Tc, F]`` feature chunk; each row's current best
+        hypothesis (its whole prefix)."""
+        if self._state is None:
+            raise RuntimeError("call reset(batch_size) before step()")
+        if chunk.shape[1] > 0:
+            chunk = torch.as_tensor(chunk, dtype=torch.float32).to(self.device, non_blocking=True)
+            lengths = torch.as_tensor(np.asarray(lengths, np.int64)).to(self.device)
+            enc, n_out, enc_carry = self.model.encode_stream(chunk, lengths, self._state[0])
+            self._state = self._scan(enc, n_out, enc_carry, self._state)
+        return self.best()
+
+    @torch.inference_mode()
+    def finish(self) -> list[np.ndarray]:
+        """End the utterances (the front-end's last partial group); each
+        row's final best hypothesis."""
+        if self._state is None:
+            raise RuntimeError("call reset(batch_size) before finish()")
+        self._state = self._scan(*self.model.encode_stream_flush(self._state[0]), self._state)
+        return self.best()
+
+    def _merge_state(self, sel, new, old):
+        """Row-wise select over the whole beam state."""
+        model, k = self.model, self.beam
+        enc = model.enc.merge_stream_carry(sel, new[0], old[0])
+        pred = model.pred.merge_stream_carry(sel.repeat_interleave(k), new[2], old[2])
+
+        def rows(n, o):
+            return torch.where(sel.reshape(-1, *([1] * (n.ndim - 1))), n, o)
+
+        return (enc, rows(new[1], old[1]), pred, *(rows(n, o) for n, o in zip(new[3:], old[3:])))
+
+    @torch.inference_mode()
+    def finish_rows(self, rows) -> list[np.ndarray]:
+        """``finish`` for some rows; the others' state stays as it was.
+        Entries at ``rows`` are final."""
+        if self._state is None:
+            raise RuntimeError("call reset(batch_size) before finish_rows()")
+        old = self._state
+        new = self._scan(*self.model.encode_stream_flush(old[0]), old)
+        self._state = self._merge_state(torch.from_numpy(row_mask(old[1].shape[0], rows)).to(self.device), new, old)
+        return self.best()
+
+    @torch.inference_mode()
+    def reset_rows(self, rows) -> None:
+        """Re-arm some rows for new utterances; the others keep streaming."""
+        if self._state is None:
+            raise RuntimeError("call reset(batch_size) before reset_rows()")
+        b = self._state[1].shape[0]
+        sel = torch.from_numpy(row_mask(b, rows)).to(self.device)
+        self._state = self._merge_state(sel, self._fresh_state(b), self._state)
+
+    def _best_rows(self):
+        """The best beam of each row on the host: ``(ids, frames, confs,
+        count)`` rows, the first of equal scores as ``np.argmax`` takes."""
+        _, _, _, buf, frame_buf, conf_buf, counts, scores, _ = self._state
+        with torch.inference_mode():
+            kk = torch.argmax(scores, dim=1)[:, None]
+            pick = (torch.gather(buf, 1, kk[:, :, None].expand(-1, -1, buf.shape[2]))[:, 0],
+                    torch.gather(frame_buf, 1, kk[:, :, None].expand(-1, -1, buf.shape[2]))[:, 0],
+                    torch.gather(conf_buf, 1, kk[:, :, None].expand(-1, -1, buf.shape[2]))[:, 0],
+                    torch.gather(counts, 1, kk)[:, 0])
+            return host_arrays(*pick)
+
+    def best(self) -> list[np.ndarray]:
+        """The current best hypothesis of each row."""
+        buf, _, _, n = self._best_rows()
+        return [buf[i, : int(n[i])].astype(np.int32) for i in range(len(n))]
+
+    def best_alignment(self) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Per row ``(ids, frames, posteriors)`` of the current best
+        hypothesis: the global encoder frame whose joint step emitted each
+        label and its acoustic posterior there. After ``finish`` it equals
+        ``TransducerBeamDecoder.decode_batch_aligned`` on the whole
+        features."""
+        buf, frames, confs, n = self._best_rows()
+        return [(buf[i, : int(n[i])].astype(np.int32), frames[i, : int(n[i])].astype(np.int64),
+                 confs[i, : int(n[i])]) for i in range(len(n))]

@@ -1,7 +1,8 @@
-"""Per-speaker CMVN statistics.
+"""Per-speaker CMVN statistics, and the streaming path's f32 CMVN.
 
 A numpy copy of ``cmvn_stats`` from :mod:`tfkaldi_tpu.frontend.cmvn` (that
-module imports JAX). The stats layout is Kaldi's: a ``[2, dim+1]`` matrix
+module imports JAX), and :func:`apply_cmvn32`, a torch copy of its
+``apply_cmvn`` as the streaming transcribers round it. The stats layout is Kaldi's: a ``[2, dim+1]`` matrix
 per speaker with ``stats[0, :dim] = Σx``, ``stats[0, dim] = frame count``,
 ``stats[1, :dim] = Σx²``, ``stats[1, dim] = 0``.
 """
@@ -36,3 +37,18 @@ def cmvn_stats(feats, num_frames=None) -> np.ndarray:
     stats[1, :dim] = s2
     stats[0, dim] = total
     return stats
+
+
+def apply_cmvn32(feats, stats):
+    """``(x - mean) / sqrt(E[x²] - mean²)`` in f32 on ``feats``'s device,
+    the stats rounded to f32 first: the streaming transcribers' CMVN, which
+    the JAX package computes in f32 whatever the stats' dtype
+    (frontend/cmvn.py:46-53 outside an x64 scope). ``feats`` is a tensor
+    ``[..., D]``; ``stats`` the Kaldi ``[2, D+1]`` matrix."""
+    import torch
+
+    s = torch.as_tensor(np.asarray(stats, np.float32), device=feats.device)
+    count = s[0, -1]
+    mean = s[0, :-1] / count
+    variance = s[1, :-1] / count - torch.square(mean)
+    return (feats.float() - mean) / torch.sqrt(variance)

@@ -23,14 +23,15 @@ frames do not depend on the padding. The output layer takes compute-dtype
 operands and adds an f32 bias. ``scan_unroll`` and ``scan_impl`` are read
 and ignored: the port always takes its kernels.
 
-Streaming, for unidirectional models: :meth:`LSTM.init_stream_carry` and
-:meth:`LSTM.apply_stream` (the transducer's prediction network steps
-through them in decode). They are the plain torch form of the JAX
-package's XLA step (models/rnn.py:232-277, 386-420), which reaches no
-Pallas kernel either: per layer one :func:`~tfkaldi_tpu_torch.layers.product`
-for ``gx``, then per frame ``round_cd(h) @ W_h`` in f32 and the masked
-update from the given carry (kernels 4-7 start from a zero carry).
-``merge_stream_carry`` is not ported (ROADMAP.md, item 16).
+Streaming, for unidirectional models: :meth:`LSTM.init_stream_carry`,
+:meth:`LSTM.apply_stream` and :meth:`LSTM.merge_stream_carry` (the
+transducer's prediction network steps through them in decode, and the
+online CTC decoders and the multi-stream server through all three). They
+are the plain torch form of the JAX package's XLA step
+(models/rnn.py:203-277, 386-420), which reaches no Pallas kernel either:
+per layer one :func:`~tfkaldi_tpu_torch.layers.product` for ``gx``, then
+per frame ``round_cd(h) @ W_h`` in f32 and the masked update from the
+given carry (kernels 4-7 start from a zero carry).
 """
 
 from __future__ import annotations
@@ -184,7 +185,7 @@ class LSTM(nn.Module):
         return logits.reshape(t, b, cfg.num_labels).transpose(0, 1)
 
     # ------------------------------------------------------------------
-    # streaming (models/rnn.py:203-213, 232-277)
+    # streaming (models/rnn.py:203-277)
     # ------------------------------------------------------------------
 
     def init_stream_carry(self, batch_size: int, device=None) -> list:
@@ -195,6 +196,15 @@ class LSTM(nn.Module):
                              "direction needs the whole future")
         zeros = torch.zeros(batch_size, cfg.hidden_units, device=device)
         return [(zeros,) * self.CARRIES for _ in range(cfg.num_layers)]
+
+    @staticmethod
+    def merge_stream_carry(take_mask, new, old) -> list:
+        """Row-wise select over stream carries: rows where ``take_mask``
+        (bool ``[B]``) is True take ``new``, the others keep ``old``. Every
+        leaf is batch-major ``[B, H]``. The multi-stream server ends or
+        re-arms one slot through it without touching the others."""
+        mask = torch.as_tensor(take_mask, dtype=torch.bool, device=old[0][0].device)[:, None]
+        return [tuple(torch.where(mask, a, b) for a, b in zip(ln, lo)) for ln, lo in zip(new, old)]
 
     @staticmethod
     def _stream_step(carry, gxt, m, wh_cd):

@@ -5,7 +5,8 @@ Port of :mod:`tfkaldi_tpu.models.transducer` (``TransducerConfig``,
 ``Transducer``: init, ``output_lengths``, ``subsample_factor``,
 ``encode``, ``predict``, ``apply_transducer``, ``lattice_scores``,
 ``lattice_scores_pruned``, ``joint_step``, ``predict_step``,
-``init_pred_carry``). Parameters keep the JAX pytree's names (``enc.*``
+``init_pred_carry``, and the streaming ``validate_streamable``,
+``encode_stream`` and ``encode_stream_flush``). Parameters keep the JAX pytree's names (``enc.*``
 the encoder's, ``pred.*`` the prediction network's, ``embed``,
 ``joint.{w,b}``), so :func:`tfkaldi_tpu_torch.convert.transducer_from_jax`
 copies them.
@@ -166,6 +167,36 @@ class Transducer(nn.Module):
     @property
     def subsample_factor(self) -> int:
         return getattr(self.enc, "subsample_factor", 1)
+
+    def validate_streamable(self) -> None:
+        """Raise unless the encoder streams exactly: a unidirectional RNN,
+        or a causal time-restricted transformer / conformer."""
+        check = getattr(self.enc, "validate_streamable", None)
+        if check is not None:
+            check()
+        elif self.enc.config.bidirectional:
+            raise ValueError("online decoding requires a unidirectional encoder (bidirectional = False)")
+
+    def encode_stream(self, chunk, lengths, carry):
+        """One streaming encoder chunk → ``(enc [B, Tc', J], n_out [B], new
+        carry)``: ``n_out`` is ``lengths`` for an RNN encoder, ``(fill +
+        v) // s`` under a subsampling front-end."""
+        fn = getattr(self.enc, "stream_output_lengths", None)
+        n_out = torch.as_tensor(lengths, device=self.embed.device).long() if fn is None else fn(carry, lengths)
+        enc, carry = self.enc.apply_stream(chunk, lengths, carry)
+        return enc, n_out, carry
+
+    def encode_stream_flush(self, carry):
+        """End of stream: the subsampling front-end's zero-padded last group
+        ``(enc [B, 1, J], n in {0, 1}, carry)``; a count-0 no-op for an RNN
+        encoder."""
+        fn = getattr(self.enc, "apply_stream_flush", None)
+        if fn is not None:
+            return fn(carry)
+        b = carry[0][0].shape[0]
+        device = self.embed.device
+        return (torch.zeros(b, 1, self.config.joint_units, device=device),
+                torch.zeros(b, dtype=torch.long, device=device), carry)
 
     # ------------------------------------------------------------------
     # parameters (models/transducer.py:188-219)

@@ -32,9 +32,25 @@ added after the input projection from the f32 sinusoid of
 the conv input is zero-masked and the hidden state is re-masked between
 blocks, so logits at real frames do not depend on the padding. Dropout is a
 keep probability, its masks drawn from the trainer's generator (the bits
-are the port's own). The streaming methods (``init_stream_carry``,
-``apply_stream*``, ``validate_streamable``) are not ported (ROADMAP.md,
-item 16).
+are the port's own).
+
+Streaming (models/transformer.py:478-784), eval only, for a model with
+``left_context >= 0``, ``right_context = 0`` and, for the conformer, a
+causal conv (:meth:`Transformer.validate_streamable`). The carry holds
+each row's global position ``pos``, per block a cache of the last
+``left_context`` attention-sublayer inputs (``h_cache [blocks, B, L, D]``)
+and, for the conformer, the last ``k-1`` pre-depthwise activations
+(``conv_cache [blocks, B, k-1, D]``); under ``subsample = s`` a
+right-aligned buffer of the ``s-1`` raw frames still waiting for a full
+group (``in_buf``, ``in_fill``). A chunk attends over ``[cache ++ chunk]``
+and the caches roll by one gather (slot ``m`` of the new cache is concat
+index ``v + m``). The roundings are the offline forward's, including the
+GLU rounded to ``compute_dtype`` before the f32 depthwise conv (the JAX
+stream keeps that GLU in f32; in f32 the two agree), so a chunked stream
+equals this module's own ``forward`` at any chunking up to the order of
+the attention sums. :meth:`Transformer.apply_stream_flush` emits the
+zero-padded last group of a stream whose length is not a multiple of
+``s``.
 """
 
 from __future__ import annotations
@@ -130,13 +146,19 @@ def sinusoidal_at(t: int, d: int, device) -> torch.Tensor:
     frames ``0..t-1``, models/transformer.py:137-159): the encoder's
     positions. It differs from :func:`sinusoidal_positions` in the last
     ulp, as the JAX package's two tables do."""
-    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    return sinusoid_rows(torch.arange(t, device=device), d)
+
+
+def sinusoid_rows(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """:func:`sinusoidal_at` at any integer frame indices: ``[...]`` →
+    ``[..., d]`` f32 (the stream's rows sit at their own global
+    positions)."""
+    device = positions.device
+    pos = positions.to(torch.float32)[..., None]
     div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device) * float(-np.log(10000.0) / d))
-    sin = torch.sin(pos * div)
-    cos = torch.cos(pos * div[: d // 2])
-    out = torch.zeros(t, d, dtype=torch.float32, device=device)
-    out[:, 0::2] = sin
-    out[:, 1::2] = cos
+    out = torch.zeros(*positions.shape, d, dtype=torch.float32, device=device)
+    out[..., 0::2] = torch.sin(pos * div)
+    out[..., 1::2] = torch.cos(pos * div[: d // 2])
     return out
 
 
@@ -300,9 +322,13 @@ class Transformer(nn.Module):
     def _rel_mask(self, t: int, device) -> torch.Tensor:
         """The time-restriction band ``[T, T]`` (True = attendable), from
         ``rel[i, j] = i - j``."""
-        cfg = self.config
         idx = torch.arange(t, device=device)
-        rel = idx[:, None] - idx[None, :]
+        return self._band(idx[:, None] - idx[None, :])
+
+    def _band(self, rel: torch.Tensor) -> torch.Tensor:
+        """``rel = q_global - k_global`` → attendable (bool) under the
+        configured time restriction."""
+        cfg = self.config
         ok = torch.ones_like(rel, dtype=torch.bool)
         if cfg.right_context != -1:
             ok = rel >= -cfg.right_context
@@ -391,3 +417,191 @@ class Transformer(nn.Module):
         h = layernorm(h, self.ln_final, eps)
         logits = product(h.reshape(b * t, cfg.d_model), self.out.w, dtype) + self.out.b.float()
         return logits.reshape(b, t, cfg.num_labels)
+
+    # ------------------------------------------------------------------
+    # streaming (models/transformer.py:478-784), eval only
+    # ------------------------------------------------------------------
+
+    def validate_streamable(self) -> None:
+        cfg = self.config
+        if cfg.left_context < 0 or cfg.right_context != 0:
+            raise ValueError("streaming a transformer requires time-restricted, strictly-causal attention: "
+                             "attention_left_context >= 0 and attention_right_context = 0 (a full/right-context "
+                             "model is the attention analog of a bidirectional RNN)")
+        if cfg.conformer and not cfg.causal_conv:
+            raise ValueError("streaming a conformer requires causal_conv = True (the centered depthwise conv has "
+                             "(k-1)/2 frames of lookahead)")
+
+    def init_stream_carry(self, batch_size: int, device=None) -> dict:
+        """Zero stream state for ``batch_size`` rows: ``pos`` and the caches
+        (zeros in unfilled slots are the offline edge padding), plus
+        ``in_buf`` / ``in_fill`` under the stacking front-end."""
+        self.validate_streamable()
+        cfg = self.config
+        device = self.in_proj.w.device if device is None else device
+        nb, d, b = cfg.num_blocks, cfg.d_model, batch_size
+        carry = {"pos": torch.zeros(b, dtype=torch.long, device=device),
+                 "h_cache": torch.zeros(nb, b, cfg.left_context, d, device=device)}
+        if cfg.conformer:
+            carry["conv_cache"] = torch.zeros(nb, b, cfg.conv_kernel - 1, d, device=device)
+        if cfg.subsample > 1:
+            carry["in_buf"] = torch.zeros(b, cfg.subsample - 1, cfg.input_dim, device=device)
+            carry["in_fill"] = torch.zeros(b, dtype=torch.long, device=device)
+        return carry
+
+    @staticmethod
+    def merge_stream_carry(take_mask, new: dict, old: dict) -> dict:
+        """Row-wise select: rows where ``take_mask`` (bool ``[B]``) is True
+        take ``new``, the others keep ``old``. The caches have the batch on
+        dim 1, everything else on dim 0."""
+        mask = torch.as_tensor(take_mask, dtype=torch.bool, device=old["pos"].device)
+        out = {}
+        for key, b in old.items():
+            shape = [1] * b.ndim
+            shape[1 if key in ("h_cache", "conv_cache") else 0] = -1
+            out[key] = torch.where(mask.reshape(shape), new[key], b)
+        return out
+
+    def stream_output_lengths(self, carry: dict, seq_lengths) -> torch.Tensor:
+        """Positions :meth:`apply_stream` emits for a chunk of
+        ``seq_lengths`` valid frames given the carry BEFORE the call:
+        ``seq_lengths``, or ``(in_fill + v) // s`` under the front-end."""
+        v = torch.as_tensor(seq_lengths, device=carry["pos"].device).long()
+        s = self.config.subsample
+        return v if s == 1 else torch.div(carry["in_fill"] + v, s, rounding_mode="floor")
+
+    def apply_stream(self, chunk: torch.Tensor, seq_lengths, carry: dict) -> tuple[torch.Tensor, dict]:
+        """One chunk ``[B, Tc, F]`` (``seq_lengths`` valid frames a row) →
+        ``(logits [B, Tc', O] f32, new carry)``; ``Tc' = ceil(Tc / s)``, of
+        which :meth:`stream_output_lengths` are valid a row. A row of
+        length 0 keeps its carry."""
+        v = torch.as_tensor(seq_lengths, device=carry["pos"].device).long()
+        if self.config.subsample > 1:
+            chunk, v, carry = self._stream_stack(chunk, v, carry)
+        return self._stream_core(chunk, v, carry)
+
+    def apply_stream_flush(self, carry: dict) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """End of stream: the zero-padded last partial group under the
+        front-end, ``(logits [B, 1, O], count [B] in {0, 1}, carry)``; a
+        count-0 no-op without it."""
+        cfg = self.config
+        pos = carry["pos"]
+        if cfg.subsample == 1:
+            return (torch.zeros(pos.shape[0], 1, cfg.num_labels, device=pos.device), torch.zeros_like(pos), carry)
+        group, n, carry = self._stream_flush_group(carry)
+        logits, carry = self._stream_core(group, n, carry)
+        return logits, n, carry
+
+    def _stream_stack(self, chunk, v, carry):
+        """Buffer raw frames until whole ``s``-groups exist and stack them:
+        ``(stacked [B, ceil(Tc/s), s·F], n_out [B], carry)``. Each row's
+        groups start where its own buffer does, so everything is gathers
+        over ``[in_buf ++ chunk]``."""
+        s = self.config.subsample
+        b, tc, f = chunk.shape
+        device = chunk.device
+        fill = carry["in_fill"]
+        combined = torch.cat([carry["in_buf"], chunk.float()], dim=1)  # a row's stream starts at s-1-fill
+        start = (s - 1) - fill
+        total = fill + v
+        n_out = torch.div(total, s, rounding_mode="floor")
+        new_fill = total - n_out * s
+        cap = -(-tc // s)
+        last = s - 1 + tc - 1
+        ar = torch.arange(cap * s, device=device)[None, :]
+        idx = (start[:, None] + ar).clamp(0, last)
+        frames = torch.gather(combined, 1, idx[:, :, None].expand(-1, -1, f))
+        frames = torch.where((ar < (n_out * s)[:, None])[:, :, None], frames, 0.0)  # past the groups: inert
+        j = torch.arange(s - 1, device=device)[None, :]
+        lead = ((s - 1) - new_fill)[:, None]
+        buf_idx = (start[:, None] + (n_out * s)[:, None] + j - lead).clamp(0, last)
+        new_buf = torch.where((j >= lead)[:, :, None],
+                              torch.gather(combined, 1, buf_idx[:, :, None].expand(-1, -1, f)), 0.0)
+        return frames.reshape(b, cap, s * f), n_out, {**carry, "in_buf": new_buf, "in_fill": new_fill}
+
+    def _stream_flush_group(self, carry):
+        """The last partial group, zero-padded as the offline forward pads
+        its tail, emitted for rows with buffered frames."""
+        s = self.config.subsample
+        buf, fill = carry["in_buf"], carry["in_fill"]
+        b, _, f = buf.shape
+        i = torch.arange(s, device=buf.device)[None, :]
+        idx = (((s - 1) - fill)[:, None] + i).clamp(0, s - 2)
+        frames = torch.where((i < fill[:, None])[:, :, None], torch.gather(buf, 1, idx[:, :, None].expand(-1, -1, f)),
+                             0.0)
+        n = (fill > 0).long()
+        return frames.reshape(b, 1, s * f), n, {**carry, "in_buf": torch.zeros_like(buf),
+                                                 "in_fill": torch.zeros_like(fill)}
+
+    @staticmethod
+    def _roll(cache, new_rows, v):
+        """The cache after ``v`` valid new rows: slot ``m`` is concat index
+        ``v + m`` of ``[cache ++ new_rows]``."""
+        full = torch.cat([cache, new_rows], dim=1)
+        idx = v[:, None] + torch.arange(cache.shape[1], device=cache.device)[None, :]
+        return torch.gather(full, 1, idx[:, :, None].expand(-1, -1, full.shape[2]))
+
+    def _stream_core(self, chunk, v, carry):
+        """The block stack over an (already stacked) chunk with ``v`` valid
+        positions a row."""
+        cfg = self.config
+        dtype, eps, L = cfg.compute_dtype, cfg.ln_eps, cfg.left_context
+        b, tc, _ = chunk.shape
+        device = chunk.device
+        pos = carry["pos"]
+        ar_q = torch.arange(tc, device=device)
+        mask_btf = (ar_q[None, :] < v[:, None])[:, :, None]
+
+        h = affine(chunk.float(), self.in_proj.w, self.in_proj.b, dtype)
+        h = h + sinusoid_rows(pos[:, None] + ar_q[None, :], cfg.d_model).to(dtype)
+        h = h * mask_btf.to(h.dtype)
+
+        # keys [cache ++ chunk]: concat index p holds global frame pos - L + p,
+        # query i global frame pos + i, so rel[i, p] = (L + i) - p
+        ar_k = torch.arange(L + tc, device=device)[None, :]
+        rel = (L + ar_q)[:, None] - ar_k
+        key_valid = torch.where(ar_k < L, ar_k >= (L - pos.clamp(max=L))[:, None], (ar_k - L) < v[:, None])
+        attn_mask = key_valid[:, None, None, :] & self._band(rel)[None, None]
+
+        h_caches, conv_caches = [], []
+        for l, blk in enumerate(self.blocks):
+            if cfg.conformer:
+                z = layernorm(h, blk.ln_ffn1, eps)
+                h = (h + 0.5 * feed_forward(z, blk.ffn1, dtype)) * mask_btf.to(h.dtype)
+            cache = carry["h_cache"][l]
+            full = torch.cat([cache, h.float()], dim=1)  # [B, L+Tc, D]
+            h_caches.append(self._roll(cache, h.float(), v))
+            z_full = layernorm(full.to(dtype), blk.ln_attn, eps)
+            h = h + attention(z_full[:, L:], z_full, blk.attn, attn_mask, cfg.num_heads, dtype)
+            if cfg.conformer:
+                h, conv_cache = self._stream_conv(h, blk, l, mask_btf, carry["conv_cache"][l], v)
+                conv_caches.append(conv_cache)
+            z = layernorm(h, blk.ln_ffn, eps)
+            f = feed_forward(z, blk.ffn, dtype)
+            h = layernorm(h + 0.5 * f, blk.ln_out, eps) if cfg.conformer else h + f
+            h = h * mask_btf.to(h.dtype)
+
+        new_carry = {**carry, "pos": pos + v, "h_cache": torch.stack(h_caches)}
+        if cfg.conformer:
+            new_carry["conv_cache"] = torch.stack(conv_caches)
+        h = layernorm(h, self.ln_final, eps)
+        logits = product(h.reshape(b * tc, cfg.d_model), self.out.w, dtype) + self.out.b.float()
+        return logits.reshape(b, tc, cfg.num_labels), new_carry
+
+    def _stream_conv(self, h, blk, l: int, mask_btf, cache, v):
+        """The conv module over ``[conv_cache ++ chunk]`` with no padding:
+        the unfilled cache slots' zeros are the offline causal pad. Returns
+        ``(h + module, new conv cache)``, masked."""
+        cfg = self.config
+        dtype = cfg.compute_dtype
+        b, tc, d = h.shape
+        p = blk.conv
+        zf = affine(layernorm(h, blk.ln_conv, cfg.ln_eps), p.w_in, p.b_in, dtype).float()
+        glu = (zf[..., :d] * torch.sigmoid(zf[..., d:])).to(dtype) * mask_btf.to(dtype)
+        glu = glu.float()
+        new_cache = self._roll(cache, glu, v)
+        conv = F.conv1d(torch.cat([cache, glu], dim=1).transpose(1, 2), p.w_dw, groups=d)  # [B, D, Tc] f32
+        z = batchnorm(conv.transpose(1, 2).reshape(b * tc, d), self.bn_conv_mean[l], self.bn_conv_var[l],
+                      p.bn_beta, cfg.bn_eps, torch.float32)
+        out = affine(swish(z, dtype).reshape(b, tc, d), p.w_out, p.b_out, dtype)
+        return (h + out) * mask_btf.to(h.dtype), new_cache
