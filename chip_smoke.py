@@ -2886,6 +2886,7 @@ def text_decode_path(card: str, ws: dict, att_dirs: dict, recipes: dict, rates: 
 
 STREAM_CHUNK = 1600  # samples a client chunk: 100 ms at 16 kHz
 STREAM_SLOTS = 16  # MultiStreamServer.DEFAULT_SLOTS: the rows of every server tick
+STREAM_CEILING_SLOTS = (32, 64)  # --slots of the transducer runs that look for the slots' ceiling
 STREAM_CLIENT_TIMEOUT = 300.0  # seconds a client socket waits for a reply before the run fails
 # the fused front-end's frames (batch 1, 12 frames a call) against the offline extractor's (32 wavs a
 # call), err/max(|ref|, 1): the f64 DFT products of other row counts may round otherwise, then f32
@@ -3028,9 +3029,9 @@ def _pct(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, np.float64), q)) if len(values) else float("nan")
 
 
-def stream_replay(ext, wavs: list, encode, cmvn=None) -> list:
+def stream_replay(ext, wavs: list, encode, cmvn=None, slots: int = STREAM_SLOTS) -> list:
     """The wavs through the fused front-end and ``encode`` as the server's
-    slots run them: STREAM_SLOTS rows a batch (a wav a row, empty rows to
+    slots run them: ``slots`` rows a batch (a wav a row, empty rows to
     fill it), STREAM_CHUNK-sample pushes from each row's start, length 0
     once a row's audio ends, then the flush of every row. Each push's
     frames are CMVN'd by ``apply_cmvn32`` (when given; frames past a row's
@@ -3047,10 +3048,10 @@ def stream_replay(ext, wavs: list, encode, cmvn=None) -> list:
     from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor
 
     out = []
-    for g in range(0, len(wavs), STREAM_SLOTS):
-        group = wavs[g: g + STREAM_SLOTS]
+    for g in range(0, len(wavs), slots):
+        group = wavs[g: g + slots]
         online = FusedOnlineFeatureExtractor(ext)
-        online.reset(STREAM_SLOTS)
+        online.reset(slots)
         frames = [[] for _ in group]
         outs = [[] for _ in group]
         carry = None
@@ -3058,8 +3059,8 @@ def stream_replay(ext, wavs: list, encode, cmvn=None) -> list:
         with torch.inference_mode():
             for p in [*range(0, longest, STREAM_CHUNK), None]:
                 if p is not None:
-                    chunk = np.zeros((STREAM_SLOTS, STREAM_CHUNK), np.float32)
-                    lens = np.zeros((STREAM_SLOTS,), np.int64)
+                    chunk = np.zeros((slots, STREAM_CHUNK), np.float32)
+                    lens = np.zeros((slots,), np.int64)
                     for r, w in enumerate(group):
                         part = w[p: p + STREAM_CHUNK]
                         chunk[r, : len(part)] = part
@@ -3085,12 +3086,15 @@ def stream_replay(ext, wavs: list, encode, cmvn=None) -> list:
     return out
 
 
-def greedy_node(model, e_off, e_rep, ids_off, fr_off, ids_rep, fr_rep):
+def greedy_node(model, e_off, e32, ids_off, fr_off, ids_rep, fr_rep):
     """Where two greedy transducer searches part: the first emission
     ``(label, frame)`` that differs, at the node they share (the frame, and
-    the labels emitted before it). Its decision evaluated on both encoder
-    outputs: ``(offline log-prob margin of its choice over the other's,
-    max|log-prob difference| between the two encoders there)``."""
+    the labels emitted before it). Its decision is a near tie when the
+    offline log-prob margin of its choice over the other's is within twice
+    the bf16 noise there, the max|log-prob difference| between the offline
+    encoder's output and the f32-compute encoder's under the same joint and
+    prediction network (independent of the other search): ``(margin,
+    noise)``, else None."""
     import torch
 
     blank = model.blank_id
@@ -3109,19 +3113,21 @@ def greedy_node(model, e_off, e_rep, ids_off, fr_off, ids_rep, fr_rep):
             proj, carry = model.predict_step(torch.full((1,), int(label), device=dev),
                                              torch.ones(1, dtype=torch.bool, device=dev), carry)
         lo = torch.log_softmax(model.joint_step(e_off[t: t + 1], proj).float(), -1)[0]
-        lr = torch.log_softmax(model.joint_step(e_rep[t: t + 1], proj).float(), -1)[0]
-    return float(lo[choice_off] - lo[choice_rep]), float((lr - lo).abs().max())
+        l32 = torch.log_softmax(model.joint_step(e32[t: t + 1], proj).float(), -1)[0]
+    margin, noise = float(lo[choice_off] - lo[choice_rep]), float((l32 - lo).abs().max())
+    return (margin, noise) if margin <= 2 * noise else None
 
 
-def nbest_tie(hyp: str, off: list, rep: list):
-    """The beam rule: ``off`` / ``rep`` are ``[(text, score)]`` n-bests
-    (best first) of the offline and the replayed search. A replayed best
-    ``hyp`` that is not the offline best is a near tie when it is in the
-    offline n-best and its offline score is within twice the largest score
-    difference of the hypotheses both n-bests hold: ``(gap, noise)``, else
-    None."""
-    off_s, rep_s = dict(off), dict(rep)
-    noise = max((abs(off_s[h] - rep_s[h]) for h in off_s if h in rep_s), default=0.0)
+def nbest_tie(hyp: str, off: list, ref: list):
+    """The beam rule: ``off`` / ``ref`` are ``[(text, score)]`` n-bests
+    (best first) of the offline search and of the same search on the
+    f32-compute model's numbers. A replayed best ``hyp`` that is not the
+    offline best is a near tie when it is in the offline n-best and its
+    offline score is within twice the bf16 noise, the largest score
+    difference of the hypotheses both ``off`` and ``ref`` hold: ``(gap,
+    noise)``, else None."""
+    off_s, ref_s = dict(off), dict(ref)
+    noise = max((abs(off_s[h] - ref_s[h]) for h in off_s if h in ref_s), default=0.0)
     if hyp not in off_s:
         return None
     gap = off[0][1] - off_s[hyp]
@@ -3135,8 +3141,10 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     - the transducer recipe as written on the transducer phase's ``final.pt``
       (beam 8, 16 slots, the pooled CMVN of its training featdir), 16
       concurrent clients; then 4 and 1 at a time (4 wavs, 1 wav) for the
-      chunk-reply latency; ``--beam-width 1``; and the text decode phase's
-      character trigram as ``lm_path`` (the fused beam);
+      chunk-reply latency; ``--beam-width 1``; the text decode phase's
+      character trigram as ``lm_path`` (the fused beam); and ``--slots``
+      32 and 64 with as many streams (STREAM_CEILING_SLOTS), for the tick
+      against the chunk period past the default 16 slots;
     - the CTC recipe with ``bidirectional = False`` (and ``context_width =
       0``: the streaming transcribers feed unspliced frames, as the JAX
       package's do) on a seeded ``final.pt``: greedy, beam 16 with the
@@ -3151,11 +3159,14 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     decoder on the offline extractor's features (kernel 2) with the same
     f32 CMVN (the CTC's offline forward runs kernel 4 with one direction),
     a final is identical, or the first decision where the replayed and the
-    offline numbers part is a near tie, its margin printed. The replayed
-    transducer encoder is held to the bf16 rule against an f32-compute
-    encode, the fused front-end's frames to the offline extractor's. Counts
-    reset before, read after. Returns the seven kernels' launches and the
-    timings."""
+    offline numbers part is a near tie: its offline margin within twice the
+    offline model's own bf16 noise (its distance from the same model run
+    in f32 compute, which does not depend on the stream), both printed.
+    The replayed transducer encoder output and the replayed CTC
+    log-posteriors are held to the bf16 rule against the f32-compute
+    offline forward, the fused front-end's frames to the offline
+    extractor's. Counts reset before, read after. Returns the seven
+    kernels' launches and the timings."""
     import dataclasses
     from configparser import ConfigParser
 
@@ -3174,6 +3185,7 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     from tfkaldi_tpu_torch.io import read_wav, read_wavfiles
     from tfkaldi_tpu_torch.models import Transducer
     from tfkaldi_tpu_torch.nnet import Nnet
+    from tfkaldi_tpu_torch.ops import rnn_bidi
     from tfkaldi_tpu_torch.serve import MultiStreamServer, global_cmvn
 
     t_phase = time.perf_counter()
@@ -3228,7 +3240,7 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
         return x, torch.arange(t_max, device=dev)[None, :] < lens[:, None]
 
     reset_counts()
-    frame_calls = ctc_forwards = 0
+    frame_calls = 0
     timings = {"audio_s": sum(len(a) for a in audio) / rate}
 
     # ---- offline features (kernel 2) against the slots' front-end ----
@@ -3252,13 +3264,13 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
         raise AssertionError(f"the fused front-end's frames differ from the offline extractor's: {feat_err}")
     timings["feature_max_err"] = feat_err
 
-    def served(cfg: str, flags: tuple, runs: list) -> list:
-        """One server; each run ``(tag, wav indices, concurrency,
-        requests)`` a batch of clients; returns each run's results, with the
-        server's ticks, rows and tick times over it."""
+    def served(cfg: str, flags: tuple, runs: list, slots: int = STREAM_SLOTS) -> list:
+        """One server of ``slots`` slots; each run ``(tag, wav indices,
+        concurrency, requests)`` a batch of clients; returns each run's
+        results, with the server's ticks, rows and tick times over it."""
         out = []
         with stream_server(cfg, "--device", device, *flags) as (host, port, server):
-            if server.num_slots != STREAM_SLOTS or server.chunk_size != STREAM_CHUNK:
+            if server.num_slots != slots or server.chunk_size != STREAM_CHUNK:
                 raise AssertionError(f"the server has {server.num_slots} slots of {server.chunk_size} samples")
             for tag, idx, conc, requests in runs:
                 server.tick_durations.clear()
@@ -3285,7 +3297,8 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     def judge(tag: str, res: dict, replay: list, offline: list, explain) -> dict:
         """Each served final: equal to the search on its slot's replayed
         numbers, else the run fails; against the offline decode identical,
-        or ``explain(i)`` a near tie ``(margin, noise)``, else it fails."""
+        or ``explain(i)`` a near tie ``(margin, noise)`` (its margin within
+        twice the offline model's own bf16 noise), else it fails."""
         same, ties = 0, []
         for j, i in enumerate(res["idx"]):
             got = res["results"][j]["final"]
@@ -3301,8 +3314,8 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
                                      f"explains it:\n  served  {got!r}\n  offline {offline[i]!r}")
             ties.append((i, *[float(v) for v in tie]))
         log(f"streaming {tag}: finals identical to the card's offline decode on {same} of {len(res['idx'])} wavs "
-            f"(and each equal to its slot's replay); near ties {len(ties)} (wav, offline margin, card-replay "
-            f"difference): {ties}")
+            f"(and each equal to its slot's replay); near ties {len(ties)} (wav, offline margin, offline bf16 noise "
+            f"against the f32-compute model; a tie needs margin <= 2 x noise): {ties}")
         return {"identical": same, "near_ties": len(ties)}
 
     verdicts = {}
@@ -3327,47 +3340,53 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     valid_off = torch.arange(enc_off.shape[1], device=dev)[None, :] < torch.as_tensor(t_out, device=dev)[:, None]
 
     def rnnt_encode(f, k, carry):
-        carry = model.enc.init_stream_carry(STREAM_SLOTS, dev) if carry is None else carry
+        carry = model.enc.init_stream_carry(f.shape[0], dev) if carry is None else carry
         if f is None:
             y, m, carry = model.encode_stream_flush(carry)
         else:
             y, m, carry = model.encode_stream(f, torch.as_tensor(np.asarray(k), device=dev), carry)
         return [y[r, : int(c)] for r, c in enumerate(m.tolist())], carry
 
-    enc_rep = [e for _, e in stream_replay(ext, audio, rnnt_encode, cmvn)]
-    d_rep = d_off = d_ro = 0.0
-    bad = []
-    for i, e in enumerate(enc_rep):
-        if e.shape[0] != t_out[i]:
-            raise AssertionError(f"wav {i}: {e.shape[0]} replayed encoder frames, offline {t_out[i]}")
-        ref = enc32[i, : t_out[i]]
-        a, b = float((e - ref).abs().max()), float((enc_off[i, : t_out[i]] - ref).abs().max())
-        d_rep, d_off = max(d_rep, a), max(d_off, b)
-        d_ro = max(d_ro, float((e - enc_off[i, : t_out[i]]).abs().max()))
-        if not bf16_close(a, b):
-            bad.append((i, a, b))
-    log(f"streaming transducer encoder (bf16), replayed in the slots' shapes against the offline encode of the batch: "
-        f"max|replay - offline| {d_ro!r}; from the f32-compute encode: replay {d_rep!r}, offline {d_off!r} (bf16 rule "
-        f"per wav: within {RNN_BF16_RATIO}x + {RNN_F32_TOL}); {time.perf_counter() - t0!r} s")
-    if bad:
-        raise AssertionError(f"the streamed encoder is outside the bf16 rule on wavs {bad}")
-    timings.update(rnnt_encoder_replay_vs_offline=d_ro, rnnt_encoder_replay_vs_f32=d_rep,
-                   rnnt_encoder_offline_vs_f32=d_off)
+    def rnnt_replay(slots: int) -> list:
+        """The 32 wavs' encoder outputs as ``slots`` server slots compute
+        them, each held to the bf16 rule against the f32-compute encode."""
+        t1 = time.perf_counter()
+        enc_rep = [e for _, e in stream_replay(ext, audio, rnnt_encode, cmvn, slots)]
+        d_rep = d_off = d_ro = 0.0
+        bad = []
+        for i, e in enumerate(enc_rep):
+            if e.shape[0] != t_out[i]:
+                raise AssertionError(f"wav {i}: {e.shape[0]} replayed encoder frames, offline {t_out[i]}")
+            ref = enc32[i, : t_out[i]]
+            a, b = float((e - ref).abs().max()), float((enc_off[i, : t_out[i]] - ref).abs().max())
+            d_rep, d_off = max(d_rep, a), max(d_off, b)
+            d_ro = max(d_ro, float((e - enc_off[i, : t_out[i]]).abs().max()))
+            if not bf16_close(a, b):
+                bad.append((i, a, b))
+        log(f"streaming transducer encoder (bf16), replayed in the shapes of {slots} slots against the offline encode "
+            f"of the batch: max|replay - offline| {d_ro!r}; from the f32-compute encode: replay {d_rep!r}, offline "
+            f"{d_off!r} (bf16 rule per wav: within {RNN_BF16_RATIO}x + {RNN_F32_TOL}); "
+            f"{time.perf_counter() - t1!r} s")
+        if bad:
+            raise AssertionError(f"the streamed encoder ({slots} slots) is outside the bf16 rule on wavs {bad}")
+        timings.update({f"rnnt_encoder_replay_vs_offline_{slots}_slots": d_ro,
+                        f"rnnt_encoder_replay_vs_f32_{slots}_slots": d_rep, "rnnt_encoder_offline_vs_f32": d_off})
+        return enc_rep
 
-    def searched(dec, rows: list) -> list:
+    def searched(dec, rows: list, slots: int = STREAM_SLOTS) -> list:
         """``dec.search`` over per-row encoder outputs in batches of the
         slots' row count (each row on its own in a batch of the server's
         size); the host copies, row by row."""
         out = []
-        for g in range(0, len(rows), STREAM_SLOTS):
-            group = rows[g: g + STREAM_SLOTS]
-            enc, valid = padded(group + [group[0][:0]] * (STREAM_SLOTS - len(group)))
+        for g in range(0, len(rows), slots):
+            group = rows[g: g + slots]
+            enc, valid = padded(group + [group[0][:0]] * (slots - len(group)))
             res = [t.cpu().numpy() for t in dec.search(enc, valid)]
             out += [[t[r] for t in res] for r in range(len(group))]
         return out
 
-    def whole(dec):  # the offline decode: the 32 rows of the offline batch together
-        res = [t.cpu().numpy() for t in dec.search(enc_off, valid_off)]
+    def whole(dec, enc=None):  # the offline decode: the 32 rows of the offline batch together
+        res = [t.cpu().numpy() for t in dec.search(enc_off if enc is None else enc, valid_off)]
         return [[t[r] for t in res] for r in range(32)]
 
     def nbest(rows):
@@ -3377,6 +3396,7 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
             out.append([(coder.decode(buf[k, : counts[k]]), float(scores[k])) for k in order if scores[k] > -1e29])
         return out
 
+    enc_rep = rnnt_replay(STREAM_SLOTS)
     greedy = TransducerDecoder(model, coder, max_symbols_per_frame=max_sym)
     g_off, g_rep = whole(greedy), searched(greedy, enc_rep)
     ali = {side: [(r[0][: r[3]].tolist(), r[1][: r[3]].tolist()) for r in rows]
@@ -3385,12 +3405,13 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     beams = {}
     for tag, fusion in (("beam", None), ("beam_lm", table)):
         dec = TransducerBeamDecoder(model, coder, beam_width=beam, max_symbols_per_frame=max_sym, fusion_table=fusion)
-        beams[tag] = (nbest(whole(dec)), nbest(searched(dec, enc_rep)))
+        beams[tag] = (dec, nbest(whole(dec)), nbest(whole(dec, enc32)), nbest(searched(dec, enc_rep)))
 
-    def beam_verdict(tag: str, res: dict, key: str) -> dict:
-        off, rep = beams[key]
-        return judge(tag, res, [h[0][0] for h in rep], [h[0][0] for h in off],
-                     lambda i: nbest_tie(rep[i][0][0], off[i], rep[i]))
+    def beam_verdict(tag: str, res: dict, key: str, rep=None) -> dict:
+        _, off, ref, rep16 = beams[key]
+        rep = rep16 if rep is None else rep
+        return judge(tag, res, [rep[i][0][0] for i in range(32)], [h[0][0] for h in off],
+                     lambda i: nbest_tie(rep[i][0][0], off[i], ref[i]))
 
     runs = served(rnnt_cfg, (), [("transducer beam 8, 16 streams", all32, 16, False),
                                  ("transducer beam 8, 4 streams", all32[:4], 4, False),
@@ -3400,11 +3421,18 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     (res,) = served(rnnt_cfg, ("--beam-width", "1"), [("transducer greedy, 16 streams", all32, 16, False)])
     verdicts[res["tag"]] = judge(
         res["tag"], res, [coder.decode(ids) for ids, _ in ali["rep"]], [coder.decode(ids) for ids, _ in ali["off"]],
-        lambda i: greedy_node(model, enc_off[i, : t_out[i]], enc_rep[i], *ali["off"][i], *ali["rep"][i]))
+        lambda i: greedy_node(model, enc_off[i, : t_out[i]], enc32[i, : t_out[i]], *ali["off"][i], *ali["rep"][i]))
     fused_cfg = variant(rnnt_cfg, "transducer_lm", lm_path=arpa, lm_alpha=0.5)
     (res,) = served(fused_cfg, (), [("transducer beam 8 + trigram, 16 streams", all32, 16, False)])
     verdicts[res["tag"]] = beam_verdict(res["tag"], res, "beam_lm")
-    del model, enc_off, enc_rep, enc32
+    # the slots' ceiling: as many streams as slots (the 32 wavs twice for 64), every final still held
+    for slots in STREAM_CEILING_SLOTS:
+        rep = nbest(searched(beams["beam"][0], rnnt_replay(slots), slots))
+        idx = (all32 * (slots // 32 + 1))[:slots]
+        (res,) = served(rnnt_cfg, ("--slots", str(slots)),
+                        [(f"transducer beam 8, {slots} slots, {slots} streams", idx, slots, False)], slots)
+        verdicts[res["tag"]] = beam_verdict(res["tag"], res, "beam", rep)
+    del model, enc_off, enc_rep, enc32, beams
     log(f"phase streaming, transducer: {time.perf_counter() - t0!r} s")
 
     # ---- the CTC recipe, unidirectional, seeded ----
@@ -3421,16 +3449,28 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
         cnet.model.out.b[blank] = CTC_BLANK_BIAS
     save_checkpoint(cnet.savedir, cnet.model.state_dict())
     cmodel = cnet._load_model().eval()
+    c32 = type(cmodel)(dataclasses.replace(cmodel.config, compute_dtype=torch.float32)).to(dev).eval()
+    c32.load_state_dict(cmodel.state_dict())
     ccmvn = global_cmvn(ws["train_featdir"])
     width = int(cconf.get("nnet", "beam_width"))
+    lstm_want = {"lstm_fwd_persistent": 0, "lstm_fwd": 0}
 
     def offline_lp(raw_feats, counts):
-        nonlocal ctc_forwards
-        with torch.inference_mode():
-            lp = torch.log_softmax(cmodel(apply_cmvn32(raw_feats, ccmvn), torch.as_tensor(counts, device=dev))
-                                   .float(), -1).cpu().numpy()
-        ctc_forwards += 1
-        return [lp[i, : counts[i]] for i in range(len(counts))]
+        """Per wav the offline forward's log-posteriors (kernel 4, one
+        direction), bf16 as configured and f32-compute on the same
+        weights: ``(bf16 list, f32 list)``."""
+        x = apply_cmvn32(raw_feats, ccmvn)
+        out = []
+        for m in (cmodel, c32):
+            with torch.inference_mode():
+                lp = torch.log_softmax(m(x, torch.as_tensor(counts, device=dev)).float(), -1).cpu().numpy()
+            cfg = m.config
+            plan = rnn_bidi.fwd_plan(len(counts), cfg.hidden_units, m.GATES, cfg.compute_dtype, 1)
+            persistent = plan.route == "persistent"
+            lstm_want["lstm_fwd_persistent" if persistent else "lstm_fwd"] += cfg.num_layers * (
+                1 if persistent else x.shape[1])
+            out.append([lp[i, : counts[i]] for i in range(len(counts))])
+        return tuple(out)
 
     def ctc_encode(f, k, carry):
         carry = cmodel.init_stream_carry(STREAM_SLOTS, dev) if carry is None else carry
@@ -3443,11 +3483,28 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     def replay_lp(wavs):
         return [lp.cpu().numpy() for _, lp in stream_replay(ext, wavs, ctc_encode, ccmvn)]
 
-    lp_off, lp_rep = offline_lp(raw, nframes), replay_lp(audio)
-    lp_diff = max(float(np.abs(r - o).max()) for r, o in zip(lp_rep, lp_off))
-    log(f"streaming CTC (2 x 512 unidirectional LSTM, bf16, seeded): log-posteriors replayed in the slots' shapes "
-        f"against the offline forward (kernel 4, one direction): max|diff| {lp_diff!r}")
-    timings["ctc_logprob_replay_vs_offline"] = lp_diff
+    def held(lp_off, lp32, lp_rep, what: str) -> list:
+        """The replayed log-posteriors held to the bf16 rule per wav against
+        the f32-compute offline forward; returns each wav's bf16 noise, the
+        offline forward's max|bf16 - f32| (the scale a near tie is judged
+        by, independent of the stream)."""
+        noise = [float(np.abs(o - r).max()) for o, r in zip(lp_off, lp32)]
+        d_rep = [float(np.abs(p - r).max()) for p, r in zip(lp_rep, lp32)]
+        d_ro = max(float(np.abs(p - o).max()) for p, o in zip(lp_rep, lp_off))
+        bad = [(i, a, b) for i, (a, b) in enumerate(zip(d_rep, noise)) if not bf16_close(a, b)]
+        log(f"streaming CTC (2 x 512 unidirectional LSTM, bf16, seeded), {what}: log-posteriors replayed in the "
+            f"slots' shapes against the offline forward (kernel 4, one direction): max|diff| {d_ro!r}; from the "
+            f"f32-compute offline forward: replay {max(d_rep)!r}, offline {max(noise)!r} (bf16 rule per wav: within "
+            f"{RNN_BF16_RATIO}x + {RNN_F32_TOL})")
+        if bad:
+            raise AssertionError(f"the streamed CTC log-posteriors ({what}) are outside the bf16 rule on wavs {bad}")
+        return noise
+
+    (lp_off, lp32), lp_rep = offline_lp(raw, nframes), replay_lp(audio)
+    noise = held(lp_off, lp32, lp_rep, "the 32 wavs")
+    timings.update(ctc_logprob_replay_vs_offline=max(float(np.abs(r - o).max()) for r, o in zip(lp_rep, lp_off)),
+                   ctc_logprob_replay_vs_f32=max(float(np.abs(r - o).max()) for r, o in zip(lp_rep, lp32)),
+                   ctc_logprob_offline_vs_f32=max(noise))
 
     def greedy_text(lp):
         path = lp.argmax(-1)
@@ -3456,14 +3513,17 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
         ids = path[keep]
         return coder.decode(ids[ids != blank])
 
-    def frame_flip(a, b):
-        """The first frame whose argmax the two log-posteriors part on:
-        ``(margin of a's pick over b's under a, max|a - b| there)``."""
+    def frame_flip(a, b, noise_i):
+        """The first frame whose argmax the offline ``a`` and replayed ``b``
+        log-posteriors part on: a near tie ``(margin of a's pick over b's
+        under a, the wav's bf16 noise)`` when the margin is within twice
+        the noise, else None."""
         flips = np.flatnonzero(a.argmax(-1) != b.argmax(-1))
         if not len(flips):
             return None
         t = flips[0]
-        return a[t].max() - a[t, b[t].argmax()], np.abs(a[t] - b[t]).max()
+        margin = float(a[t].max() - a[t, b[t].argmax()])
+        return (margin, noise_i) if margin <= 2 * noise_i else None
 
     scorer = FusionScorer(ArpaLM.load(arpa), list(coder.alphabet) + ["<blank>"], alpha=0.5, beta=0.0)
 
@@ -3473,66 +3533,73 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
             beams_ = beam_step(beams_, lp[t].astype(np.float64), blank, width, scorer)
         return [(coder.decode(np.asarray(p, np.int32)), s) for p, s in nbest_prefixes(beams_, width)]
 
-    def beam_divergence(lp_a, lp_b):
-        """The two prefix beams (offline ``a``, replay ``b``) frame by frame:
-        at the first frame their kept prefixes differ, ``a``'s margin for
-        keeping its own over ``b``'s (the best score ``a`` kept that ``b``
-        dropped less the least ``a`` gives one ``b`` kept, scored by a
-        4x-wide step of the same beams), against the largest score
-        difference of the prefixes both wide steps hold; at the end, if the
-        kept sets never parted, the offline gap between the two bests.
-        ``(margin, noise)`` when the margin is within twice the noise, else
-        None."""
-        ba, bb = initial_beams(), initial_beams()
+    def beam_divergence(lp_a, lp_b, lp_c):
+        """The prefix beams of the offline ``a``, the replay ``b`` and the
+        f32-compute offline ``c`` log-posteriors, frame by frame: at the
+        first frame the kept prefixes of ``a`` and ``b`` differ, ``a``'s
+        margin for keeping its own over ``b``'s (the best score ``a`` kept
+        that ``b`` dropped less the least ``a`` gives one ``b`` kept, scored
+        by a 4x-wide step of the same beams), against the bf16 noise, the
+        largest score difference of the prefixes both the wide steps of
+        ``a`` and ``c`` hold; at the end, if the kept sets never parted, the
+        offline gap between the two bests against the same noise of the
+        final beams. ``(margin, noise)`` when the margin is within twice the
+        noise, else None."""
+        ba, bb, bc = initial_beams(), initial_beams(), initial_beams()
 
         def totals(beams_):
             return dict(nbest_prefixes(beams_, len(beams_)))
 
+        def noise_of(sa, sc):
+            return max((abs(sa[p] - sc[p]) for p in sa if p in sc), default=0.0)
+
         for t in range(lp_a.shape[0]):
-            fa, fb = lp_a[t].astype(np.float64), lp_b[t].astype(np.float64)
+            fa, fb, fc = (lp[t].astype(np.float64) for lp in (lp_a, lp_b, lp_c))
             na, nb = beam_step(ba, fa, blank, width, scorer), beam_step(bb, fb, blank, width, scorer)
             if set(na) != set(nb):
                 wa = totals(beam_step(ba, fa, blank, 4 * width, scorer))
-                wb = totals(beam_step(bb, fb, blank, 4 * width, scorer))
-                noise = max((abs(wa[p] - wb[p]) for p in wa if p in wb), default=0.0)
+                noise_t = noise_of(wa, totals(beam_step(bc, fc, blank, 4 * width, scorer)))
                 margin = (max(wa[p] for p in set(na) - set(nb))
                           - min(wa.get(q, -math.inf) for q in set(nb) - set(na)))
-                return (margin, noise) if margin <= 2 * noise else None
-            ba, bb = na, nb
+                return (margin, noise_t) if margin <= 2 * noise_t else None
+            ba, bb, bc = na, nb, beam_step(bc, fc, blank, width, scorer)
         sa, sb = totals(ba), totals(bb)
         best_a, best_b = max(sa, key=sa.get), max(sb, key=sb.get)
-        noise = max(abs(sa[p] - sb[p]) for p in sa if p in sb)
+        noise_t = noise_of(sa, totals(bc))
         margin = sa[best_a] - sa[best_b]
-        return (margin, noise) if margin <= 2 * noise else None
+        return (margin, noise_t) if margin <= 2 * noise_t else None
 
     want_off = [greedy_text(lp) for lp in lp_off]
     want_rep = [greedy_text(lp) for lp in lp_rep]
     (cg,) = served(ctc_cfg, ("--beam-width", "1"), [("CTC greedy, 16 streams", all32, 16, False)])
-    verdicts[cg["tag"]] = judge(cg["tag"], cg, want_rep, want_off, lambda i: frame_flip(lp_off[i], lp_rep[i]))
+    verdicts[cg["tag"]] = judge(cg["tag"], cg, want_rep, want_off,
+                                lambda i: frame_flip(lp_off[i], lp_rep[i], noise[i]))
     ctc_lm_cfg = variant(ctc_cfg, "ctc_uni_lm", lm_path=arpa, lm_alpha=0.5)
     (cb,) = served(ctc_lm_cfg, (), [("CTC beam 16 + trigram, 16 streams", all32, 16, False)])
     t1 = time.perf_counter()
     nb_off, nb_rep = [ctc_nbest(lp) for lp in lp_off], [ctc_nbest(lp) for lp in lp_rep]
     timings["ctc_beam16_lm_host_s"] = time.perf_counter() - t1
     verdicts[cb["tag"]] = judge(cb["tag"], cb, [h[0][0] for h in nb_rep], [h[0][0] for h in nb_off],
-                                lambda i: beam_divergence(lp_off[i], lp_rep[i]))
+                                lambda i: beam_divergence(lp_off[i], lp_rep[i], lp32[i]))
     (ce,) = served(ctc_cfg, ("--beam-width", "1", "--endpoint"), [("CTC greedy --endpoint, 16 streams", all32, 16,
                                                                    False)])
     early = [i for i, r in enumerate(ce["results"]) if r["early"]]
-    ep_off, ep_rep = list(lp_off), list(lp_rep)
+    ep_off, ep_rep, ep_noise = list(lp_off), list(lp_rep), list(noise)
     if early:  # an early final is the decode of the audio pushed until the endpoint
         cut = [audio[i][: (ce["results"][i]["partials"] + 1) * STREAM_CHUNK] for i in early]
         raw_cut, n_cut = offline_feats(cut)
         frame_calls += 1
-        for i, off, rep in zip(early, offline_lp(raw_cut, n_cut), replay_lp(cut)):
-            ep_off[i], ep_rep[i] = off, rep
+        (off_cut, f32_cut), rep_cut = offline_lp(raw_cut, n_cut), replay_lp(cut)
+        for i, off, rep, nz in zip(early, off_cut, rep_cut, held(off_cut, f32_cut, rep_cut, "the endpointed cuts")):
+            ep_off[i], ep_rep[i], ep_noise[i] = off, rep, nz
     verdicts[ce["tag"]] = judge(ce["tag"], ce, [greedy_text(lp) for lp in ep_rep], [greedy_text(lp) for lp in ep_off],
-                                lambda i: frame_flip(ep_off[i], ep_rep[i]))
+                                lambda i: frame_flip(ep_off[i], ep_rep[i], ep_noise[i]))
     log(f"streaming CTC --endpoint (the default rules: no speech and 5 s of blanks, speech and 1 s of blanks, 20 s): "
         f"{len(early)} early finals of 32 (wavs {early}), each the decode of the audio pushed until it")
     timings["ctc_endpoint_early_finals"] = len(early)
     (ca,) = served(ctc_cfg, ("--beam-width", "1"), [("CTC greedy + alignment requests, 16 streams", all32, 16, True)])
-    verdicts[ca["tag"]] = judge(ca["tag"], ca, want_rep, want_off, lambda i: frame_flip(lp_off[i], lp_rep[i]))
+    verdicts[ca["tag"]] = judge(ca["tag"], ca, want_rep, want_off,
+                                lambda i: frame_flip(lp_off[i], lp_rep[i], noise[i]))
     frame_s = ext.frame_step / rate
     for i, r in enumerate(ca["results"]):
         n_labels = len(r["final"].split())
@@ -3549,20 +3616,20 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     log(f"streaming CTC alignment requests (S, C, W after each final): 32 of 32 answers of the right shapes: one "
         f"time and one confidence a label, the times those of the replay's emission frames, confidences in [0, 1], "
         f"{sum(len(r['words']) for r in ca['results'])} word spans")
-    del cmodel, cnet
+    del cmodel, c32, cnet
     log(f"phase streaming, CTC: {time.perf_counter() - t0!r} s")
 
     launches = seven_counters()
-    want = {"frame_preemph": frame_calls, "lstm_fwd_persistent": RNN_LAYERS * ctc_forwards}
+    want = {"frame_preemph": frame_calls, **lstm_want}
     log(f"streaming path launches of the seven kernels {launches} (the offline references: kernel 2 {frame_calls} "
-        f"feature calls, kernel 4 {ctc_forwards} CTC forwards of {RNN_LAYERS} layers; the streaming path itself "
-        f"runs none)")
+        f"feature calls, kernel 4 by route {lstm_want} from the bf16 and f32-compute CTC forwards of "
+        f"{RNN_LAYERS} layers; the streaming path itself runs none)")
     if any(v != want.get(k, 0) for k, v in launches.items()):
         raise AssertionError(f"streaming path launches {launches}, want {want} and all else 0")
     timings["verdicts"] = verdicts
     frame_routes = check_frame_routes("streaming path")
     log(f"phase streaming: {time.perf_counter() - t_phase!r} s")
-    return {"frame_preemph": frame_calls, "lstm_fwd": RNN_LAYERS * ctc_forwards, "frame_routes": frame_routes}, timings
+    return {"frame_preemph": frame_calls, "lstm_fwd": sum(lstm_want.values()), "frame_routes": frame_routes}, timings
 
 
 def seven_counters() -> dict:

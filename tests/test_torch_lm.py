@@ -6,7 +6,7 @@
 - ``FusionScorer`` values against JAX's, with and without BOS;
 - ``DenseFusionTable`` bit-equal to JAX's for the bigram and the trigram, and
   ``lm_extension_scores`` on tensors equal to JAX's gather exactly;
-- ``fusion_from_config``;
+- ``fusion_from_config`` and ``ctc_scorer_from_config``;
 - the fused CTC Python beam: ids, label frames and posteriors equal to
   ``tfkaldi_tpu.decode.ctc_beam.ctc_beam_search_py`` with the same scorer,
   and a strongly biased LM flips an acoustically ambiguous outcome;
@@ -204,6 +204,27 @@ def test_fusion_from_config(paths):
     want = jax_lm.fusion_from_config({"lm_path": paths["trigram"], "beam_width": "4", "lm_alpha": "0.3",
                                       "lm_beta": "0.1"}, JaxTextCoder(jax_aurora4_normalizer), cols)
     assert got.table.tobytes() == want.table.tobytes()
+    # a beam width given by the caller (the streaming server's --beam-width) stands for [nnet] beam_width
+    conf = {"lm_path": paths["trigram"], "lm_alpha": "0.3", "lm_beta": "0.1"}
+    assert lm.fusion_from_config(conf, coder, cols, beam_width=4).table.tobytes() == want.table.tobytes()
+    with pytest.raises(ValueError, match="needs beam_width > 1"):
+        lm.fusion_from_config({**conf, "beam_width": "4"}, coder, cols, beam_width=1)
+
+
+def test_ctc_scorer_from_config(paths):
+    """The CTC beam's scorer from the same keys: over the alphabet and the
+    blank, with ``lm_alpha`` and ``lm_beta``, and the same refusals."""
+    coder = TextCoder(aurora4_normalizer)
+    assert lm.ctc_scorer_from_config({"beam_width": "4"}, coder) is None
+    with pytest.raises(ValueError, match="needs beam_width > 1"):
+        lm.ctc_scorer_from_config({"lm_path": paths["trigram"]}, coder)
+    conf = {"lm_path": paths["trigram"], "lm_alpha": "0.3", "lm_beta": "0.1"}
+    got = lm.ctc_scorer_from_config(conf, coder, beam_width=4)
+    want = lm.FusionScorer(lm.ArpaLM.load(paths["trigram"]), list(coder.alphabet) + ["<blank>"], alpha=0.3, beta=0.1)
+    assert got.id_to_token == want.id_to_token and (got.alpha, got.beta) == (0.3, 0.1)
+    for prefix in [(), (0,), (3, 1), (5, 2, 7)]:
+        for v in range(coder.num_labels):
+            assert got(prefix, v) == want(prefix, v)
 
 
 def _log_probs(rng, t_len, v):

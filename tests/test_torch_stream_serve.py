@@ -420,7 +420,8 @@ def test_stream_cli_serves_concurrent_clients(ctc_config, gru, tmp_path):
 
 def test_build_streaming_transcriber_rules(ctc_config, tmp_path):
     """A hybrid config has no streaming transcriber, a delta front-end
-    names the item that ports its extractor, and ``beam_width > 1`` on an
+    names the item that ports its extractor, a spliced input
+    (``context_width`` > 0) is refused by name, and ``beam_width > 1`` on an
     RNN-T config builds the beam transducer transcriber."""
     _, _, config, net = ctc_config
     feats = dict(config["dnn-features"])
@@ -431,6 +432,10 @@ def test_build_streaming_transcriber_rules(ctc_config, tmp_path):
         build_streaming_transcriber(Nnet(hybrid, 10, 5, device="cpu"), CODER, RATE, feats)
     with pytest.raises(NotImplementedError, match="item 25"):
         build_streaming_transcriber(net, CODER, RATE, {**feats, "dynamic": "delta"})
+    spliced = ConfigParser()
+    spliced.read_dict({**config, "nnet": {**config["nnet"], "context_width": "2"}})
+    with pytest.raises(ValueError, match="context_width = 2: .* unspliced"):
+        build_streaming_transcriber(Nnet(spliced, 10, CODER.num_labels, device="cpu"), CODER, RATE, feats)
     rcfg = ConfigParser()
     rcfg["directories"] = {"expdir": str(tmp_path / "exp")}
     rcfg["nnet"] = {"name": "rnnt_beam", "model": "transducer", "loss": "rnnt", "context_width": "0",

@@ -186,17 +186,43 @@ class DenseFusionTable:
         return idx
 
 
-def fusion_from_config(conf, coder, column_tokens):
-    """A :class:`DenseFusionTable` from the ``[nnet]`` keys ``lm_path``,
+def _lm_from_config(conf, beam_width):
+    """``(ArpaLM, alpha, beta)`` from the ``[nnet]`` keys ``lm_path``,
     ``lm_alpha`` and ``lm_beta``; ``None`` without ``lm_path``. Raises
-    ``ValueError`` when ``lm_path`` comes with ``beam_width <= 1``."""
+    ``ValueError`` when ``lm_path`` comes with a beam of width <= 1
+    (``beam_width``, default ``[nnet] beam_width``)."""
     lm_path = conf.get("lm_path", "")
     if not lm_path:
         return None
-    if int(conf.get("beam_width", 1)) <= 1:
+    if beam_width is None:
+        beam_width = int(conf.get("beam_width", 1))
+    if beam_width <= 1:
         raise ValueError("lm_path needs beam_width > 1 in [nnet]")
-    return DenseFusionTable(ArpaLM.load(lm_path), list(coder.alphabet), column_tokens,
-                            alpha=float(conf.get("lm_alpha", 0.5)), beta=float(conf.get("lm_beta", 0.0)))
+    return ArpaLM.load(lm_path), float(conf.get("lm_alpha", 0.5)), float(conf.get("lm_beta", 0.0))
+
+
+def fusion_from_config(conf, coder, column_tokens, beam_width=None):
+    """A :class:`DenseFusionTable` from the ``[nnet]`` keys ``lm_path``,
+    ``lm_alpha`` and ``lm_beta``; ``None`` without ``lm_path``. Raises
+    ``ValueError`` when ``lm_path`` comes with a beam of width <= 1
+    (``beam_width``, default ``[nnet] beam_width``)."""
+    lm = _lm_from_config(conf, beam_width)
+    if lm is None:
+        return None
+    arpa, alpha, beta = lm
+    return DenseFusionTable(arpa, list(coder.alphabet), column_tokens, alpha=alpha, beta=beta)
+
+
+def ctc_scorer_from_config(conf, coder, beam_width=None):
+    """The CTC prefix beam's :class:`FusionScorer` from the same keys, over
+    ``alphabet + ["<blank>"]`` (the blank is an extra non-text class past
+    the alphabet); ``None`` without ``lm_path``; raises as
+    :func:`fusion_from_config` does."""
+    lm = _lm_from_config(conf, beam_width)
+    if lm is None:
+        return None
+    arpa, alpha, beta = lm
+    return FusionScorer(arpa, list(coder.alphabet) + ["<blank>"], alpha=alpha, beta=beta)
 
 
 def lm_extension_scores(fusion: DenseFusionTable, table_dev: torch.Tensor, buf: torch.Tensor,

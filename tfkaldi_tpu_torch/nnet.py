@@ -38,7 +38,7 @@ from tfkaldi_tpu_torch.data.batching import DeviceBatcher
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.ctc import CTCDecoder
 from tfkaldi_tpu_torch.decode.decoder import Decoder
-from tfkaldi_tpu_torch.decode.lm import ArpaLM, FusionScorer, fusion_from_config
+from tfkaldi_tpu_torch.decode.lm import ctc_scorer_from_config, fusion_from_config
 from tfkaldi_tpu_torch.decode.seq2seq import CTCRescoreDecoder, Seq2SeqBeamDecoder
 from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
 from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
@@ -206,13 +206,7 @@ class Nnet:
             if conf.get("lm_path", ""):
                 raise ValueError("lm_path needs beam_width > 1 in [nnet]")
             return TransducerDecoder(self._load_model(), coder, max_symbols_per_frame=max_symbols)
-        scorer = None
-        if ctc_lm and conf.get("lm_path", ""):
-            if beam_width <= 1:
-                raise ValueError("lm_path needs beam_width > 1 in [nnet]")
-            # the blank is an extra non-text class past the alphabet
-            scorer = FusionScorer(ArpaLM.load(conf["lm_path"]), list(coder.alphabet) + ["<blank>"],
-                                  alpha=float(conf.get("lm_alpha", 0.5)), beta=float(conf.get("lm_beta", 0.0)))
+        scorer = ctc_scorer_from_config(conf, coder, beam_width) if ctc_lm else None
         return CTCDecoder(self._load_model(), coder, self.blank_id, beam_width=beam_width, fusion_scorer=scorer)
 
     def decode_text(self, reader: FeatureReader, coder, outfile: str) -> int:

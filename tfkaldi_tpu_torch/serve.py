@@ -171,8 +171,9 @@ def build_streaming_transcriber(nnet, coder, samplerate: int, features_conf: dic
     ``alphabet + ["<blank>"]``, as the offline CTC decode does (the JAX
     function hands the CTC beam a ``DenseFusionTable``, which its beam step
     cannot call); the transducer beam through a ``DenseFusionTable``.
-    Delta front-ends and the hybrid and attention recipes raise."""
-    from tfkaldi_tpu_torch.decode.lm import ArpaLM, DenseFusionTable, FusionScorer
+    Delta front-ends, spliced inputs (``context_width`` > 0) and the hybrid
+    and attention recipes raise."""
+    from tfkaldi_tpu_torch.decode.lm import ctc_scorer_from_config, fusion_from_config
     from tfkaldi_tpu_torch.decode.online import StreamingTranscriber
     from tfkaldi_tpu_torch.decode.transducer import StreamingTransducerTranscriber
     from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
@@ -181,6 +182,10 @@ def build_streaming_transcriber(nnet, coder, samplerate: int, features_conf: dic
     if nnet.loss_type not in ("ctc", "rnnt"):
         raise ValueError(f"loss_type {nnet.loss_type!r} has no streaming transcriber (hybrid/attention decoding "
                          "needs the full utterance; use the spool DecodeService)")
+    if nnet.context_width:
+        raise ValueError(f"[nnet] context_width = {nnet.context_width}: the model takes frames spliced with "
+                         f"±{nnet.context_width} neighbours, and the streaming transcribers feed unspliced frames; "
+                         "a model that streams is trained with context_width = 0")
     if nnet.loss_type == "rnnt" and endpoint_config is not None:
         raise ValueError("endpointing rides the CTC blank stream; the transducer transcriber does not support "
                          "endpoint_config")
@@ -193,18 +198,11 @@ def build_streaming_transcriber(nnet, coder, samplerate: int, features_conf: dic
     conf = nnet.conf
     if beam_width is None:
         beam_width = int(conf.get("beam_width", 1))
-    lm_path = conf.get("lm_path", "") if beam_width > 1 else ""
     if nnet.loss_type == "ctc":
-        scorer = None
-        if lm_path:
-            scorer = FusionScorer(ArpaLM.load(lm_path), list(coder.alphabet) + ["<blank>"],
-                                  alpha=float(conf.get("lm_alpha", 0.5)), beta=float(conf.get("lm_beta", 0.0)))
+        scorer = ctc_scorer_from_config(conf, coder, beam_width) if beam_width > 1 else None
         return StreamingTranscriber(online_ext, model, coder, nnet.blank_id, cmvn=cmvn, beam_width=beam_width,
                                     fusion_scorer=scorer, endpoint_config=endpoint_config)
-    table = None
-    if lm_path:
-        table = DenseFusionTable(ArpaLM.load(lm_path), list(coder.alphabet), list(coder.alphabet),
-                                 alpha=float(conf.get("lm_alpha", 0.5)), beta=float(conf.get("lm_beta", 0.0)))
+    table = fusion_from_config(conf, coder, list(coder.alphabet), beam_width) if beam_width > 1 else None
     return StreamingTransducerTranscriber(online_ext, model, coder, cmvn=cmvn, beam_width=beam_width,
                                           fusion_table=table,
                                           max_symbols_per_frame=int(conf.get("max_symbols_per_frame", 4)))
