@@ -3034,7 +3034,7 @@ def stream_replay(ext, wavs: list, encode, cmvn=None, slots: int = STREAM_SLOTS)
     slots run them: ``slots`` rows a batch (a wav a row, empty rows to
     fill it), STREAM_CHUNK-sample pushes from each row's start, length 0
     once a row's audio ends, then the flush of every row. Each push's
-    frames are CMVN'd by ``apply_cmvn32`` (when given; frames past a row's
+    frames are CMVN'd by ``apply_cmvn`` (when given; frames past a row's
     count zero, as the fused call leaves them) and go to ``encode(feats,
     counts, carry) -> (per-row outputs, carry)``; the flush calls
     ``encode(None, None, carry)``. Every call has the shapes a server tick
@@ -3044,7 +3044,7 @@ def stream_replay(ext, wavs: list, encode, cmvn=None, slots: int = STREAM_SLOTS)
     import numpy as np
     import torch
 
-    from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32
+    from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn
     from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor
 
     out = []
@@ -3073,7 +3073,7 @@ def stream_replay(ext, wavs: list, encode, cmvn=None, slots: int = STREAM_SLOTS)
                 for r in range(len(group)):
                     frames[r].append(f[r, : int(k[r])])
                 if cmvn is not None:
-                    f = apply_cmvn32(f, cmvn)
+                    f = apply_cmvn(f, cmvn)
                     past = torch.arange(f.shape[1], device=f.device)[None, :] >= torch.as_tensor(k, device=f.device)[:, None]
                     f[past] = 0.0
                 ys, carry = encode(f, k, carry)
@@ -3180,7 +3180,7 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     from tfkaldi_tpu_torch.decode.lm import ArpaLM, DenseFusionTable, FusionScorer
     from tfkaldi_tpu_torch.decode.transducer import TransducerDecoder
     from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
-    from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32
+    from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn
     from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
     from tfkaldi_tpu_torch.io import read_wav, read_wavfiles
     from tfkaldi_tpu_torch.models import Transducer
@@ -3329,7 +3329,7 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
     beam = int(rconf.get("nnet", "beam_width"))
     max_sym = int(rconf.get("nnet", "max_symbols_per_frame", fallback="4"))
     cmvn = global_cmvn(att_dirs["train"])
-    x = apply_cmvn32(raw, cmvn)
+    x = apply_cmvn(raw, cmvn)
     n_t = torch.as_tensor(nframes, device=dev)
     m32 = Transducer(dataclasses.replace(model.config, compute_dtype=torch.float32)).to(dev).eval()
     m32.load_state_dict(model.state_dict())
@@ -3459,7 +3459,7 @@ def streaming_path(card: str, ws: dict, att_dirs: dict, recipes: dict, device: s
         """Per wav the offline forward's log-posteriors (kernel 4, one
         direction), bf16 as configured and f32-compute on the same
         weights: ``(bf16 list, f32 list)``."""
-        x = apply_cmvn32(raw_feats, ccmvn)
+        x = apply_cmvn(raw_feats, ccmvn)
         out = []
         for m in (cmodel, c32):
             with torch.inference_mode():
@@ -3935,6 +3935,478 @@ def check_hybrid_family(card: str, family: str, cfg_path: str, savedir: str, ws:
     return timings
 
 
+# ---- the hybrid recipe's streaming (kernel 1 on the spliced DNN) ----
+
+# kernel 1 at the streamed DNN's row counts: B x T_pad with T padded to the
+# emitters' frame_bucket of 8 (chunks of 4, 16 and 64 frames at batch 1, 8
+# ragged rows), below one 128-row TMA tile or with a ragged last one
+STREAM_FFN_ROWS = (8, 16, 64, 72, 600)
+HYBRID_STREAM_UTTS = 8  # test utterances a streamed check runs, at batch 1 and as 8 ragged rows
+HYBRID_CHUNKS = (4, 16, 64)  # frames a feature chunk: 40, 160 and 640 ms at the 10 ms step (bench.py:1013)
+HYBRID_TIMED_AUDIO_S = 10.0  # audio a timed sweep pushes (bench.py's sweep pushes 40 s)
+HYBRID_WINDOWED_CHUNK = 16
+# the delta front-end on the card against the offline extractor: derivative
+# columns (rtol, atol), the f64 bar of tests/test_online_features.py; static
+# columns bit for bit
+DELTA_RTOL, DELTA_ATOL = 1e-7, 1e-10
+HYBRID_WAVS = 8  # test wavs of the delta front-end's check, the delta server and speed-perturbed prepare_data
+DELTA_SERVE_CLIENTS = 4
+# a served delta final that differs from the offline greedy decode passes only
+# as a near tie: a frame of the offline log-posteriors whose top two lie within
+# this margin (f32 compute on both sides, sums in another order: about 1e-6)
+DELTA_TIE_MARGIN = 1e-4
+# speed-perturbed prepare_data on the card against --device cpu, err / max(|ref|, 1):
+# the f64 DFT products of the card and the CPU round otherwise, then f32
+PERTURB_FEAT_TOL = 1e-6
+
+
+def check_ffn_streaming(card: str) -> dict:
+    """Kernel 1 below one row tile: ``[n, K] @ [K, 2048]`` at n in
+    STREAM_FFN_ROWS, K 440 and 2048, f32 and bf16, each on the TMA route
+    its plan gives (TMA loads zeros past row n and the epilogue masks the
+    stores), held to the plain version within FFN_TOL and timed beside
+    ``torch.matmul`` and the bound. Returns ``{dtype: [rows]}``."""
+    import torch
+
+    from tfkaldi_tpu_torch.ops import fused_mlp
+    from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan
+
+    gen = torch.Generator().manual_seed(1)
+    m = HIDDEN_UNITS
+    rows = {"float32": [], "bfloat16": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for k in (440, 2048):
+            w = (torch.randn(k, m, generator=gen) / k ** 0.5).to("cuda", dtype)
+            b = (torch.randn(m, generator=gen) * 0.1).cuda()
+            scale = (torch.rand(m, generator=gen) + 0.5).cuda()
+            shift = (torch.randn(m, generator=gen) * 0.1).cuda()
+            for n in STREAM_FFN_ROWS:
+                x = torch.randn(n, k, generator=gen).to("cuda", dtype)
+                plan = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr()))
+                check_plan(plan, dtype)
+                before = fused_mlp.launches_by_route["tma"]
+                got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=True)
+                want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=True)
+                torch.cuda.synchronize()
+                if fused_mlp.launches_by_route["tma"] != before + 1:
+                    raise AssertionError(f"fused_ffn [{n},{k}] did not launch on the TMA route")
+                err = (got.float() - want.float()).abs().max().item()
+                kernel_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block(x, w, b, scale, shift))
+                plain_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift))
+                library_ms = ms_per_call(lambda: torch.matmul(x, w))
+                b_ = bound(2 * n * k * m + 4 * n * m, nbytes(x, w, b, scale, shift, got),
+                           PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+                log(f"fused_ffn streaming rows [{n},{k}]x[{k},{m}] {name}: max|diff| {err!r} (tol {FFN_TOL[name]}), "
+                    f"kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, library (torch.matmul) {library_ms!r} ms "
+                    f"({kernel_ms / library_ms!r}x), bound {b_['bound_ms']!r} ms by {b_['bound_by']}; "
+                    f"{plan_text(plan)} [{card}]")
+                if not (err <= FFN_TOL[name] and torch.isfinite(got.float()).all()):
+                    raise AssertionError(f"fused_ffn {name} [{n},{k},{m}]: max|diff| {err} > {FFN_TOL[name]}")
+                rows[name].append({"n": n, "k": k, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                                   "library_ms": library_ms, **b_})
+    return rows
+
+
+def bench_sweep(push, chunk_s: float, warmup: int = 8) -> dict:
+    """bench.py's streaming sweep (bench.py:1017-1038) over
+    HYBRID_TIMED_AUDIO_S of audio: ``push()`` once per chunk after
+    ``warmup`` pushes, each push's wall time (the likelihoods read back on
+    the host, as serving reads them); p50 and p99 in ms, and bench's
+    ``rtf``, audio seconds per wall second."""
+    import numpy as np
+
+    n = max(8, int(round(HYBRID_TIMED_AUDIO_S / chunk_s)))
+    for _ in range(warmup):
+        push()
+    lat = np.empty(n)
+    t_start = time.perf_counter()
+    for i in range(n):
+        t0 = time.perf_counter()
+        push()
+        lat[i] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_start
+    return {"p50_ms": float(np.percentile(lat, 50) * 1e3), "p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "rtf": n * chunk_s / wall, "chunks": n}
+
+
+def hybrid_streaming_path(card: str, ws: dict, train_ws: dict, bf16_conf, families: dict, ctc_cfg: str,
+                          device: str = "cuda") -> tuple[dict, dict]:
+    """The hybrid recipe's streaming, on the card:
+
+    - the flagship DNN (the served path's f32 ``final.pt``, 440 -> 6 x 2048
+      -> 2000, context 5) and bench.py's bf16 DNN (the bf16 DNN path's
+      ``final.pt``) through ``OnlineSplicedDecoder`` on their test
+      featdirs' first HYBRID_STREAM_UTTS utterances (CMVN'd fbanks), in
+      chunks of HYBRID_CHUNKS frames, at batch 1 and as ragged rows of one
+      batch; every emitted frame against the offline ``Decoder`` on
+      offline-spliced features: f32 within LIKE_TOL, bf16 by the bf16 rule
+      (each utterance's streamed frames no further from the f32-compute
+      offline decode than RNN_BF16_RATIO times the bf16 offline decode's
+      own distance, + RNN_F32_TOL: the stream's products have other row
+      counts, which round otherwise). Kernel 1's counts reset before and
+      read after: 6 launches per emitting call, all on the TMA route;
+    - bench.py's ``lstm_hybrid`` (2 x LSTM-512, unidirectional, bf16, 2000
+      pdfs, seeded) through ``OnlineRecurrentDecoder`` at chunk 16, and the
+      TDNN and CNN ``final.pt`` of ``hybrid_family_path`` through
+      ``OnlineWindowedDecoder`` at chunk HYBRID_WINDOWED_CHUNK, each by the
+      bf16 rule against its offline decode;
+    - ``OnlineDynamicExtractor`` at delta and ddelta on the card against
+      the offline extractor (kernel 2) on the same wavs: static columns bit
+      for bit, derivative columns within (DELTA_RTOL, DELTA_ATOL);
+    - ``cli.serve --stream`` of a delta CTC config (the CTC recipe
+      unidirectional, context 0, f32 compute, a seeded ``final.pt``, the
+      CMVN of a delta featdir written by ``prepare_data``) with
+      DELTA_SERVE_CLIENTS concurrent clients: each final equal to the
+      offline greedy decode of the offline delta features, or a near tie
+      (DELTA_TIE_MARGIN);
+    - ``prepare_data`` with ``speed_perturb = 0.9,1.0,1.1`` on 8 test wavs
+      on the card (kernel 2's launches counted) against ``--device cpu``
+      within PERTURB_FEAT_TOL;
+    - bench.py's streaming times: p50 / p99 per chunk and rtf for the f32
+      and bf16 DNNs and the LSTM at 40, 160 and 640 ms chunks.
+
+    Returns the main paths' launches (kernel 1 per dtype, kernel 2) and the
+    timings."""
+    import dataclasses
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.convert import save_checkpoint
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import TextCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
+    from tfkaldi_tpu_torch.decode.decoder import Decoder
+    from tfkaldi_tpu_torch.decode.online import OnlineRecurrentDecoder, OnlineSplicedDecoder, OnlineWindowedDecoder
+    from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn, splice
+    from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
+    from tfkaldi_tpu_torch.frontend.online import OnlineDynamicExtractor
+    from tfkaldi_tpu_torch.frontend.prepare_data import compute_cmvn, prepare_data
+    from tfkaldi_tpu_torch.io import read_wav, read_wavfiles
+    from tfkaldi_tpu_torch.models import LSTM, RNNConfig, build_model
+    from tfkaldi_tpu_torch.nnet import Nnet
+    from tfkaldi_tpu_torch.ops import fused_mlp
+    from tfkaldi_tpu_torch.ops import frame_preemph as fp
+    from tfkaldi_tpu_torch.serve import global_cmvn
+
+    t_phase = time.perf_counter()
+    root = os.path.join(TRAIN_WORK, "hybrid_streaming")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    timings, launches = {}, {"fused_ffn_f32": 0, "fused_ffn_bf16": 0, "frame_preemph": 0}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def test_feats(featdir: str) -> list:
+        """The featdir's first HYBRID_STREAM_UTTS utterances, CMVN'd, unspliced."""
+        reader = FeatureReader(os.path.join(featdir, "feats.scp"), os.path.join(featdir, "cmvn.scp"),
+                               os.path.join(featdir, "utt2spk"), 0, 0)
+        out = [reader.get_utt()[1].astype(np.float32) for _ in range(HYBRID_STREAM_UTTS)]
+        reader.close()
+        return out
+
+    def padded(feats: list) -> tuple:
+        x = np.zeros((len(feats), max(f.shape[0] for f in feats), feats[0].shape[1]), np.float32)
+        for i, f in enumerate(feats):
+            x[i, : f.shape[0]] = f
+        return x, np.asarray([f.shape[0] for f in feats], np.int64)
+
+    def offline(model, prior, feats: list, c: int) -> list:
+        """The offline ``Decoder`` on the utterances as one padded batch,
+        spliced offline; per utterance its frames."""
+        x, lengths = padded(feats)
+        likes = Decoder(model, prior).compute_batch(splice(torch.from_numpy(x).to(dev), c), lengths).cpu().numpy()
+        return [likes[i, :n] for i, n in enumerate(lengths)]
+
+    def streamed(dec, feats: list, chunk: int) -> tuple[list, int]:
+        """``feats`` as the rows of one batch through a windowed or spliced
+        emitter in ``chunk``-frame pushes, then the flush; per row its
+        frames, and the emitting calls (those that ran the model)."""
+        b, longest = len(feats), max(f.shape[0] for f in feats)
+        dec.reset(b)
+        got, calls = [[] for _ in feats], 0
+        for pos in [*range(0, longest, chunk), None]:
+            if pos is None:
+                likes, n = dec.flush()
+            else:
+                x = np.zeros((b, chunk, feats[0].shape[1]), np.float32)
+                for i, f in enumerate(feats):
+                    part = f[pos: pos + chunk]
+                    x[i, : part.shape[0]] = part
+                likes, n = dec.step(x, np.clip([f.shape[0] - pos for f in feats], 0, chunk))
+            calls += int(n.max(initial=0) > 0)
+            for i in range(b):
+                got[i].append(likes[i, : n[i]])
+        return [np.concatenate(g) for g in got], calls
+
+    def f32_twin(model):
+        twin = build_model(dataclasses.replace(model.config, compute_dtype=torch.float32)).to(dev).eval()
+        twin.load_state_dict(model.state_dict())
+        return twin
+
+    def held(tag: str, got: list, off: list, off32: list | None) -> float:
+        """Per utterance: f32 (``off32`` None) within LIKE_TOL of the
+        offline frames; bf16 by the bf16 rule against the f32-compute
+        offline ``off32``. Returns max|got - off|."""
+        d = max(float(np.abs(g - o).max()) for g, o in zip(got, off))
+        for i, (g, o) in enumerate(zip(got, off)):
+            if g.shape != o.shape or not np.isfinite(g).all():
+                raise AssertionError(f"{tag}, utterance {i}: streamed {g.shape} frames, offline {o.shape}")
+        if off32 is None:
+            ok, rule = d <= LIKE_TOL, f"tol {LIKE_TOL}"
+        else:
+            dist = [(float(np.abs(g - r).max()), float(np.abs(o - r).max())) for g, o, r in zip(got, off, off32)]
+            ok = all(bf16_close(a, b) for a, b in dist)
+            rule = (f"bf16 rule per utterance: from the f32-compute offline decode, streamed "
+                    f"{max(a for a, _ in dist)!r}, offline {max(b for _, b in dist)!r}, within {RNN_BF16_RATIO}x + "
+                    f"{RNN_F32_TOL}")
+        log(f"hybrid streaming {tag}: {len(got)} utterances, {sum(g.shape[0] for g in got)} frames, max|streamed - "
+            f"offline| {d!r} ({rule})")
+        if not ok:
+            raise AssertionError(f"hybrid streaming {tag}: the streamed likelihoods differ from the offline decode")
+        return d
+
+    # ---- the flagship DNN, f32 and bf16, through OnlineSplicedDecoder (kernel 1) ----
+    t0 = time.perf_counter()
+    dnn_runs = (("float32", ws["config"], ws["test_featdir"]), ("bfloat16", bf16_conf, train_ws["test_featdir"]))
+    dnns = {}
+    for name, config, featdir in dnn_runs:
+        decoder = Nnet(config, 40, NUM_PDFS, device=dev).load_decoder()
+        model, prior = decoder.model, decoder.prior.cpu().numpy()
+        c = int(config.get("nnet", "context_width"))
+        feats = test_feats(featdir)
+        off = offline(model, prior, feats, c)
+        off32 = None if name == "float32" else offline(f32_twin(model), prior, feats, c)
+        sync()
+        reset_counts()
+        calls, errs = 0, {}
+        for chunk in HYBRID_CHUNKS:
+            rows = [streamed(OnlineSplicedDecoder(model, prior, c), [f], chunk) for f in feats]
+            calls += sum(n for _, n in rows)
+            errs[f"batch 1, chunk {chunk}"] = held(f"{name} DNN, batch 1, chunk {chunk}", [g for (g,), _ in rows],
+                                                   off, off32)
+            got, n = streamed(OnlineSplicedDecoder(model, prior, c), feats, chunk)
+            calls += n
+            errs[f"{len(feats)} rows, chunk {chunk}"] = held(f"{name} DNN, {len(feats)} ragged rows, chunk {chunk}",
+                                                             got, off, off32)
+        sync()
+        routes = dict(fused_mlp.launches_by_route)
+        log(f"hybrid streaming {name} DNN (context {c}): {calls} emitting calls, kernel 1 launches {fused_mlp.launches} "
+            f"by route {routes} (want {HIDDEN_LAYERS} a call, all tma)")
+        if not (fused_mlp.launches == HIDDEN_LAYERS * calls > 0 and routes["simt"] == 0):
+            raise AssertionError(f"{name} DNN streaming: kernel 1 launches {fused_mlp.launches} by route {routes}, "
+                                 f"want {HIDDEN_LAYERS} x {calls} on tma")
+        launches[f"fused_ffn_{'f32' if name == 'float32' else 'bf16'}"] = fused_mlp.launches
+        timings[f"dnn_{name}_max_abs_diff"] = errs
+        dnns[name] = (model, prior, c)
+    log(f"phase hybrid streaming, DNN: {time.perf_counter() - t0!r} s")
+
+    # ---- bench.py's lstm_hybrid, and the TDNN and CNN ----
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(1)
+    lstm = LSTM(RNNConfig(input_dim=40, num_labels=NUM_PDFS, num_layers=2, hidden_units=512, bidirectional=False,
+                          compute_dtype=torch.bfloat16))
+    lstm.reset_parameters(gen)
+    with torch.no_grad():  # the init's output layer is zero: draw it, so that the likelihoods vary
+        lstm.out.w.copy_(torch.randn(lstm.out.w.shape, generator=gen) / math.sqrt(lstm.out.w.shape[0]) * 4.0)
+    lstm = lstm.to(dev).eval()
+    uniform = np.full((NUM_PDFS,), 1.0 / NUM_PDFS, np.float32)
+    feats = test_feats(train_ws["test_featdir"])
+    x, lengths = padded(feats)
+    off, off32 = (Decoder(m, uniform).compute_batch(x, lengths).cpu().numpy() for m in (lstm, f32_twin(lstm)))
+    dec = OnlineRecurrentDecoder(lstm, uniform)
+    got = []
+    for f in feats:
+        dec.reset(1)
+        got.append(np.concatenate([dec.step(f[None, p: p + 16], [min(16, f.shape[0] - p)])[0]
+                                   for p in range(0, f.shape[0], 16)]))
+    timings["lstm_max_abs_diff"] = held("lstm_hybrid (2 x 512 unidirectional, bf16, seeded), batch 1, chunk 16", got,
+                                        [off[i, :n] for i, n in enumerate(lengths)],
+                                        [off32[i, :n] for i, n in enumerate(lengths)])
+    for family, (cfg_path, _) in families.items():
+        config = ConfigParser()
+        config.read(cfg_path)
+        model = Nnet(config, 40, NUM_PDFS, device=dev).load_decoder().model
+        prior = np.load(os.path.join(families[family][1], "prior.npy"))
+        c = int(config.get("nnet", "context_width"))
+        o, o32 = offline(model, prior, feats, c), offline(f32_twin(model), prior, feats, c)
+        got, _ = streamed(OnlineWindowedDecoder(model, prior, c), feats, HYBRID_WINDOWED_CHUNK)
+        timings[f"{family}_max_abs_diff"] = held(
+            f"{family} (receptive field {model.left_receptive} + {model.right_receptive}), {len(feats)} rows, chunk "
+            f"{HYBRID_WINDOWED_CHUNK}", got, o, o32)
+    log(f"phase hybrid streaming, LSTM, TDNN, CNN: {time.perf_counter() - t0!r} s")
+
+    # ---- the delta front-end on the card ----
+    t0 = time.perf_counter()
+    base = ConfigParser()
+    base.read(train_ws["cfg_path"])
+    test_data = base.get("directories", "test_data")
+    wav_scp = read_wavfiles(os.path.join(test_data, "wav.scp"))
+    audio = [np.asarray(read_wav(p)[1], np.float32) for p in list(wav_scp.values())[:HYBRID_WAVS]]
+    rate = 16000
+    feat_conf = dict(base.items("dnn-features"))
+    for dynamic in ("delta", "ddelta"):
+        ext = FeatureExtractor(FeatureOpts.from_config({**feat_conf, "dynamic": dynamic}), rate, dev)
+        batch = np.zeros((len(audio), -(-max(len(a) for a in audio) // rate) * rate), np.float32)
+        for i, a in enumerate(audio):
+            batch[i, : len(a)] = a
+        with torch.inference_mode():
+            ref, nf = ext(batch, np.asarray([len(a) for a in audio]))
+        ref = ref.cpu().numpy()
+        online = OnlineDynamicExtractor(ext)
+        sdim, static_exact, worst = ext.opts.base_dim, 0, 0.0
+        for i, a in enumerate(audio):
+            online.reset(1)
+            parts = [online.step(a[None, p: p + STREAM_CHUNK], [len(a[p: p + STREAM_CHUNK])])
+                     for p in range(0, len(a), STREAM_CHUNK)] + [online.flush()]
+            got = np.concatenate([f[0, : n[0]] for f, n in parts])
+            want = ref[i, : nf[i]]
+            if got.shape != want.shape or not np.array_equal(got[:, :sdim], want[:, :sdim]):
+                raise AssertionError(f"{dynamic} stream, wav {i}: static columns differ from the offline extractor")
+            static_exact += 1
+            worst = max(worst, float(np.max(np.abs(got[:, sdim:] - want[:, sdim:])
+                                            / (DELTA_ATOL + DELTA_RTOL * np.abs(want[:, sdim:])))))
+        log(f"hybrid streaming: OnlineDynamicExtractor {dynamic} ({STREAM_CHUNK}-sample pushes) against the offline "
+            f"extractor (kernel 2) on {len(audio)} wavs: static columns bit-identical on {static_exact}, derivative "
+            f"columns at {worst!r} of the (rtol {DELTA_RTOL}, atol {DELTA_ATOL}) bar")
+        if worst > 1.0:
+            raise AssertionError(f"{dynamic} stream: derivative columns outside the bar ({worst})")
+        timings[f"{dynamic}_bar_fraction"] = worst
+
+    # ---- cli.serve --stream on a delta CTC config ----
+    coder = TextCoder(aurora4_normalizer)
+    blank = coder.num_labels
+    config = ConfigParser()
+    config.read(ctc_cfg)
+    delta_name = f"{config.get('dnn-features', 'name')}_delta"
+    config.set("dnn-features", "dynamic", "delta")
+    config.set("dnn-features", "name", delta_name)
+    config.set("directories", "train_features", os.path.join(root, "features"))
+    for key, value in (("bidirectional", "False"), ("context_width", "0"), ("compute_dtype", "float32"),
+                       ("name", "ctc_delta_unilstm")):
+        config.set("nnet", key, value)
+    delta_cfg = os.path.join(root, "config_ctc_delta.cfg")
+    with open(delta_cfg, "w") as f:
+        config.write(f)
+    featdir = os.path.join(root, "features", delta_name)
+    reset_counts()
+    prepare_data(test_data, featdir, dict(config.items("dnn-features")), device=device)
+    compute_cmvn(featdir)
+    delta_frames, delta_routes = fp.launches, check_frame_routes("hybrid streaming, the delta featdir")
+    cnet = Nnet(config, 80, coder.num_labels, device=dev)
+    gen = torch.Generator().manual_seed(17)
+    cnet.model.reset_parameters(gen)
+    with torch.no_grad():
+        w = cnet.model.out.w
+        w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(w.shape[0]) * CTC_OUT_GAIN)
+        cnet.model.out.b[blank] = CTC_BLANK_BIAS
+    save_checkpoint(cnet.savedir, cnet.model.state_dict())
+    cmodel = cnet._load_model().eval()
+    stats = global_cmvn(featdir)
+    reader = FeatureReader(os.path.join(featdir, "feats.scp"), None, os.path.join(featdir, "utt2spk"), 0, 0)
+    offline_feats = [reader.get_utt()[1] for _ in range(HYBRID_WAVS)]
+    reader.close()
+    x, lengths = padded(offline_feats)
+    with torch.inference_mode():
+        lp = torch.log_softmax(cmodel(apply_cmvn(torch.from_numpy(x).to(dev), stats),
+                                      torch.as_tensor(lengths, device=dev)).float(), -1).cpu().numpy()
+
+    def greedy(lp_i):
+        path = lp_i.argmax(-1)
+        keep = np.ones(len(path), bool)
+        keep[1:] = path[1:] != path[:-1]
+        ids = path[keep]
+        return coder.decode(ids[ids != blank])
+
+    want = [greedy(lp[i, :n]) for i, n in enumerate(lengths)]
+    with stream_server(delta_cfg, "--device", device, "--beam-width", "1") as (host, port, server):
+        res = stream_clients(host, port, audio, DELTA_SERVE_CLIENTS)
+    ties = []
+    for i, r in enumerate(res["results"]):
+        if r["final"] != want[i]:
+            top2 = np.sort(lp[i, : lengths[i]], axis=-1)[:, -2:]
+            margin = float((top2[:, 1] - top2[:, 0]).min())
+            if margin > DELTA_TIE_MARGIN:
+                raise AssertionError(f"delta serve, wav {i}: final {r['final']!r}, offline {want[i]!r}, smallest "
+                                     f"top-2 margin {margin} > {DELTA_TIE_MARGIN}")
+            ties.append((i, margin))
+    log(f"hybrid streaming: cli.serve --stream on a delta CTC config (2 x 512 unidirectional LSTM, f32, seeded, "
+        f"80 inputs), {DELTA_SERVE_CLIENTS} concurrent clients on {len(audio)} wavs: {len(audio) - len(ties)} finals "
+        f"identical to the offline greedy decode of the offline delta features, near ties {ties}; chunk reply p50 "
+        f"{_pct(res['chunk_s'], 50) * 1e3!r} ms, wall {res['wall_s']!r} s [{card}]")
+    timings["delta_serve_identical"] = len(audio) - len(ties)
+    del cmodel, cnet
+    log(f"phase hybrid streaming, delta front-end and serve: {time.perf_counter() - t0!r} s")
+
+    # ---- prepare_data with speed_perturb (kernel 2) against --device cpu ----
+    t0 = time.perf_counter()
+    small = os.path.join(root, "sp_data")
+    os.makedirs(small)
+    keep = list(wav_scp)[:HYBRID_WAVS]
+    for name in ("wav.scp", "utt2spk", "text"):
+        src = os.path.join(test_data, name)
+        if os.path.isfile(src):
+            with open(src) as f, open(os.path.join(small, name), "w") as g:
+                g.writelines(line for line in f if line.split(" ", 1)[0] in keep)
+    spk = {}
+    with open(os.path.join(small, "utt2spk")) as f:
+        for line in f:
+            utt, s = line.split()
+            spk.setdefault(s, []).append(utt)
+    with open(os.path.join(small, "spk2utt"), "w") as f:
+        f.writelines(f"{s} {' '.join(u)}\n" for s, u in spk.items())
+    sp_conf = {**feat_conf, "speed_perturb": "0.9,1.0,1.1"}
+    dirs = {d: os.path.join(root, f"sp_{d}") for d in (device, "cpu")}
+    reset_counts()
+    sync()
+    t1 = time.perf_counter()
+    prepare_data(small, dirs[device], sp_conf, device=device)
+    sync()
+    sp_s = time.perf_counter() - t1
+    sp_launches, sp_routes = fp.launches, check_frame_routes("hybrid streaming, speed_perturb")
+    prepare_data(small, dirs["cpu"], sp_conf, device="cpu")
+    card_feats, cpu_feats = read_ark(os.path.join(dirs[device], "feats.scp")), read_ark(
+        os.path.join(dirs["cpu"], "feats.scp"))
+    want_ids = [pre + u for u in keep for pre in ("sp0.9-", "", "sp1.1-")]
+    if list(card_feats) != want_ids or list(cpu_feats) != want_ids:
+        raise AssertionError(f"speed-perturbed featdir ids {list(card_feats)[:6]}..., want {want_ids[:6]}...")
+    err = max(float(np.max(np.abs(card_feats[u] - cpu_feats[u]) / np.maximum(np.abs(cpu_feats[u]), 1.0)))
+              for u in want_ids)
+    log(f"hybrid streaming: prepare_data with speed_perturb 0.9,1.0,1.1 on {len(keep)} wavs -> {len(want_ids)} "
+        f"utterances in {sp_s!r} s, kernel 2 launches {sp_launches}; card against --device cpu: max err/max(|ref|,1) "
+        f"{err!r} (tol {PERTURB_FEAT_TOL}) [{card}]")
+    if not (sp_launches > 0 and err <= PERTURB_FEAT_TOL):
+        raise AssertionError(f"speed-perturbed prepare_data: kernel 2 launches {sp_launches}, card vs cpu {err}")
+    launches["frame_preemph"] = delta_frames + sp_launches
+    launches["frame_routes"] = {r: delta_routes[r] + sp_routes[r] for r in sp_routes}
+    timings["speed_perturb_card_vs_cpu"] = err
+    log(f"phase hybrid streaming, speed_perturb: {time.perf_counter() - t0!r} s")
+
+    # ---- bench.py's streaming times ----
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    stacks = {"dnn_hybrid_f32": dnns["float32"], "dnn_hybrid_bf16": dnns["bfloat16"],
+              "lstm_hybrid": (lstm, uniform, None)}
+    for stack, (model, prior, c) in stacks.items():
+        for frames in HYBRID_CHUNKS:
+            chunk = rng.standard_normal((1, frames, 40)).astype(np.float32)
+            dec = OnlineRecurrentDecoder(model, prior) if c is None else OnlineSplicedDecoder(model, prior, c)
+            dec.reset(1)
+            t = bench_sweep(lambda: dec.step(chunk, [frames]), frames / 100)
+            log(f"hybrid streaming times, {stack} at {frames * 10} ms chunks: p50 {t['p50_ms']!r} ms, p99 "
+                f"{t['p99_ms']!r} ms, rtf (audio s per wall s) {t['rtf']!r} over {t['chunks']} chunks [{card}]")
+            timings[f"{stack}_{frames * 10}ms"] = t
+    log(f"phase hybrid streaming, times: {time.perf_counter() - t0!r} s")
+    log(f"phase hybrid streaming: {time.perf_counter() - t_phase!r} s")
+    return launches, timings
+
+
 def read_ark(scp: str) -> dict:
     from tfkaldi_tpu_torch.io import ArkReader
 
@@ -3983,6 +4455,7 @@ def main() -> int:
     framing = check_framing(card)
     bn, bn_dz_only_ms = check_bn_dgrad(card)
     log(f"ptxas (-Xptxas -v) of the build: {os.path.relpath(_build.ptxas_report_path(_build.library_path()), ROOT)}")
+    ffn_stream = check_ffn_streaming(card)
     rnn_rows = {cell: check_rnn_kernels(card, cell) for cell in ("lstm", "gru")}
     pred_rows = check_predictor_kernels(card)
     log(f"phase kernels vs plain: {time.perf_counter() - t0!r} s")
@@ -4176,28 +4649,40 @@ def main() -> int:
     log(f"phase streaming path: {time.perf_counter() - t0!r} s")
 
     # ---- bench.py's TDNN and CNN on the hybrid recipe at full width (no hand kernel on their paths) ----
+    families = {}
     for family in ("tdnn", "cnn"):
         t0 = time.perf_counter()
-        family_cfg, family_savedir = hybrid_family_path(card, family, train_ws)
-        family_times = check_hybrid_family(card, family, family_cfg, family_savedir, train_ws)
+        families[family] = hybrid_family_path(card, family, train_ws)
+        family_times = check_hybrid_family(card, family, *families[family], train_ws)
         log(f"{family} phase: {json.dumps(family_times)} [{card}]")
         log(f"phase {family} path: {time.perf_counter() - t0!r} s")
 
-    # launches: f32, the served path's and the training path's runs
-    # together; bf16, the bf16 DNN path's run; kernels 4 and 5, the BiLSTM
+    # ---- the hybrid recipe's streaming: the spliced DNN on kernel 1, the other emitters, the delta
+    # front-end and its server, speed-perturbed prepare_data ----
+    t0 = time.perf_counter()
+    hyb_launches, hyb_times = hybrid_streaming_path(card, ws, train_ws, bf16_config, families, ctc_cfg)
+    log(f"hybrid streaming phase: {json.dumps(hyb_times)} [{card}]")
+    log(f"kernel 1 at the streaming rows: {json.dumps(ffn_stream)} [{card}]")
+    log(f"phase hybrid streaming path: {time.perf_counter() - t0!r} s")
+
+    # launches: f32, the served path's, the training path's and the hybrid
+    # streaming path's runs together; bf16, the bf16 DNN path's and the
+    # hybrid streaming path's runs; kernels 4 and 5, the BiLSTM
     # path's, the CTC path's, the transducer path's and (kernel 4) the text
     # decode path's runs together
     total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
-    total["frame_preemph"] += stream_launches["frame_preemph"]
+    total["frame_preemph"] += stream_launches["frame_preemph"] + hyb_launches["frame_preemph"]
+    total["fused_ffn"] += hyb_launches["fused_ffn_f32"]
     kernels = [
         dict(name="fused_ffn_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
              replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=total["fused_ffn"], **ffn["float32"]),
         dict(name="fused_ffn_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
-             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=bf16_launches["fused_ffn"], **ffn["bfloat16"]),
+             replaces="tfkaldi_tpu/ops/fused_mlp.py:40",
+             launches=bf16_launches["fused_ffn"] + hyb_launches["fused_ffn_bf16"], **ffn["bfloat16"]),
         dict(name="frame_preemph", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/frame_preemph.cu",
              replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=total["frame_preemph"],
              launches_by_route={r: frame_routes[r] + train_frame_routes[r] + stream_launches["frame_routes"][r]
-                                for r in frame_routes}, **framing),
+                                + hyb_launches["frame_routes"][r] for r in frame_routes}, **framing),
         dict(name="bn_dgrad_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",
              replaces="tfkaldi_tpu/ops/bn_fused_bwd.py:63", launches=total["bn_dgrad"], **bn["float32"]),
         dict(name="bn_dgrad_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bn_dgrad.cu",

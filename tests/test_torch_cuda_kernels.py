@@ -82,6 +82,25 @@ def test_fused_ffn_matches_plain(cuda, dtype, tol, n, k, m, route, affine, relu)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
+@pytest.mark.parametrize("n", [8, 16, 64, 72, 600])
+@pytest.mark.parametrize("k", [440, 2048])
+def test_fused_ffn_streaming_rows(cuda, dtype, tol, n, k):
+    """The streamed DNN's hidden layers (``OnlineSplicedDecoder``: B x T_pad
+    rows, T padded to 8): fewer rows than one 128-row tile, or a ragged
+    last tile, on the TMA route: the tile's rows past n read as zeros and
+    are not stored."""
+    x, w, b, scale, shift = _ffn_operands(n + k, n, k, 2048, cuda)
+    x, w = x.to(dtype), w.to(dtype)
+    before = fused_mlp.launches_by_route["tma"]
+    got = fused_mlp.fused_ffn_block(x, w, b, scale, shift)
+    want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches_by_route["tma"] == before + 1
+    assert got.shape == (n, 2048) and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
 def test_fused_ffn_misaligned_view_takes_simt(cuda, dtype, tol):
     """x starting 2 elements into its buffer cannot be a TMA base address:
     the same product runs on the SIMT route and agrees."""

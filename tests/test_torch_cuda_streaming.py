@@ -32,7 +32,7 @@ from tfkaldi_tpu_torch.data.target_normalizers import aurora4_normalizer
 from tfkaldi_tpu_torch.decode.ctc import CTCDecoder
 from tfkaldi_tpu_torch.decode.online import StreamingTranscriber
 from tfkaldi_tpu_torch.decode.transducer import OnlineTransducerDecoder, TransducerDecoder
-from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32, cmvn_stats
+from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn, cmvn_stats
 from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
 from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor
 from tfkaldi_tpu_torch.models import LSTM, RNNConfig, Transducer, TransducerConfig, Transformer, TransformerConfig
@@ -76,7 +76,7 @@ def _offline_feats(ext, wavs, cmvn):
     for i, w in enumerate(wavs):
         batch[i, : len(w)] = w
     feats, n = ext(batch, np.asarray([len(w) for w in wavs]))
-    return (feats if cmvn is None else apply_cmvn32(feats, cmvn)), n
+    return (feats if cmvn is None else apply_cmvn(feats, cmvn)), n
 
 
 def test_conformer_chunked_equals_offline(cuda):

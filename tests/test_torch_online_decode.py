@@ -72,7 +72,7 @@ from tfkaldi_tpu_torch.decode.lm import ArpaLM, DenseFusionTable, FusionScorer
 from tfkaldi_tpu_torch.decode.online import StreamingTranscriber
 from tfkaldi_tpu_torch.decode.transducer import StreamingTransducerTranscriber, TransducerDecoder
 from tfkaldi_tpu_torch.decode.transducer_beam import TransducerBeamDecoder
-from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32, cmvn_stats
+from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn, cmvn_stats
 from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
 from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor, OnlineFeatureExtractor
 from tfkaldi_tpu_torch.models import GRU, RNNConfig, Transducer, TransducerConfig, Transformer, TransformerConfig
@@ -220,7 +220,7 @@ def test_ctc_chunked_equals_offline(kind, beam):
     dec = CTCDecoder(model, CODER, BLANK)
     want = []
     for a in audios:
-        feats = apply_cmvn32(torch.from_numpy(ext.compute(a)), cmvn)[None]
+        feats = apply_cmvn(torch.from_numpy(ext.compute(a)), cmvn)[None]
         n = np.asarray([feats.shape[1]])
         if beam == 1:
             ids = dec.decode_batch(feats.numpy(), n)[0]
@@ -345,7 +345,7 @@ def test_transducer_chunked_equals_offline(enc, beam):
     ext = _ext()
     want = []
     for a in audios:
-        feats = apply_cmvn32(torch.from_numpy(ext.compute(a)), cmvn)[None].numpy()
+        feats = apply_cmvn(torch.from_numpy(ext.compute(a)), cmvn)[None].numpy()
         n = np.asarray([feats.shape[1]])
         if beam == 1:
             dec = TransducerDecoder(model, CODER)

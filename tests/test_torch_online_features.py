@@ -10,7 +10,7 @@ through:
   ``FeatureExtractor`` on the whole utterance BIT FOR BIT (the same two
   preemphasis roundings as kernel 2's plain version, the same frames, the
   same ``_frames_to_feats``), and the fused stream equals the unfused one bit
-  for bit with and without CMVN (both apply ``apply_cmvn32``'s f32 ops);
+  for bit with and without CMVN (both apply ``apply_cmvn``'s f32 ops);
 - the JAX package's ``OnlineFeatureExtractor`` / ``FusedOnlineFeatureExtractor``
   (``spectrum_precision = "high"``): within FEAT_TOL in the repo's
   ``err / max(|ref|, 1)``, the bound of tests/test_torch_features.py. XLA:CPU
@@ -29,9 +29,9 @@ from tfkaldi_tpu.frontend import FeatureExtractor as JaxFeatureExtractor
 from tfkaldi_tpu.frontend import FeatureOpts as JaxFeatureOpts
 from tfkaldi_tpu.frontend.online import FusedOnlineFeatureExtractor as JaxFused
 from tfkaldi_tpu.frontend.online import OnlineFeatureExtractor as JaxOnline
-from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32, cmvn_stats
+from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn, cmvn_stats
 from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
-from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor, OnlineFeatureExtractor
+from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor, OnlineDynamicExtractor, OnlineFeatureExtractor
 
 RATE = 16000
 FEAT_TOL = 1e-6
@@ -61,7 +61,7 @@ def _stream(online, sig, lengths, chunk, cmvn=None):
 
     def collect(feats, nnew):
         if cmvn is not None:
-            feats = apply_cmvn32(torch.as_tensor(np.asarray(feats)), cmvn)
+            feats = apply_cmvn(torch.as_tensor(np.asarray(feats)), cmvn)
         feats = np.asarray(feats)
         for row in range(b):
             got[row].append(feats[row, : nnew[row]])
@@ -166,14 +166,25 @@ def test_stream_rows_advance_at_different_rates(fused):
 
 @pytest.mark.parametrize("cls", [OnlineFeatureExtractor, FusedOnlineFeatureExtractor])
 def test_stream_requires_reset_and_nodelta(cls):
+    """Both extractors need ``reset`` and stream static features only; a
+    delta config is refused by name and streams through
+    ``OnlineDynamicExtractor``, whose frames equal the offline ones
+    (tests/test_torch_online_dynamic.py holds it at every chunking)."""
     ext = FeatureExtractor(FeatureOpts(dynamic="nodelta"), RATE, "cpu")
     online = cls(ext)
     with pytest.raises(RuntimeError, match="reset"):
         online.step(np.zeros((1, 100), np.float32), np.asarray([100]))
     with pytest.raises(RuntimeError, match="reset"):
         online.flush()
-    with pytest.raises(NotImplementedError, match="OnlineDynamicExtractor"):
-        cls(FeatureExtractor(FeatureOpts(dynamic="ddelta"), RATE, "cpu"))
+    ddelta = FeatureExtractor(FeatureOpts(dynamic="ddelta"), RATE, "cpu")
+    with pytest.raises(ValueError, match="OnlineDynamicExtractor"):
+        cls(ddelta)
+    lengths = np.asarray([4000])
+    sig = _signals(np.random.default_rng(5), lengths, 4000)
+    off, off_nf = ddelta(sig, lengths)
+    got = _stream(OnlineDynamicExtractor(ddelta), sig, lengths, 1000)[0]
+    assert got.shape == (off_nf[0], 3 * ddelta.opts.base_dim)
+    np.testing.assert_allclose(got, off.numpy()[0, : off_nf[0]], rtol=1e-7, atol=1e-10)
 
 
 @pytest.mark.parametrize("cls", [OnlineFeatureExtractor, FusedOnlineFeatureExtractor])

@@ -189,7 +189,9 @@ def test_port_imports_without_jax():
             "tfkaldi_tpu_torch.decode.transducer_beam, tfkaldi_tpu_torch.models.tdnn, tfkaldi_tpu_torch.models.cnn, "
             "tfkaldi_tpu_torch.kaldi, tfkaldi_tpu_torch.kaldi.gmm, tfkaldi_tpu_torch.kaldi.decode_wfst, "
             "tfkaldi_tpu_torch.decode.lm, tfkaldi_tpu_torch.serve, tfkaldi_tpu_torch.frontend.online, "
-            "tfkaldi_tpu_torch.decode.online, tfkaldi_tpu_torch.decode.endpoint, tfkaldi_tpu_torch.decode.words; "
+            "tfkaldi_tpu_torch.decode.online, tfkaldi_tpu_torch.decode.endpoint, tfkaldi_tpu_torch.decode.words, "
+            "tfkaldi_tpu_torch.frontend.perturb, tfkaldi_tpu_torch.frontend.sigproc, "
+            "tfkaldi_tpu_torch.frontend.functional, tfkaldi_tpu_torch.frontend, tfkaldi_tpu_torch.decode; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
@@ -222,5 +224,6 @@ def test_only_port_io_module_imports_jax_package(path):
     assert reached == []
     if path == "chip_smoke.py":  # the walk covers the model families and the Kaldi layer too
         for module in ("models/tdnn.py", "models/cnn.py", "kaldi/__init__.py", "kaldi/gmm.py",
-                       "kaldi/decode_wfst.py"):
+                       "kaldi/decode_wfst.py", "frontend/perturb.py", "frontend/sigproc.py",
+                       "frontend/functional.py", "frontend/online.py", "decode/online.py"):
             assert os.path.join("tfkaldi_tpu_torch", module) in _PORT_SOURCES, module

@@ -20,8 +20,9 @@ seeded ones of tests/test_torch_online_decode.py (a 1 x 16 GRU CTC, a
 - ``cli.serve --stream --device cpu`` on a CTC config with ``final.pt``
   serves concurrent clients the finals of ``build_streaming_transcriber``
   and of JAX's transcriber with the same pooled CMVN;
-  ``build_streaming_transcriber`` refuses a hybrid config and a delta
-  front-end and builds the beam transducer for ``beam_width > 1``.
+  ``build_streaming_transcriber`` refuses a hybrid config, streams a delta
+  front-end through ``OnlineDynamicExtractor`` as JAX's transcriber does,
+  and builds the beam transducer for ``beam_width > 1``.
 
 Every socket has a timeout (SOCKET_TIMEOUT), every server is closed in a
 ``finally`` and every join is bounded, so a hang fails instead of running
@@ -41,15 +42,21 @@ import torch
 from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from tests.synthetic import make_featdir
 from tests.test_torch_online_decode import BLANK, CODER, _ext, _jext, ctc_model, transducer_model
+from tests.test_torch_online_dynamic import _delta_gru
 from tfkaldi_tpu import serve as jax_serve
 from tfkaldi_tpu.decode.online import StreamingTranscriber as JaxStreamingTranscriber
+from tfkaldi_tpu.frontend import FeatureExtractor as JaxFeatureExtractor
+from tfkaldi_tpu.frontend import FeatureOpts as JaxFeatureOpts
+from tfkaldi_tpu.frontend.online import OnlineDynamicExtractor as JaxDynamic
 from tfkaldi_tpu.frontend.online import OnlineFeatureExtractor as JaxOnline
 from tfkaldi_tpu_torch.cli import serve as cli_serve
 from tfkaldi_tpu_torch.convert import rnn_from_jax, save_checkpoint
 from tfkaldi_tpu_torch.decode.endpoint import EndpointConfig, EndpointRule
 from tfkaldi_tpu_torch.decode.online import StreamingTranscriber
 from tfkaldi_tpu_torch.decode.transducer import StreamingTransducerTranscriber
-from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor, OnlineFeatureExtractor
+from tfkaldi_tpu_torch.frontend.cmvn import cmvn_stats
+from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
+from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor, OnlineDynamicExtractor, OnlineFeatureExtractor
 from tfkaldi_tpu_torch.nnet import Nnet
 from tfkaldi_tpu_torch.serve import (MSG_AUDIO, MSG_CONF, MSG_CONF_REQ, MSG_ERROR, MSG_FINAL, MSG_FINISH, MSG_TIMES,
                                      MSG_TIMES_REQ,
@@ -419,19 +426,35 @@ def test_stream_cli_serves_concurrent_clients(ctc_config, gru, tmp_path):
 
 
 def test_build_streaming_transcriber_rules(ctc_config, tmp_path):
-    """A hybrid config has no streaming transcriber, a delta front-end
-    names the item that ports its extractor, a spliced input
-    (``context_width`` > 0) is refused by name, and ``beam_width > 1`` on an
-    RNN-T config builds the beam transducer transcriber."""
-    _, _, config, net = ctc_config
+    """A hybrid config has no streaming transcriber; a delta front-end
+    streams through ``OnlineDynamicExtractor`` and gives JAX's transcriber's
+    final and timestamps on the same weights, audio and CMVN; a spliced
+    input (``context_width`` > 0) is refused by name; and ``beam_width > 1``
+    on an RNN-T config builds the beam transducer transcriber."""
+    _, featdir, config, net = ctc_config
     feats = dict(config["dnn-features"])
     hybrid = ConfigParser()
     hybrid["directories"] = {"expdir": str(tmp_path / "exp")}
     hybrid["nnet"] = {"name": "hyb", "context_width": "0", "num_hidden_layers": "1", "num_hidden_units": "8"}
     with pytest.raises(ValueError, match="streaming"):
         build_streaming_transcriber(Nnet(hybrid, 10, 5, device="cpu"), CODER, RATE, feats)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        build_streaming_transcriber(net, CODER, RATE, {**feats, "dynamic": "delta"})
+    dcfg = ConfigParser()
+    dcfg.read_dict({**config, "directories": {**config["directories"], "expdir": str(tmp_path / "exp_delta")}})
+    dnet = Nnet(dcfg, 20, CODER.num_labels, device="cpu")
+    jm, params, state, _ = _delta_gru()
+    save_checkpoint(dnet.savedir, rnn_from_jax(params))
+    delta_feats = {**feats, "dynamic": "delta"}
+    audio = _audios(9, [5000])[0]
+    delta_ext = FeatureExtractor(FeatureOpts.from_config(delta_feats), RATE, "cpu")
+    cmvn = cmvn_stats(delta_ext.compute(audio))
+    tx = build_streaming_transcriber(dnet, CODER, RATE, delta_feats, cmvn=cmvn)
+    assert isinstance(tx.extractor, OnlineDynamicExtractor) and tx.cmvn is not None
+    jext = JaxFeatureExtractor(JaxFeatureOpts.from_config(delta_feats), RATE, spectrum_precision="high")
+    jtx = JaxStreamingTranscriber(JaxDynamic(jext), jm, params, state, CODER, BLANK, cmvn=cmvn)
+    final, times = _batch1(tx, audio, 800)
+    jfinal, jtimes = _batch1(jtx, audio, 800)
+    assert final == jfinal
+    np.testing.assert_array_equal(times, jtimes)
     spliced = ConfigParser()
     spliced.read_dict({**config, "nnet": {**config["nnet"], "context_width": "2"}})
     with pytest.raises(ValueError, match="context_width = 2: .* unspliced"):

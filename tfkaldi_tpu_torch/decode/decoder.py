@@ -24,6 +24,14 @@ from tfkaldi_tpu_torch.io import ArkWriter
 _EPS = float(np.finfo(np.float64).eps)
 
 
+def log_likelihoods(logits: torch.Tensor, prior: torch.Tensor) -> torch.Tensor:
+    """Logits → f32 log pseudo-likelihoods: softmax, ÷prior, the ε floor,
+    log (the offline ``Decoder`` and the streaming emitters alike)."""
+    likes = torch.softmax(logits.float(), dim=-1) / prior
+    likes = torch.where(likes == 0, _EPS, likes)  # nnet.py:283, fixed
+    return torch.log(likes)
+
+
 class Decoder:
     """Batched posterior → log pseudo-likelihood computer on the model's
     device."""
@@ -39,10 +47,7 @@ class Decoder:
         inputs = torch.as_tensor(inputs, dtype=torch.float32).to(self.device, non_blocking=True)
         lengths = torch.as_tensor(lengths, dtype=torch.int32)
         with torch.inference_mode():
-            logits = self.model(inputs, lengths)
-            likes = torch.softmax(logits.float(), dim=-1) / self.prior
-            likes = torch.where(likes == 0, _EPS, likes)  # nnet.py:283, fixed
-            return torch.log(likes)
+            return log_likelihoods(self.model(inputs, lengths), self.prior)
 
     def decode_to_writer(
         self,

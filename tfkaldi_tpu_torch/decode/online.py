@@ -25,9 +25,15 @@ leave the others' carries as they were (``merge_stream_carry``): the
 multi-stream server's per-slot lifecycle. Every device call runs under
 ``torch.inference_mode``.
 
-The hybrid recipe's streaming likelihood decoders (``OnlineRecurrentDecoder``,
-``OnlineSplicedDecoder``, ``OnlineWindowedDecoder``) are not ported
-(ROADMAP.md, queue 1, item 25).
+The hybrid recipe's streaming likelihood emitters (decode/online.py:40-99,
+779-1068) emit log pseudo-likelihoods chunk by chunk, equal to the offline
+:class:`~tfkaldi_tpu_torch.decode.decoder.Decoder` on the whole utterance:
+``OnlineRecurrentDecoder`` carries a unidirectional LSTM / GRU's state
+through its ``apply_stream``; ``OnlineSplicedDecoder`` (the DNN, kernel 1 on
+each hidden layer on the card) holds back the splice's ``context_width``
+frames of lookahead; ``OnlineWindowedDecoder`` (TDNN, CNN) recomputes each
+chunk over a window that reaches the model's receptive field. All three
+run on the model's device and return host numpy f32.
 """
 
 from __future__ import annotations
@@ -38,9 +44,10 @@ import numpy as np
 import torch
 
 from tfkaldi_tpu_torch.decode.ctc_beam import alignment_of, beam_step, best_prefix, initial_alignments, initial_beams
+from tfkaldi_tpu_torch.decode.decoder import log_likelihoods
 from tfkaldi_tpu_torch.decode.endpoint import EndpointConfig, Endpointer
 from tfkaldi_tpu_torch.decode.words import group_words
-from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32
+from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn
 
 
 def _validate_streamable(model) -> None:
@@ -69,6 +76,208 @@ def host_arrays(*tensors) -> list[np.ndarray]:
         out.append(both[:, at: at + f.shape[1]].reshape(t.shape))
         at += f.shape[1]
     return out
+
+
+class _HybridEmitter:
+    """What the hybrid emitters share: the model in eval on its device and
+    the prior there."""
+
+    def __init__(self, model, prior: np.ndarray):
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.prior = torch.as_tensor(np.asarray(prior, np.float32), device=self.device)
+
+    def _empty(self, b: int) -> np.ndarray:
+        return np.zeros((b, 0, self.prior.shape[0]), np.float32)
+
+
+class OnlineRecurrentDecoder(_HybridEmitter):
+    """Streaming log pseudo-likelihoods of a unidirectional LSTM / GRU: its
+    ``apply_stream`` carry kept between calls, so any chunking gives the
+    offline decode's frames.
+
+    Usage::
+
+        dec = OnlineRecurrentDecoder(model, prior)
+        dec.reset(batch_size)
+        for chunk, lengths in feature_chunks:     # [B, Tc, F], [B]
+            log_likes = dec.step(chunk, lengths)  # [B, Tc, O]
+    """
+
+    def __init__(self, model, prior: np.ndarray):
+        _validate_streamable(model)
+        if getattr(model, "subsample_factor", 1) != 1:
+            raise ValueError("hybrid likelihood emission is per input frame; a subsampling front-end has no 1:1 "
+                             "alignment (it is a ctc/rnnt/attention-only recipe)")
+        super().__init__(model, prior)
+        self._carry = None
+
+    @torch.inference_mode()
+    def reset(self, batch_size: int) -> None:
+        """Start new utterances: zero the recurrent state."""
+        self._carry = self.model.init_stream_carry(batch_size, self.device)
+
+    @torch.inference_mode()
+    def step(self, chunk, lengths) -> np.ndarray:
+        """``[B, Tc, F]`` chunk (``lengths`` valid frames a row) → ``[B, Tc,
+        O]`` log pseudo-likelihoods; advances the carry."""
+        if self._carry is None:
+            raise RuntimeError("call reset(batch_size) before step()")
+        if chunk.shape[1] == 0:  # e.g. a feature flush that added no frames
+            return self._empty(chunk.shape[0])
+        x = torch.as_tensor(chunk, dtype=torch.float32).to(self.device, non_blocking=True)
+        n = torch.as_tensor(np.asarray(lengths, np.int64)).to(self.device)
+        logits, self._carry = self.model.apply_stream(x, n, self._carry)
+        return log_likelihoods(logits, self.prior).cpu().numpy()
+
+
+class OnlineWindowedDecoder(_HybridEmitter):
+    """Streaming log pseudo-likelihoods of the sequence-local hybrid
+    families (TDNN, CNN): output frame ``t`` depends on the input frames
+    ``[t - left_receptive, t + right_receptive]`` (the models' shifts or
+    time kernels) of features spliced with ±``context_width`` neighbours.
+
+    Frame ``t`` is emitted once frame ``t + c + right_receptive`` has
+    arrived; each call runs the model over the spliced window ``[e -
+    left_receptive, e + n - 1 + right_receptive]`` of the ``n`` frames it
+    emits from ``e`` on, and keeps their rows. The models' zero fill makes
+    the window's edges exact: at the start it reaches only frames already
+    emitted, or is the utterance's own start; the end lies
+    ``right_receptive`` real frames past the emitted span, or at ``flush``
+    is the utterance's end. The splice's zero padding is applied at the
+    edges: the left one at once, the right one at ``flush``. Emitted frames
+    equal the offline ``Decoder`` on offline-spliced features.
+
+    Usage::
+
+        dec = OnlineWindowedDecoder(model, prior, context_width)
+        dec.reset(batch_size)
+        for feats, lengths in feature_chunks:       # [B, Tc, F] unspliced
+            likes, n_new = dec.step(feats, lengths)  # [B, max(n_new), O]
+        likes, n_new = dec.flush()                  # the rest of each row
+
+    The model's calls are padded to a multiple of ``frame_bucket`` frames.
+    """
+
+    def __init__(self, model, prior: np.ndarray, context_width: int, frame_bucket: int = 8):
+        super().__init__(model, prior)
+        self.c = int(context_width)
+        self.lrf, self.rrf = self._receptive(model)
+        self.frame_bucket = int(frame_bucket)
+        self._buf = None
+
+    @staticmethod
+    def _receptive(model) -> tuple[int, int]:
+        return int(model.left_receptive), int(model.right_receptive)
+
+    def reset(self, batch_size: int) -> None:
+        self._buf = [None] * batch_size
+        self._start = np.zeros((batch_size,), np.int64)  # the global index of each buffer's first frame
+        self._total = np.zeros((batch_size,), np.int64)
+        self._emitted = np.zeros((batch_size,), np.int64)
+
+    def _emit(self, navail: np.ndarray, final: bool):
+        c, lrf, rrf = self.c, self.lrf, self.rrf
+        b = len(self._buf)
+        counts = navail.astype(np.int32)
+        offs = np.zeros((b,), np.int64)  # the emitted span's offset in each window
+        w_len = np.zeros((b,), np.int64)
+        for row, n in enumerate(navail):
+            if int(n) == 0:
+                continue
+            e = int(self._emitted[row])
+            ws = max(0, e - lrf)  # the window's start (the utterance start clamps it)
+            we = e + int(n) - 1 + (0 if final else rrf)
+            offs[row], w_len[row] = e - ws, we - ws + 1
+        if int(w_len.max(initial=0)) == 0:
+            return self._empty(b), counts
+        w_pad = -(-int(w_len.max()) // self.frame_bucket) * self.frame_bucket
+        dim = next(f.shape[1] for f in self._buf if f is not None)
+        spliced = np.zeros((b, w_pad, dim * (2 * c + 1)), np.float32)
+        for row, n in enumerate(navail):
+            n = int(n)
+            if n == 0:
+                continue
+            e = int(self._emitted[row])
+            ws, wl = e - int(offs[row]), int(w_len[row])
+            # the raw span [ws - c, ws + wl - 1 + c], zeros before global frame 0
+            lead = max(0, c - ws)
+            first = int(ws - c + lead - self._start[row])
+            span = self._buf[row][first: first + (wl + 2 * c - lead)]
+            if lead:
+                span = np.concatenate([np.zeros((lead, span.shape[1]), span.dtype), span])
+            win = np.lib.stride_tricks.sliding_window_view(span, 2 * c + 1, axis=0)
+            spliced[row, :wl] = win.transpose(0, 2, 1).reshape(wl, -1)
+            self._emitted[row] = e + n
+            keep_from = int(max(0, self._emitted[row] - c - lrf) - self._start[row])
+            if keep_from > 0:
+                self._buf[row] = self._buf[row][keep_from:]
+                self._start[row] += keep_from
+        with torch.inference_mode():
+            x = torch.from_numpy(spliced).to(self.device, non_blocking=True)
+            likes = log_likelihoods(self.model(x, torch.from_numpy(w_len).to(self.device)), self.prior)
+            likes = likes.cpu().numpy()
+        out = np.zeros((b, int(counts.max()), self.prior.shape[0]), np.float32)
+        for row, n in enumerate(counts):
+            if n:
+                out[row, :n] = likes[row, int(offs[row]): int(offs[row]) + n]
+        return out, counts
+
+    def step(self, feats, lengths) -> tuple[np.ndarray, np.ndarray]:
+        """``[B, Tc, F]`` unspliced CMVN'd features (``lengths`` valid frames
+        a row) → ``(log pseudo-likelihoods [B, T, O], counts [B])`` of every
+        frame whose splice and receptive field are now complete."""
+        if self._buf is None:
+            raise RuntimeError("call reset(batch_size) before step()")
+        feats = np.asarray(feats, np.float32)
+        lengths = np.asarray(lengths, np.int64)
+        navail = np.zeros((len(self._buf),), np.int64)
+        for row, n in enumerate(lengths):
+            n = int(n)
+            if n > 0:
+                new = feats[row, :n]
+                self._buf[row] = new.copy() if self._buf[row] is None else np.concatenate([self._buf[row], new])
+                self._total[row] += n
+            navail[row] = max(0, self._total[row] - self.c - self.rrf - self._emitted[row])
+        return self._emit(navail, final=False)
+
+    def flush(self) -> tuple[np.ndarray, np.ndarray]:
+        """Emit the rest of each row: the window's end is the utterance's,
+        and the splice's ``c`` zero frames are appended; then ``reset`` is
+        required."""
+        if self._buf is None:
+            raise RuntimeError("call reset(batch_size) before flush()")
+        rem = self._total - self._emitted
+        if self.c > 0:
+            for row, r in enumerate(rem):
+                if r > 0:
+                    pad = np.zeros((self.c, self._buf[row].shape[1]), np.float32)
+                    self._buf[row] = np.concatenate([self._buf[row], pad])
+        out = self._emit(rem.astype(np.int64), final=True)
+        self._buf = None
+        return out
+
+
+class OnlineSplicedDecoder(OnlineWindowedDecoder):
+    """Streaming log pseudo-likelihoods of the DNN: frame-independent in
+    eval (stored batchnorm statistics), so it needs only the splice's
+    ``context_width`` frames of lookahead: the windowed emitter with no
+    receptive field. On the card each emitting call is the eval forward's
+    fused FFN kernel (kernel 1) on every hidden layer, at ``B × T_pad``
+    rows (``T_pad`` the emitted count padded to ``frame_bucket``).
+
+    Usage::
+
+        dec = OnlineSplicedDecoder(model, prior, context_width)
+        dec.reset(batch_size)
+        for feats, lengths in feature_chunks:       # [B, Tc, F] unspliced
+            likes, n_new = dec.step(feats, lengths)
+        likes, n_new = dec.flush()                  # the last c frames a row
+    """
+
+    @staticmethod
+    def _receptive(model) -> tuple[int, int]:
+        return 0, 0
 
 
 class _StreamCTC:
@@ -439,7 +648,7 @@ class StreamingTranscriber:
     def _feed(self, feats, n_new) -> list[str]:
         if self.cmvn is not None:
             with torch.inference_mode():
-                feats = apply_cmvn32(torch.as_tensor(feats).to(self._dec.device), self.cmvn)
+                feats = apply_cmvn(torch.as_tensor(feats).to(self._dec.device), self.cmvn)
         if self.beam_width > 1:
             ids = self._dec.step(feats, n_new)
             self._sync_beam_alignment()

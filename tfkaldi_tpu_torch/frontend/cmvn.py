@@ -1,8 +1,8 @@
-"""Per-speaker CMVN statistics, and the streaming path's f32 CMVN.
+"""Per-speaker CMVN statistics, normalisation and context splicing.
 
-A numpy copy of ``cmvn_stats`` from :mod:`tfkaldi_tpu.frontend.cmvn` (that
-module imports JAX), and :func:`apply_cmvn32`, a torch copy of its
-``apply_cmvn`` as the streaming transcribers round it. The stats layout is Kaldi's: a ``[2, dim+1]`` matrix
+Copies of :mod:`tfkaldi_tpu.frontend.cmvn` (that module imports JAX):
+``cmvn_stats`` in numpy, ``apply_cmvn`` and ``splice`` on torch tensors.
+The stats layout is Kaldi's: a ``[2, dim+1]`` matrix
 per speaker with ``stats[0, :dim] = Σx``, ``stats[0, dim] = frame count``,
 ``stats[1, :dim] = Σx²``, ``stats[1, dim] = 0``.
 """
@@ -39,16 +39,37 @@ def cmvn_stats(feats, num_frames=None) -> np.ndarray:
     return stats
 
 
-def apply_cmvn32(feats, stats):
-    """``(x - mean) / sqrt(E[x²] - mean²)`` in f32 on ``feats``'s device,
-    the stats rounded to f32 first: the streaming transcribers' CMVN, which
-    the JAX package computes in f32 whatever the stats' dtype
-    (frontend/cmvn.py:46-53 outside an x64 scope). ``feats`` is a tensor
-    ``[..., D]``; ``stats`` the Kaldi ``[2, D+1]`` matrix."""
+def apply_cmvn(utt, stats):
+    """Mean/variance normalisation with precomputed speaker stats,
+    ``(x - mean) / sqrt(E[x²] - mean²)``, in f32 on ``utt``'s device: a copy
+    of the JAX ``apply_cmvn`` (frontend/cmvn.py:46-53) at JAX's default
+    precision, which rounds the f64 stats to f32 first. ``utt`` is a tensor
+    or array ``[..., D]`` (``[T, D]`` or ``[B, T, D]``); ``stats`` the Kaldi
+    ``[2, D+1]`` matrix. The streaming transcribers' CMVN."""
     import torch
 
-    s = torch.as_tensor(np.asarray(stats, np.float32), device=feats.device)
+    utt = torch.as_tensor(utt)
+    s = torch.as_tensor(np.asarray(stats, np.float32), device=utt.device)
     count = s[0, -1]
     mean = s[0, :-1] / count
     variance = s[1, :-1] / count - torch.square(mean)
-    return (feats.float() - mean) / torch.sqrt(variance)
+    return (utt.float() - mean) / torch.sqrt(variance)
+
+
+def splice(utt, context_width: int):
+    """±``context_width`` neighbour frames concatenated onto each frame,
+    zero-padded at the edges: ``[T, D] → [T, D·(2c+1)]``, or the same over
+    the time axis of ``[B, T, D]`` (a copy of the JAX ``splice``,
+    frontend/cmvn.py:56-84; column block ``o`` holds the frames shifted by
+    ``o - c``). Batch padding frames take context from real neighbours, so
+    callers mask frames past each row's length downstream."""
+    import torch
+
+    c = int(context_width)
+    utt = torch.as_tensor(utt)
+    if c == 0:
+        return utt
+    t = utt.shape[-2]
+    pad = [0, 0, c, c]  # the time axis, second to last
+    padded = torch.nn.functional.pad(utt, pad)
+    return torch.cat([padded[..., o: o + t, :] for o in range(2 * c + 1)], dim=-1)

@@ -177,6 +177,12 @@ class FeatureExtractor:
 
     def _frames_to_feats(self, frames, num_frames):
         """f64 frames ``[B, T, wl]`` → masked f32 features ``[B, T, dim]``."""
+        return self._apply_dynamics(self._frames_to_static(frames, num_frames), num_frames)
+
+    def _frames_to_static(self, frames, num_frames):
+        """The per-frame part of :meth:`_frames_to_feats`: f64 frames → f64
+        static features ``[B, T, base_dim]``, not yet masked or cast (what
+        the streaming delta extractor buffers)."""
         opts = self.opts
         dft_in = frames[:, :, : self._dft_rows]  # rfft truncation semantics
         xr = torch.matmul(dft_in, self._dft_cos)
@@ -197,7 +203,13 @@ class FeatureExtractor:
             feat = torch.matmul(pspec * self._tiles, self._fbank_t) / feat_raw
         if opts.include_energy:
             feat = torch.cat([feat, log_energy[..., None]], dim=-1)
+        return feat
 
+    def _apply_dynamics(self, feat, num_frames):
+        """The tail of :meth:`_frames_to_feats` on f64 static features: the
+        reflected deltas over each row's ``num_frames``, then the mask and
+        the f32 cast."""
+        opts = self.opts
         if opts.dynamic != "nodelta":
             d1 = _reflect_deriv(feat, num_frames)
             if opts.dynamic == "delta":

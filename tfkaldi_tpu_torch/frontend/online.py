@@ -1,7 +1,8 @@
 """Streaming (chunked) acoustic feature extraction.
 
-Port of :class:`tfkaldi_tpu.frontend.online.OnlineFeatureExtractor` and
-``FusedOnlineFeatureExtractor`` (frontend/online.py:48-249, 403-658), with
+Port of :class:`tfkaldi_tpu.frontend.online.OnlineFeatureExtractor`,
+``OnlineDynamicExtractor`` and ``FusedOnlineFeatureExtractor``
+(frontend/online.py:48-658), with
 the same ``reset / step / flush / flush_rows / reset_rows`` API. Raw audio
 comes in chunks of any size; each frame is emitted once its window is
 complete, and the frames are exactly those of the offline
@@ -21,10 +22,13 @@ utterance:
   frames under ``snip_edges = False`` and the single padded frame of an
   utterance shorter than one window (``FeatureExtractor.frame_geometry``).
 
-Only ``dynamic = nodelta``: delta dynamics are whole-utterance operators
-with a reflected boundary at both ends, which the JAX package streams
-through ``OnlineDynamicExtractor`` (ROADMAP.md, queue 1, item 25). Both text
-recipes use ``nodelta``.
+Delta dynamics are whole-utterance operators with a reflected boundary at
+both ends, so :class:`OnlineDynamicExtractor` (a copy of the JAX class,
+frontend/online.py:250-400) streams them: it buffers the f64 static
+features of :class:`OnlineFeatureExtractor` in static mode, emits frame
+``t`` once frame ``t + A`` exists (``A`` 2 for delta, 4 for ddelta) and runs
+the extractor's own dynamics tail over windows that reach the true start,
+and at ``flush`` the true end, of the utterance.
 
 :class:`OnlineFeatureExtractor` keeps its sample buffers on the host in
 numpy and runs the feature tail on the extractor's device.
@@ -34,7 +38,7 @@ an optional f32 CMVN, then the buffer advance) whose result stays on the
 device, and the host mirrors the cursors from the pushed lengths, so
 nothing is read back mid-stream. ``fused_calls`` counts those calls (at
 most one per push), where the JAX class counts its ``dispatch_count``. The
-CMVN is :func:`~tfkaldi_tpu_torch.frontend.cmvn.apply_cmvn32`, the same f32
+CMVN is :func:`~tfkaldi_tpu_torch.frontend.cmvn.apply_cmvn`, the same f32
 ops as the unfused transcriber applies, so here the fused and the unfused
 chains agree exactly (XLA's fusion of the JAX fused call rounds within 2
 f32 ulps of its unfused chain).
@@ -45,14 +49,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn32
+from tfkaldi_tpu_torch.frontend.cmvn import apply_cmvn
 
-
-def _require_nodelta(extractor) -> None:
-    if extractor.opts.dynamic != "nodelta":
-        raise NotImplementedError(
-            "online extraction of delta features needs OnlineDynamicExtractor (delta dynamics are "
-            "whole-utterance operators), which the port does not have yet (ROADMAP.md, queue 1, item 25)")
 
 
 class OnlineFeatureExtractor:
@@ -70,17 +68,22 @@ class OnlineFeatureExtractor:
     Rows may advance at different rates; a row whose stream has ended
     passes length 0 until ``flush``. ``feats`` is numpy f32 ``[B, T, D]``,
     ``T`` padded up to a multiple of ``frame_bucket`` with zero frames.
+    ``_emit_static`` (for :class:`OnlineDynamicExtractor`) emits the f64
+    static features instead, before the dynamics, the mask and the cast.
     """
 
-    def __init__(self, extractor, frame_bucket: int = 8):
-        _require_nodelta(extractor)
+    def __init__(self, extractor, frame_bucket: int = 8, _emit_static: bool = False):
+        if extractor.opts.dynamic != "nodelta" and not _emit_static:
+            raise ValueError("online extraction of delta features goes through OnlineDynamicExtractor (delta "
+                             "dynamics are whole-utterance operators; it buffers the lookahead they need)")
         self.extractor = extractor
         self.frame_bucket = int(frame_bucket)
+        self._emit_static = bool(_emit_static)
         self._buf = None  # per-row preemphasised, not yet consumed samples
 
     @property
     def dim(self) -> int:
-        return self.extractor.opts.dim
+        return self.extractor.opts.base_dim if self._emit_static else self.extractor.opts.dim
 
     def reset(self, batch_size: int) -> None:
         self._buf = [np.zeros((0,), np.float64) for _ in range(batch_size)]
@@ -96,7 +99,8 @@ class OnlineFeatureExtractor:
         t_new = int(navail.max(initial=0))
         b = len(self._buf)
         if t_new == 0:
-            return np.zeros((b, 0, self.dim), np.float32), navail.astype(np.int32)
+            dtype = np.float64 if self._emit_static else np.float32
+            return np.zeros((b, 0, self.dim), dtype), navail.astype(np.int32)
         t_pad = -(-t_new // self.frame_bucket) * self.frame_bucket
         frames = np.zeros((b, t_pad, wl), np.float64)
         for row, n in enumerate(navail):
@@ -107,10 +111,9 @@ class OnlineFeatureExtractor:
             self._buf[row] = self._buf[row][n * ws:]
             self._emitted[row] += n
         device = self.extractor.device
+        tail = self.extractor._frames_to_static if self._emit_static else self.extractor._frames_to_feats
         with torch.inference_mode():
-            feats = self.extractor._frames_to_feats(torch.from_numpy(frames).to(device),
-                                                    torch.from_numpy(navail).to(device))
-            feats = feats.cpu().numpy()
+            feats = tail(torch.from_numpy(frames).to(device), torch.from_numpy(navail).to(device)).cpu().numpy()
         return feats, navail.astype(np.int32)
 
     def step(self, chunk, lengths) -> tuple[np.ndarray, np.ndarray]:
@@ -178,6 +181,130 @@ class OnlineFeatureExtractor:
             self._emitted[row] = 0
 
 
+class OnlineDynamicExtractor:
+    """Streaming delta / double-delta features: the static columns
+    bit-identical to the offline extractor's, the derivative columns within
+    a few f64 ulps (the f64 statics of other batch shapes may round
+    otherwise, and a derivative that cancels to about 0 shows it).
+
+    The dynamics (``[2, 1, 0, -1, -2]`` with reflected boundaries) need
+    ``lookahead`` future frames an output frame and the true end of the
+    utterance. The f64 statics of :class:`OnlineFeatureExtractor` in static
+    mode are buffered; frame ``t`` is emitted once frame ``t + A`` exists,
+    through the extractor's own ``_apply_dynamics`` over the window
+    ``[t - lead, t + n - 1 + A]`` with ``lead = min(A, t)``, so a window's
+    edge reflections either do not reach the emitted frames or are the
+    utterance's own start reflection. ``flush`` passes the true final frame
+    count, so the end reflection is the offline one. Same ``reset / step /
+    flush / flush_rows / reset_rows`` API as :class:`OnlineFeatureExtractor`
+    (host numpy f32 features)."""
+
+    def __init__(self, extractor, frame_bucket: int = 8):
+        if extractor.opts.dynamic == "nodelta":
+            raise ValueError("dynamic = 'nodelta' streams through OnlineFeatureExtractor")
+        self.extractor = extractor
+        self.frame_bucket = int(frame_bucket)
+        self.lookahead = {"delta": 2, "ddelta": 4}[extractor.opts.dynamic]
+        self._static = OnlineFeatureExtractor(extractor, frame_bucket, _emit_static=True)
+        self._buf = None
+
+    @property
+    def dim(self) -> int:
+        return self.extractor.opts.dim
+
+    def reset(self, batch_size: int) -> None:
+        self._static.reset(batch_size)
+        self._buf = [None] * batch_size  # each row's static frames from global index _start on
+        self._start = np.zeros((batch_size,), np.int64)
+        self._total = np.zeros((batch_size,), np.int64)
+        self._emitted = np.zeros((batch_size,), np.int64)
+
+    def _ingest(self, feats: np.ndarray, nnew: np.ndarray) -> None:
+        for row, n in enumerate(nnew):
+            n = int(n)
+            if n == 0:
+                continue
+            new = feats[row, :n]
+            self._buf[row] = new.copy() if self._buf[row] is None else np.concatenate([self._buf[row], new])
+            self._total[row] += n
+
+    def _emit(self, navail: np.ndarray, flushing: bool):
+        a = self.lookahead
+        b = len(self._buf)
+        if int(navail.max(initial=0)) == 0:
+            return np.zeros((b, 0, self.dim), np.float32), navail.astype(np.int32)
+        # a window: lead frames of left context, the n emitted, and A of
+        # right context unless flushing (the buffer then ends at the true end)
+        leads = np.minimum(self._emitted, a).astype(np.int64)
+        wlens = np.where(navail > 0, leads + navail + (0 if flushing else a), 0)
+        w_pad = -(-int(wlens.max()) // self.frame_bucket) * self.frame_bucket
+        windows = np.zeros((b, w_pad, self._static.dim), np.float64)
+        for row, n in enumerate(navail):
+            if n == 0:
+                continue
+            first = int(self._emitted[row] - leads[row] - self._start[row])
+            windows[row, : int(wlens[row])] = self._buf[row][first: first + int(wlens[row])]
+        device = self.extractor.device
+        with torch.inference_mode():
+            out = self.extractor._apply_dynamics(torch.from_numpy(windows).to(device),
+                                                 torch.from_numpy(wlens).to(device)).cpu().numpy()
+        t_pad = -(-int(navail.max()) // self.frame_bucket) * self.frame_bucket
+        result = np.zeros((b, t_pad, self.dim), np.float32)
+        for row, n in enumerate(navail):
+            n = int(n)
+            if n == 0:
+                continue
+            lead = int(leads[row])
+            result[row, :n] = out[row, lead: lead + n]
+            self._emitted[row] += n
+            # keep only the frames later windows can still reach
+            keep_from = int(max(0, self._emitted[row] - a) - self._start[row])
+            if keep_from > 0:
+                self._buf[row] = self._buf[row][keep_from:]
+                self._start[row] += keep_from
+        return result, navail.astype(np.int32)
+
+    def step(self, chunk, lengths) -> tuple[np.ndarray, np.ndarray]:
+        """``[B, S]`` raw samples → ``(feats [B, T, D] f32, counts)`` for
+        every frame whose lookahead is complete."""
+        if self._buf is None:
+            raise RuntimeError("call reset(batch_size) before step()")
+        self._ingest(*self._static.step(chunk, lengths))
+        return self._emit(np.maximum(self._total - self.lookahead - self._emitted, 0), flushing=False)
+
+    def flush(self) -> tuple[np.ndarray, np.ndarray]:
+        """Emit the remaining frames with the true end reflection; then
+        ``reset`` is required."""
+        if self._buf is None:
+            raise RuntimeError("call reset(batch_size) before flush()")
+        self._ingest(*self._static.flush())
+        out = self._emit(self._total - self._emitted, flushing=True)
+        self._buf = None
+        return out
+
+    def flush_rows(self, rows) -> tuple[np.ndarray, np.ndarray]:
+        """``flush`` for some rows (the others emit 0 and keep streaming);
+        re-arm the flushed rows with ``reset_rows``."""
+        if self._buf is None:
+            raise RuntimeError("call reset(batch_size) before flush_rows()")
+        self._ingest(*self._static.flush_rows(rows))
+        sel = np.asarray(list(rows), np.int64)
+        rem = np.zeros((len(self._buf),), np.int64)
+        rem[sel] = (self._total - self._emitted)[sel]
+        return self._emit(rem, flushing=True)
+
+    def reset_rows(self, rows) -> None:
+        """Re-arm some rows for new streams; the others are untouched."""
+        if self._buf is None:
+            raise RuntimeError("call reset(batch_size) before reset_rows()")
+        self._static.reset_rows(rows)
+        for row in rows:
+            self._buf[row] = None
+            self._start[row] = 0
+            self._total[row] = 0
+            self._emitted[row] = 0
+
+
 class FusedOnlineFeatureExtractor:
     """The device-resident streaming front-end: one call of device ops a
     push, its features left on the device.
@@ -191,7 +318,9 @@ class FusedOnlineFeatureExtractor:
     """
 
     def __init__(self, extractor, sample_bucket: int = 256, cmvn: np.ndarray | None = None):
-        _require_nodelta(extractor)
+        if extractor.opts.dynamic != "nodelta":
+            raise ValueError("the fused online front-end streams static features only; delta dynamics go "
+                             "through OnlineDynamicExtractor")
         self.extractor = extractor
         self.device = extractor.device
         self.sample_bucket = int(sample_bucket)
@@ -255,7 +384,7 @@ class FusedOnlineFeatureExtractor:
         frames = torch.where(tmask, buf[:, fidx], 0.0)
         feats = ext._frames_to_feats(frames, navail)
         if self._cmvn is not None:
-            feats = torch.where(tmask, apply_cmvn32(feats, self._cmvn), 0.0)
+            feats = torch.where(tmask, apply_cmvn(feats, self._cmvn), 0.0)
         consumed = navail * ws
         src2 = i + consumed[:, None]
         buf = torch.where(src2 < nbuf[:, None], torch.gather(buf, 1, src2.clamp(0, cap - 1)), 0.0)

@@ -7,7 +7,9 @@ reader thread reads wavs ahead; the main thread dispatches batch k+1 to the
 device before it copies batch k back and writes it, so the ark write
 overlaps the device work. The featdir layout is identical: feats.ark/scp
 (wav.scp order), cmvn.ark/scp, maxlength, and copied
-utt2spk/spk2utt/text/wav.scp.
+utt2spk/spk2utt/text/wav.scp. ``speed_perturb = 0.9,1.0,1.1`` in the
+features section adds a resampled copy of every utterance per factor under
+a ``sp{f}-`` prefix (frontend/perturb.py), through the same batches.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from tfkaldi_tpu_torch.frontend.cmvn import cmvn_stats
 from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
+from tfkaldi_tpu_torch.frontend.perturb import expand_metadata, factor_prefix, parse_factors, resample_signal
 from tfkaldi_tpu_torch.io import (
     ArkReader,
     ArkWriter,
@@ -75,12 +78,12 @@ def prepare_data(
         conf["type"] = feat_type
     if dynamic:
         conf["dynamic"] = dynamic
-    if str(conf.get("speed_perturb", "")).strip():
-        raise NotImplementedError(
-            "speed_perturb is not in the port yet (ROADMAP.md, queue 1); "
-            "use tfkaldi_tpu.frontend.prepare_data"
-        )
     opts = FeatureOpts.from_config(conf)
+    # optional 3-way speed perturbation (Kaldi's sp0.9/1.0/1.1 recipe; the
+    # reference has none): each utterance once per factor, resampled on the
+    # host, its id prefixed (frontend/perturb.py)
+    perturb_spec = str(conf.get("speed_perturb", "")).strip()
+    factors = parse_factors(perturb_spec) if perturb_spec else (1.0,)
 
     ark_path = os.path.join(featdir, "feats.ark")
     if os.path.isfile(ark_path):
@@ -148,10 +151,12 @@ def prepare_data(
                     raise ValueError(f"mixed sample rates: {rate} vs {extractor.rate}")
                 if sig.ndim > 1:  # multi-channel: first channel
                     sig = sig[:, 0]
-                pending.append((utt_id, np.asarray(sig, dtype=np.float32)))
-                if len(pending) >= batch_size:
-                    dispatch()
-                    drain(writer, keep=1)
+                sig = np.asarray(sig, dtype=np.float32)
+                for fac in factors:
+                    pending.append((factor_prefix(fac) + utt_id, resample_signal(sig, fac)))
+                    if len(pending) >= batch_size:
+                        dispatch()
+                        drain(writer, keep=1)
             dispatch()
             drain(writer, keep=0)
     finally:
@@ -166,8 +171,15 @@ def prepare_data(
     if reader_error:
         raise reader_error[0]
 
-    # copy metadata into the featdir (prepare_data.py:72-76)
-    for name in ("utt2spk", "spk2utt", "text", "wav.scp"):
+    # copy metadata into the featdir (prepare_data.py:72-76); under speed
+    # perturbation utt2spk/spk2utt/text are expanded with prefixed copies
+    # instead, and wav.scp is not copied: it would hold only the unprefixed
+    # third of the ids, and its audio is not the perturbed signal
+    copy_names = ("utt2spk", "spk2utt", "text", "wav.scp")
+    if factors != (1.0,):
+        expand_metadata(datadir, featdir, factors)
+        copy_names = ()
+    for name in copy_names:
         src = os.path.join(datadir, name)
         if os.path.isfile(src):
             shutil.copyfile(src, os.path.join(featdir, name))

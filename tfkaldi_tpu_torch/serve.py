@@ -164,20 +164,23 @@ def build_streaming_transcriber(nnet, coder, samplerate: int, features_conf: dic
                                 beam_width: int | None = None, endpoint_config=None):
     """The streaming transcriber a trained config describes, its weights
     (``final.pt``) loaded once onto ``nnet.device``: the fused online
-    front-end, then ``StreamingTranscriber`` for ``loss = ctc`` or
+    front-end for ``dynamic = nodelta`` (the CMVN folded into its call), the
+    lookahead-buffering ``OnlineDynamicExtractor`` for delta and ddelta
+    (host features, CMVN'd by the transcriber on the model's device), then
+    ``StreamingTranscriber`` for ``loss = ctc`` or
     ``StreamingTransducerTranscriber`` for ``loss = rnnt``, greedy or the
     beam of ``beam_width`` (default ``[nnet] beam_width``) fused with
     ``lm_path``. The CTC beam fuses through a ``FusionScorer`` over
     ``alphabet + ["<blank>"]``, as the offline CTC decode does (the JAX
     function hands the CTC beam a ``DenseFusionTable``, which its beam step
     cannot call); the transducer beam through a ``DenseFusionTable``.
-    Delta front-ends, spliced inputs (``context_width`` > 0) and the hybrid
-    and attention recipes raise."""
+    Spliced inputs (``context_width`` > 0) and the hybrid and attention
+    recipes raise, as in the JAX package."""
     from tfkaldi_tpu_torch.decode.lm import ctc_scorer_from_config, fusion_from_config
     from tfkaldi_tpu_torch.decode.online import StreamingTranscriber
     from tfkaldi_tpu_torch.decode.transducer import StreamingTransducerTranscriber
     from tfkaldi_tpu_torch.frontend.features import FeatureExtractor, FeatureOpts
-    from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor
+    from tfkaldi_tpu_torch.frontend.online import FusedOnlineFeatureExtractor, OnlineDynamicExtractor
 
     if nnet.loss_type not in ("ctc", "rnnt"):
         raise ValueError(f"loss_type {nnet.loss_type!r} has no streaming transcriber (hybrid/attention decoding "
@@ -190,10 +193,8 @@ def build_streaming_transcriber(nnet, coder, samplerate: int, features_conf: dic
         raise ValueError("endpointing rides the CTC blank stream; the transducer transcriber does not support "
                          "endpoint_config")
     opts = FeatureOpts.from_config(features_conf)
-    if opts.dynamic != "nodelta":
-        raise NotImplementedError(f"dynamic = {opts.dynamic}: streaming delta features needs "
-                                  "OnlineDynamicExtractor, not in the port yet (ROADMAP.md, queue 1, item 25)")
-    online_ext = FusedOnlineFeatureExtractor(FeatureExtractor(opts, samplerate, nnet.device))
+    ext = FeatureExtractor(opts, samplerate, nnet.device)
+    online_ext = FusedOnlineFeatureExtractor(ext) if opts.dynamic == "nodelta" else OnlineDynamicExtractor(ext)
     model = nnet._load_model()
     conf = nnet.conf
     if beam_width is None:
