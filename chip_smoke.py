@@ -60,6 +60,18 @@ bench.py's TDNN and CNN.
    The same again for bench.py's configuration, the DNN in bf16
    (``bf16_dnn_path``: ``cli.main --steps train_nnet,test_nnet`` with
    ``compute_dtype = bfloat16`` on the same features, its own savedir).
+   Then the training knobs (``knobs_path``): the f32 DNN through ``cli.main
+   --steps train_nnet,test_nnet`` with ``specaugment``, ``visualise`` and
+   ``profile_steps = 2``: kernel 3 6 launches a step, kernel 1 in
+   ``test_nnet``, the event file read back (a ``train/loss`` a step equal
+   to metrics.jsonl's, ``valid/loss`` at each validation, a histogram a
+   parameter), the trace naming kernel 3's CUDA kernel and giving the two
+   profiled steps' device idle share and top ops, the likelihood ark
+   through the port's ``kaldi_compat``; the first 8 batches of the bulk
+   and the Python loaders byte-identical and timed; SpecAugment card vs
+   CPU, its replay, its masked share against the analytic value and its
+   ms a step. Every CLI training run of the script asserts that the
+   native bulk loader served all its batches (``check_loader``).
 7. Drives the BiLSTM, then the BiGRU hybrid path at full width on the
    training workspace's features and alignments: ``cli.main --steps
    train_nnet,test_nnet`` with the ``[nnet]`` of config_AURORA4_ctc.cfg
@@ -155,6 +167,7 @@ Any failure raises and exits non-zero; nothing is caught and passed over.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -172,6 +185,12 @@ TRAIN_UTTS = 800
 TRAIN_NNET = {"num_epochs": 1, "valid_frequency": 2, "check_freq": 2}
 # bench.py's DNN: the same [nnet] in bf16 (bench.py:48), in its own savedir
 BF16_DNN_NNET = {"compute_dtype": "bfloat16", "name": "dnn_bf16"}
+# the training knobs on the f32 DNN, in its own savedir: the trace covers steps 2-3 (profile_start 2)
+KNOBS_PROFILE_STEPS = 2
+KNOBS_NNET = {"name": "dnn_knobs", "specaugment": "True", "visualise": "True",
+              "profile_steps": str(KNOBS_PROFILE_STEPS)}
+KNOBS_LOADER_BATCHES = 8  # batches of each loader compared byte for byte and timed
+SPEC_DRAWS = 200  # SpecAugment draws whose masked share is held to its expectation
 
 # full width of the flagship recipe (config/config_AURORA4.cfg, bench.py:22)
 NUM_PDFS = 2000
@@ -775,8 +794,9 @@ def check_rnn_kernels(card: str, cell: str, shape=RNN_SHAPE, dirs: int = 2, widt
 
 def reset_counts() -> None:
     """Every kernel's launch counts to 0 (per route too), and the CTC loss's
-    routes, the beam searches' runs, the rescoring counts and the RNN-T
-    loss's routes, just before a path is driven."""
+    routes, the beam searches' runs, the rescoring counts, the RNN-T loss's
+    routes and the bulk loader's batches, just before a path is driven."""
+    from tfkaldi_tpu_torch.data import bulk_loader
     from tfkaldi_tpu_torch.decode import ctc as ctc_decode
     from tfkaldi_tpu_torch.decode import seq2seq as seq2seq_decode
     from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
@@ -786,7 +806,8 @@ def reset_counts() -> None:
 
     fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
     for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route, fp.launches_by_route,
-                   ctc.launches_by_route, ctc_decode.beam_runs, seq2seq_decode.rescored, trainer_mod.rnnt_routes):
+                   ctc.launches_by_route, ctc_decode.beam_runs, seq2seq_decode.rescored, trainer_mod.rnnt_routes,
+                   bulk_loader.batches):
         for route in counts:
             counts[route] = 0
     for c in (lstm_bidi.CELL, gru_bidi.CELL):
@@ -806,6 +827,39 @@ def check_dnn_routes(tag: str, steps: int) -> None:
         raise AssertionError(f"{tag}: fused_ffn routes {ffn}, want all on tma")
     if bn != {"tma": (HIDDEN_LAYERS - 1) * steps, "dz": steps, "simt": 0}:
         raise AssertionError(f"{tag}: bn_dgrad routes {bn}, want tma {(HIDDEN_LAYERS - 1) * steps}, dz {steps}")
+
+
+def check_loader(tag: str, kind: str, cfg_path: str, steps: int) -> None:
+    """A CLI training run's batches all came from the native bulk loader of
+    ``kind`` (``alignment``: ``BulkAlignmentBatchSource``, ``text``:
+    ``BulkTextBatchSource``): it served at least the validation batches and
+    one batch a step (the prefetcher reads up to 2 ahead, a rollback reads
+    again), the other source none. ``cli.main`` builds one source a run, so
+    no batch came from the Python dispenser."""
+    from configparser import ConfigParser
+
+    from tfkaldi_tpu_torch.data import bulk_loader
+
+    config = ConfigParser()
+    config.read(cfg_path)
+    want = config.getint("nnet", "valid_batches") + steps
+    served = dict(bulk_loader.batches)
+    log(f"{tag} batches from the native bulk loader: {served} (at least {want} {kind} batches: "
+        f"{steps} steps + the validation set)")
+    other = "text" if kind == "alignment" else "alignment"
+    if served[kind] < want or served[other] != 0:
+        raise AssertionError(f"{tag}: bulk loader batches {served}, want {kind} >= {want} and {other} 0")
+
+
+def validate_arks(tag: str, scps: list) -> None:
+    """Each ark of ``scps`` passes the port's strict Kaldi consumer: every
+    record read sequentially and at its scp offset with the same bytes."""
+    from tfkaldi_tpu_torch.io import kaldi_compat
+
+    counts = {os.path.relpath(scp, ROOT): kaldi_compat.validate_archive(scp) for scp in scps}
+    log(f"{tag}: arks through the port's strict Kaldi consumer (kaldi_compat.validate_archive), records {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"{tag}: an ark validated no record: {counts}")
 
 
 @contextlib.contextmanager
@@ -867,6 +921,7 @@ def train_path(card: str) -> tuple[dict, dict, dict]:
     savedir = ws["savedir"]
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
+    check_loader("training path", "alignment", ws["cfg_path"], len(steps))
     log(f"training-path launches: {launches}; {len(steps)} train steps run "
         f"(replays after a rollback included); whole run {run_s!r} s")
     for name, count in launches.items():
@@ -956,11 +1011,299 @@ def bf16_dnn_path(card: str, ws: dict) -> tuple[dict, object, str]:
     launches = {"fused_ffn": fused_mlp.launches, "bn_dgrad": bn_fused_bwd.launches}
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
+    check_loader("bf16 DNN path", "alignment", cfg_path, len(steps))
     log(f"bf16 DNN path launches: {launches}; {len(steps)} train steps (replays after a rollback included); "
         f"whole run {run_s!r} s")
     check_dnn_routes("bf16 DNN path", len(steps))  # kernel 3: 6 launches a step
     check_cli_run(card, "bf16 DNN path", ws, savedir, steps)
     return launches, config, savedir
+
+
+@contextlib.contextmanager
+def decode_launches():
+    """Kernel 1's launches inside ``Nnet.decode`` (``test_nnet``'s
+    likelihoods), counted apart from the validations' in the same run."""
+    from tfkaldi_tpu_torch import nnet as nnet_mod
+    from tfkaldi_tpu_torch.ops import fused_mlp
+
+    counted = {"fused_ffn": 0}
+    original = nnet_mod.Nnet.decode
+
+    def decode(self, *args, **kw):
+        before = fused_mlp.launches
+        try:
+            return original(self, *args, **kw)
+        finally:
+            counted["fused_ffn"] += fused_mlp.launches - before
+
+    nnet_mod.Nnet.decode = decode
+    try:
+        yield counted
+    finally:
+        nnet_mod.Nnet.decode = original
+
+
+def trace_steps(trace: dict, span: str = "train_step", top: int = 5) -> dict:
+    """From a torch.profiler Chrome trace: the ``span`` ranges (the
+    controller's ``record_function`` around each train step), the device's
+    busy time inside them (the union of kernel, memcpy and memset events,
+    clipped to the spans) and its idle share, and the ``top`` device ops by
+    their summed time inside the spans."""
+    events = trace["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == span and e.get("cat") == "user_annotation")
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    busy, by_name = 0.0, {}
+    for lo, hi in spans:
+        inside = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["name"]) for e in device
+                        if e["ts"] < hi and e["ts"] + e["dur"] > lo)
+        end = lo
+        for a, b, name in inside:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+            by_name[name] = by_name.get(name, 0.0) + (b - a)
+    wall = sum(hi - lo for lo, hi in spans)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"steps": len(spans), "wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall if wall else None, "device_events": len(device),
+            "top_ops": [{"name": name[:160], "ms": dur / 1e3, "share_of_wall": dur / wall} for name, dur in ranked]}
+
+
+def spec_masked_fraction(lengths, raw: int, cfg) -> float:
+    """The expected share of the real frames' inputs that SpecAugment
+    zeroes, from the draw's distribution (``spec_augment_draw``: width
+    uniform on [0, W], start uniform on [0, max(limit − w, 1)), the masks
+    independent): an element is kept when no time band covers its frame and
+    no frequency band its raw column, and P(index i covered by one band) =
+    Σ_w P(w)·#{s: s ≤ i < s + w} / span_w."""
+    import numpy as np
+
+    def covered(n_masks, max_width, limit):
+        idx = np.arange(limit)
+        one = np.zeros(limit)
+        for w in range(max_width + 1):
+            span = max(limit - w, 1)
+            lo, hi = np.maximum(idx - w + 1, 0), np.minimum(idx, span - 1)
+            one += np.clip(hi - lo + 1, 0, None) / span / (max_width + 1)
+        return 1.0 - (1.0 - one) ** n_masks
+
+    kept_f = 1.0 - covered(cfg.spec_freq_masks, cfg.spec_freq_width, raw).mean()
+    total = sum(int(n) for n in lengths)
+    masked = sum(int(n) * (1.0 - (1.0 - covered(cfg.spec_time_masks, cfg.spec_time_width, int(n)).mean()) * kept_f)
+                  for n in lengths)
+    return masked / total
+
+
+def compare_loaders(card: str, ws: dict, batches: int = KNOBS_LOADER_BATCHES):
+    """The first ``batches`` batches of ``BulkAlignmentBatchSource`` and of
+    the Python ``AlignmentBatchDispenser`` + ``DeviceBatcher`` on the
+    training workspace (its shuffled scp, CMVN, the pdf alignments, batch
+    128): byte-identical, each timed on the host clock. Returns the ms a
+    batch of each and the bulk source's first batch."""
+    from tfkaldi_tpu_torch.data.batching import DeviceBatcher
+    from tfkaldi_tpu_torch.data.bulk_loader import BulkAlignmentBatchSource
+    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
+    from tfkaldi_tpu_torch.io import read_alignments
+
+    config, featdir = ws["config"], ws["train_featdir"]
+    paths = (os.path.join(featdir, "feats_shuffled.scp"), os.path.join(featdir, "cmvn.scp"),
+             os.path.join(featdir, "utt2spk"))
+    alifile = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali", "pdf.all.gz")
+    batch_size, context = config.getint("nnet", "batch_size"), ws["context"]
+    with open(os.path.join(featdir, "maxlength")) as f:
+        max_length = int(f.read())
+    bulk = BulkAlignmentBatchSource(*paths, context, read_alignments(alifile), batch_size, num_labels=NUM_PDFS,
+                                    max_input_length=max_length)
+    reader = FeatureReader(*paths, context, max_length)
+    python = AlignmentBatchDispenser(reader, AlignmentCoder(identity_normalizer, NUM_PDFS), batch_size, alifile)
+    batcher = DeviceBatcher()
+    out, ms = {}, {}
+    for name, source in (("bulk", bulk), ("python", python)):
+        t0 = time.perf_counter()
+        out[name] = [source.get_padded_batch(batcher) for _ in range(batches)]
+        ms[name] = (time.perf_counter() - t0) * 1e3 / batches
+    reader.close()
+    for i, (a, b) in enumerate(zip(out["bulk"], out["python"])):
+        for field, x, y in zip(("inputs", "targets", "input_lengths", "target_lengths"), a.fields(), b.fields()):
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                raise AssertionError(f"loaders: batch {i} {field} differs (bulk {x.dtype} {x.shape}, "
+                                     f"python {y.dtype} {y.shape})")
+    shape = list(out["bulk"][0].inputs.shape)
+    log(f"loaders side by side: the first {batches} batches of BulkAlignmentBatchSource and of "
+        f"AlignmentBatchDispenser + DeviceBatcher byte-identical (inputs {shape} f32, targets, lengths); "
+        f"ms a batch (host clock): bulk {ms['bulk']!r}, python {ms['python']!r} ({ms['python'] / ms['bulk']!r}x) "
+        f"[{card}]")
+    return ms, out["bulk"][0]
+
+
+def check_spec_augment(card: str, host_batch, step_ms: float) -> dict:
+    """SpecAugment on the card at the recipe's defaults (2 time masks up to
+    20 frames, 2 frequency masks up to 8 of the 40 raw columns, tiled over
+    the 11 splice copies) on a full-width batch [128, 512, 440]: the same
+    bands through ``spec_augment_apply`` on the card and on the CPU give
+    identical outputs; two draws for one ``(seed, step)`` are identical;
+    the masked share of the real frames' inputs over ``SPEC_DRAWS`` steps'
+    draws lies within 4σ of ``spec_masked_fraction``; and the ms it adds to
+    a step (CUDA events) beside its bound and ``step_ms``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.models import DNNConfig
+    from tfkaldi_tpu_torch.train.trainer import Trainer, TrainerConfig, spec_augment_apply, spec_augment_draw
+
+    raw = 40
+    cfg = TrainerConfig(spec_augment=True, spec_raw_dim=raw)
+    trainer = Trainer(DNNConfig(input_dim=host_batch.inputs.shape[2], num_labels=NUM_PDFS), cfg, device="cuda")
+    batch = host_batch.to("cuda")
+    b, t, d = batch.inputs.shape
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    time_bands = spec_augment_draw(gen, b, cfg.spec_time_masks, cfg.spec_time_width, batch.input_lengths)
+    freq_bands = spec_augment_draw(gen, b, cfg.spec_freq_masks, cfg.spec_freq_width,
+                                   torch.full((b,), raw, device="cuda"))
+    card_out = spec_augment_apply(batch, time_bands, freq_bands, raw).inputs.cpu()
+    cpu_out = spec_augment_apply(host_batch.to("cpu"), tuple(x.cpu() for x in time_bands),
+                                 tuple(x.cpu() for x in freq_bands), raw).inputs
+    if not torch.equal(card_out, cpu_out):
+        raise AssertionError(f"SpecAugment apply, card vs CPU on the same bands: max|diff| "
+                             f"{float((card_out - cpu_out).abs().max())}")
+    state = types.SimpleNamespace(seed=0, step=5)
+    first = trainer.spec_augment(state, batch).inputs
+    if not torch.equal(first, trainer.spec_augment(state, batch).inputs):
+        raise AssertionError("SpecAugment: two draws for one (seed, step) differ on the card")
+    ones = dataclasses.replace(batch, inputs=torch.ones_like(batch.inputs))
+    real = (torch.arange(t, device="cuda")[None, :] < batch.input_lengths[:, None].long())[:, :, None]
+    denom = float(batch.input_lengths.sum()) * d
+    fractions = []
+    for step in range(SPEC_DRAWS):
+        out = trainer.spec_augment(types.SimpleNamespace(seed=0, step=step), ones).inputs
+        fractions.append(float(((out == 0) & real).sum()) / denom)
+    mean = float(np.mean(fractions))
+    want = float(spec_masked_fraction(batch.input_lengths.cpu().numpy(), raw, cfg))
+    sigma = float(np.std(fractions, ddof=1)) / math.sqrt(SPEC_DRAWS)
+    log(f"SpecAugment masked share of the real frames' inputs over {SPEC_DRAWS} draws: {mean!r} "
+        f"(expected {want!r}, sigma of the mean {sigma!r}, gate 4 sigma)")
+    if not abs(mean - want) <= 4 * sigma:
+        raise AssertionError(f"SpecAugment masked share {mean} is not within 4 sigma of {want}")
+    ms = ms_median(lambda: trainer.spec_augment(state, batch))
+    row = {"spec_augment_ms": ms, **bound(0.0, 2 * nbytes(batch.inputs)), "step_ms": step_ms,
+           "share_of_step": ms / step_ms, "masked_share": mean, "expected_share": want}
+    log(f"SpecAugment card vs CPU on the same bands: identical ({b}x{t}x{d} f32); same (seed, step) twice: "
+        f"identical; {ms!r} ms a step (draw + apply, median of 3 windows of 20 calls; bound {row['bound_ms']!r} ms "
+        f"by {row['bound_by']}), {100 * ms / step_ms!r}% of the {step_ms!r} ms step [{card}]")
+    return row
+
+
+def knobs_path(card: str, ws: dict) -> tuple[dict, dict]:
+    """The training knobs on the flagship DNN at full width (f32):
+    ``cli.main --steps train_nnet,test_nnet`` on the training workspace's
+    features and alignments with ``specaugment = True``, ``visualise =
+    True`` and ``profile_steps = 2`` (steps 2-3) and a savedir of its own,
+    the same three keys lowered as the training path. Counts reset before,
+    read after: every batch from ``BulkAlignmentBatchSource``; kernel 3 6
+    launches a step; kernel 1 launched in ``test_nnet``; the event file
+    under ``<savedir>/logdir`` read back with the port's ``read_events``:
+    one ``train/loss`` a step equal (as f32) to metrics.jsonl's, a
+    ``valid/loss`` at each validation, one histogram per parameter under
+    its JAX pytree path; the Chrome trace under ``<savedir>/profile`` names
+    kernel 3's CUDA kernel, and its two ``train_step`` spans give the
+    device's idle share and top ops; the likelihood ark passes the port's
+    ``kaldi_compat.validate_archive``. Then the loaders side by side and
+    SpecAugment on the card. Returns the launches and the phase's numbers."""
+    import glob
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    from tfkaldi_tpu_torch.cli import main as cli_main
+    from tfkaldi_tpu_torch.convert import jax_param_path
+    from tfkaldi_tpu_torch.nnet import Nnet
+    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp
+    from tfkaldi_tpu_torch.utils.tb_events import read_events
+
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    for key, value in KNOBS_NNET.items():
+        config.set("nnet", key, value)
+    cfg_path = os.path.join(TRAIN_WORK, "config_dnn_knobs.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), KNOBS_NNET["name"])
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with decode_launches() as in_decode:
+        rc = cli_main.main(["--config", cfg_path, "--steps", "train_nnet,test_nnet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main training knobs: rc {rc}")
+    launches = {"fused_ffn": fused_mlp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    check_loader("training knobs", "alignment", cfg_path, len(steps))
+    log(f"training knobs launches: {launches}, kernel 1 in test_nnet {in_decode['fused_ffn']}; {len(steps)} train "
+        f"steps (replays after a rollback included); whole run {run_s!r} s")
+    if launches["bn_dgrad"] != HIDDEN_LAYERS * len(steps):
+        raise AssertionError(f"training knobs: bn_dgrad launched {launches['bn_dgrad']} times, want "
+                             f"{HIDDEN_LAYERS} x {len(steps)} steps")
+    if not in_decode["fused_ffn"] > 0:
+        raise AssertionError("training knobs: kernel 1 was not launched in test_nnet")
+    check_dnn_routes("training knobs", len(steps))
+    check_cli_run(card, "training knobs", ws, savedir, steps)
+
+    # the event file
+    (events_path,) = glob.glob(os.path.join(savedir, "logdir", "events.out.tfevents.*"))
+    events = read_events(events_path)
+    losses = [(step, vals["train/loss"]) for step, vals in events if "train/loss" in vals]
+    want_losses = [(m["step"], float(np.float32(m["loss"]))) for m in steps]
+    every = config.getint("nnet", "valid_frequency")
+    valid = [step for step, vals in events if "valid/loss" in vals]
+    want_valid = [m["step"] + 1 for m in steps if (m["step"] + 1) % every == 0]
+    hist = sorted(tag for _, vals in events for tag, v in vals.items() if v == "histogram")
+    model = Nnet(config, 40, NUM_PDFS, device="cpu").model
+    want_hist = sorted("params" + jax_param_path(name) for name, _ in model.named_parameters())
+    log(f"training knobs event file {os.path.relpath(events_path, ROOT)}: {len(events)} records, train/loss at "
+        f"steps {[s for s, _ in losses]}, valid/loss at steps {valid}, {len(hist)} histograms ({hist[:3]} ...)")
+    if losses != want_losses:
+        raise AssertionError(f"training knobs: train/loss events {losses} differ from metrics.jsonl {want_losses}")
+    if valid != want_valid:
+        raise AssertionError(f"training knobs: valid/loss at {valid}, want {want_valid}")
+    if hist != want_hist:
+        raise AssertionError(f"training knobs: histograms {hist}, want one per parameter {want_hist}")
+
+    # the trace
+    (trace_path,) = glob.glob(os.path.join(savedir, "profile", "*.pt.trace.json"))
+    with open(trace_path) as f:
+        trace = json.load(f)
+    kernel_names = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
+    dz = sorted(name for name in kernel_names if "bn_dz_kernel" in name)
+    split = trace_steps(trace)
+    log(f"training knobs trace {os.path.relpath(trace_path, ROOT)} ({os.path.getsize(trace_path)} B): "
+        f"{len(kernel_names)} distinct kernels, kernel 3's {dz[:1]}; the {split['steps']} profiled full-width "
+        f"train steps: {json.dumps(split)} [{card}]")
+    if not dz:
+        raise AssertionError("training knobs: the trace names no kernel-3 CUDA kernel (bn_dz_kernel)")
+    if split["steps"] != KNOBS_PROFILE_STEPS or split["idle_share"] is None:
+        raise AssertionError(f"training knobs: {split['steps']} train_step spans in the trace, want "
+                             f"{KNOBS_PROFILE_STEPS}")
+
+    validate_arks("training knobs test_nnet", [os.path.join(savedir, "decode", "feats.scp")])
+    warm = sorted(st["step_time"] for st in steps[1:])
+    step_ms = warm[len(warm) // 2] * 1e3
+    loader_ms, first_batch = compare_loaders(card, ws)
+    spec = check_spec_augment(card, first_batch, step_ms)
+    times = {"run_s": run_s, "step_ms": step_ms, "idle_share": split["idle_share"],
+             "profiled_wall_ms": split["wall_ms"], "profiled_device_busy_ms": split["device_busy_ms"],
+             "top_ops": split["top_ops"], "bulk_ms_per_batch": loader_ms["bulk"],
+             "python_ms_per_batch": loader_ms["python"], **spec}
+    return launches, times
 
 
 def check_train_step(card: str, ws: dict, bn_ms: float, bn_dz_only_ms: float, config=None,
@@ -1163,6 +1506,7 @@ def rnn_train_path(card: str, cell: str, ws: dict) -> tuple[dict, str, str]:
                   if c is not this for k in ("fwd_persistent", "fwd", "bwd_persistent", "bwd")})
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
+    check_loader(f"bi{cell} path", "alignment", cfg_path, len(steps))
     log(f"bi{cell} path launches: {launches}, the forward's by route {routes}, the backward's {bwd_routes} "
         f"(other kernels {other}); {len(steps)} train steps at T_pad {[st['padded_length'] for st in steps]} "
         f"(replays after a rollback included); whole run {run_s!r} s")
@@ -1481,6 +1825,8 @@ def ctc_path(card: str, ws: dict) -> tuple[dict, str, str]:
     loss_routes, beams = dict(ctc.launches_by_route), dict(ctc_decode.beam_runs)
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
+    check_loader("CTC path", "text", cfg_path, len(steps))
+    validate_arks("CTC path test_nnet", [os.path.join(ws["test_featdir"], name) for name in ("feats.scp", "cmvn.scp")])
     log(f"CTC path launches: {launches}, the forward's by route {routes}, the backward's {bwd_routes} (other "
         f"kernels {other}); CTC loss calls by route {loss_routes}; beam-search batches {beams}; {len(steps)} train "
         f"steps at T_pad {[st['padded_length'] for st in steps]} (replays after a rollback included); whole run "
@@ -1828,6 +2174,7 @@ def attention_path(card: str, ws: dict) -> tuple[str, str, dict]:
     loss_routes, rescored = dict(ctc.launches_by_route), dict(seq2seq_decode.rescored)
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
+    check_loader("attention path", "text", cfg_path, len(steps))
     log(f"attention path launches of the seven kernels {kernels}; CTC loss calls by route {loss_routes}; rescoring "
         f"{rescored}; {len(steps)} train steps at T_pad {[st['padded_length'] for st in steps]} (replays after a "
         f"rollback included); whole run {run_s!r} s")
@@ -2203,6 +2550,7 @@ def transducer_path(card: str, ws: dict, dirs: dict) -> tuple[dict, str, str]:
     loss_routes = dict(trainer_mod.rnnt_routes)
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
+    check_loader("transducer path", "text", cfg_path, len(steps))
     n, v = len(steps), len(validations)
     log(f"transducer path launches: kernel 4 by route {routes}, kernel 5 by route {bwd_routes} (other kernels "
         f"{other}); RNN-T loss calls by route {loss_routes}; {n} train steps at T_pad "
@@ -3761,6 +4109,7 @@ def hybrid_family_path(card: str, family: str, ws: dict) -> tuple[str, str]:
     kernels = seven_counters()
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
+    check_loader(f"{family} path", "alignment", cfg_path, len(steps))
     every = int(nnet["valid_frequency"])
     order = [st["step"] for st in steps]
     want_valid = [0] + [s + 1 for s in order if (s + 1) % every == 0]
@@ -4591,6 +4940,12 @@ def main() -> int:
     check_train_step(card, train_ws, bn["bfloat16"]["ms"], bn_dz_only_ms["bfloat16"], bf16_config, bf16_savedir)
     log(f"phase bf16 DNN path: {time.perf_counter() - t0!r} s")
 
+    # ---- the training knobs: SpecAugment, visualise, profile_steps on the bulk loader ----
+    t0 = time.perf_counter()
+    knobs_launches, knobs_times = knobs_path(card, train_ws)
+    log(f"training knobs phase: {json.dumps(knobs_times)} [{card}]")
+    log(f"phase training knobs: {time.perf_counter() - t0!r} s")
+
     # ---- the BiLSTM and BiGRU hybrid paths at full width ----
     rnn_launches = {}
     for cell in ("lstm", "gru"):
@@ -4665,12 +5020,13 @@ def main() -> int:
     log(f"kernel 1 at the streaming rows: {json.dumps(ffn_stream)} [{card}]")
     log(f"phase hybrid streaming path: {time.perf_counter() - t0!r} s")
 
-    # launches: f32, the served path's, the training path's and the hybrid
-    # streaming path's runs together; bf16, the bf16 DNN path's and the
+    # launches: f32, the served path's, the training path's, the training
+    # knobs' and the hybrid streaming path's runs together; bf16, the bf16 DNN path's and the
     # hybrid streaming path's runs; kernels 4 and 5, the BiLSTM
     # path's, the CTC path's, the transducer path's and (kernel 4) the text
     # decode path's runs together
-    total = {name: launches.get(name, 0) + train_launches[name] for name in train_launches}
+    total = {name: launches.get(name, 0) + train_launches[name] + knobs_launches.get(name, 0)
+             for name in train_launches}
     total["frame_preemph"] += stream_launches["frame_preemph"] + hyb_launches["frame_preemph"]
     total["fused_ffn"] += hyb_launches["fused_ffn_f32"]
     kernels = [

@@ -3,8 +3,9 @@ and one run side by side with the JAX package's controller.
 
 Checkpoints are ``torch.save`` files (``training/step{N}.pt``,
 ``training/validated.pt`` + ``validated.meta.json``, ``final.pt``). The
-Orbax-only legacy-rng case has no counterpart; ``visualise`` and
-``profile_steps`` raise ``NotImplementedError``.
+Orbax-only legacy-rng case has no counterpart. ``visualise`` writes
+TensorBoard event files under ``<savedir>/logdir`` and ``profile_steps`` a
+torch.profiler Chrome trace under ``<savedir>/profile``.
 """
 
 import dataclasses
@@ -126,15 +127,104 @@ def _nnet_config(tmp_path, **over):
     return cfg
 
 
+def _read_trace(savedir):
+    (name,) = os.listdir(os.path.join(savedir, "profile"))
+    assert name.endswith(".pt.trace.json")
+    with open(os.path.join(savedir, "profile", name)) as f:
+        return json.load(f)
+
+
 @pytest.mark.parametrize("over", [{"visualise": "True"}, {"profile_steps": "1"}])
 def test_visualise_and_profile_raise(tmp_path, over):
+    """The two knobs train instead of raising: ``visualise`` leaves one
+    parseable event file under ``<savedir>/logdir`` with a ``train/loss``
+    per step equal to metrics.jsonl's (as f32), a ``valid/loss`` per
+    validation and one histogram per parameter; ``profile_steps = 1`` leaves
+    one Chrome trace under ``<savedir>/profile`` with one ``train_step``
+    span (the step at ``profile_start``)."""
+    from tfkaldi_tpu_torch.utils import tb_events
+
     featdir, alifile, info = make_featdir(tmp_path)
     disp = AlignmentBatchDispenser(FeatureReader(*_reader_args(featdir)),
                                    AlignmentCoder(identity_normalizer, info["num_labels"]), 4, alifile)
-    net = Nnet(_nnet_config(tmp_path, **over), input_dim=info["feat_dim"], num_labels=info["num_labels"],
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        net.train(disp)
+    net = Nnet(_nnet_config(tmp_path, **over, num_epochs="2"), input_dim=info["feat_dim"],
+               num_labels=info["num_labels"], device="cpu")
+    state = net.train(disp)
+    with open(os.path.join(net.savedir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    assert len(steps) == state.step == 6
+    if "visualise" in over:
+        assert not os.path.exists(os.path.join(net.savedir, "profile"))
+        (name,) = os.listdir(os.path.join(net.savedir, "logdir"))
+        events = tb_events.read_events(os.path.join(net.savedir, "logdir", name))
+        losses = [(step, vals["train/loss"]) for step, vals in events if "train/loss" in vals]
+        assert losses == [(m["step"], float(np.float32(m["loss"]))) for m in steps]
+        assert [step for step, vals in events if "valid/loss" in vals] == [2, 4, 6]
+        hist = [tag for step, vals in events for tag, v in vals.items() if v == "histogram" and step == 6]
+        assert sorted(hist) == sorted(["params['hidden'][0]['w']", "params['hidden'][0]['b']",
+                                       "params['out']['w']", "params['out']['b']"])
+    else:
+        assert not os.path.exists(os.path.join(net.savedir, "logdir"))
+        spans = [e for e in _read_trace(net.savedir)["traceEvents"] if e.get("name") == "train_step"]
+        assert len(spans) == 1
+
+
+def test_trace_profile_and_step_timer(tmp_path):
+    """``trace_profile`` writes one Chrome trace of its region (``stop`` is
+    idempotent); ``StepTimer`` skips its warm-up steps."""
+    from tfkaldi_tpu_torch.utils.profiling import StepTimer, trace_profile
+
+    with trace_profile(str(tmp_path / "p")) as trace:
+        with torch.profiler.record_function("region"):
+            torch.ones(8).sum()
+    assert trace.stop() == trace.path and os.listdir(tmp_path / "p") == [os.path.basename(trace.path)]
+    with open(trace.path) as f:
+        assert any(e.get("name") == "region" for e in json.load(f)["traceEvents"])
+    timer = StepTimer(skip_first=1)
+    for _ in range(3):
+        with timer:
+            pass
+    assert len(timer.times) == 2 and timer.mean >= 0.0
+
+
+class _FailingDispenser:
+    """A dispenser that raises from its ``fail_at``-th batch on."""
+
+    def __init__(self, dispenser, fail_at):
+        self.dispenser, self.fail_at, self.served = dispenser, fail_at, 0
+
+    def __getattr__(self, name):
+        return getattr(self.dispenser, name)
+
+    def get_padded_batch(self, batcher):
+        self.served += 1
+        if self.served >= self.fail_at:
+            raise OSError("the ark went away")
+        return self.dispenser.get_padded_batch(batcher)
+
+
+@pytest.mark.parametrize("case", ["rollback", "termination", "exception"])
+def test_profile_window_stops_on_every_exit(tmp_path, case):
+    """A profile window of 3 steps is cut short, and its trace still
+    written, by a validation rollback (lr 100: the validation after step 1
+    regresses, the run retries once), by that rollback's termination
+    (no retries), and by an exception in the data loader; it is taken once
+    a run."""
+    exception = case == "exception"
+    controller, _, opts = _pipeline(tmp_path, lr=1e-3 if exception else 100.0, valid_adapt=not exception,
+                                    valid_retries=0 if case == "termination" else 1, num_epochs=3)
+    controller.opt = opts = dataclasses.replace(opts, profile_steps=3, profile_start=2 if exception else 0)
+    if exception:
+        # 1 validation batch, then training batches from step 0: the 5th is step 4's
+        controller.dispenser = _FailingDispenser(controller.dispenser, fail_at=6)
+        with pytest.raises(RuntimeError, match="prefetch worker failed"):
+            controller.train()
+    else:
+        state = controller.train()
+        assert state.lr_fact < 1.0
+    spans = [e for e in _read_trace(opts.savedir)["traceEvents"] if e.get("name") == "train_step"]
+    # steps 0-1 before the rollback at step 2; steps 2-3 and step 4's failed fetch
+    assert len(spans) == (3 if exception else 2)
 
 
 def test_resume_is_bit_exact(tmp_path):

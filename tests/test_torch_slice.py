@@ -191,7 +191,10 @@ def test_port_imports_without_jax():
             "tfkaldi_tpu_torch.decode.lm, tfkaldi_tpu_torch.serve, tfkaldi_tpu_torch.frontend.online, "
             "tfkaldi_tpu_torch.decode.online, tfkaldi_tpu_torch.decode.endpoint, tfkaldi_tpu_torch.decode.words, "
             "tfkaldi_tpu_torch.frontend.perturb, tfkaldi_tpu_torch.frontend.sigproc, "
-            "tfkaldi_tpu_torch.frontend.functional, tfkaldi_tpu_torch.frontend, tfkaldi_tpu_torch.decode; "
+            "tfkaldi_tpu_torch.frontend.functional, tfkaldi_tpu_torch.frontend, tfkaldi_tpu_torch.decode, "
+            "tfkaldi_tpu_torch.data.bulk_loader, tfkaldi_tpu_torch.utils.tb_events, "
+            "tfkaldi_tpu_torch.utils.visualize, tfkaldi_tpu_torch.utils.profiling, "
+            "tfkaldi_tpu_torch.io.kaldi_compat; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)

@@ -83,7 +83,7 @@ def test_default_device_without_card_raises_for_train_nnet(workspace):
 
 def test_multi_process_training_raises(workspace, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         cli_main.main(["--config", workspace["cfg_path"], "--steps", "train_nnet", "--device", "cpu"])
 
 

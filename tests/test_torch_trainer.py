@@ -282,8 +282,15 @@ def test_learning_rate_in_float32_matches_jax():
 
 
 def test_unsupported_losses_and_specaugment_raise(tmp_path):
+    """An unpaired loss is refused; ``specaugment = True`` trains (it is
+    ported: the knob reaches the trainer and masks every training batch)."""
     from configparser import ConfigParser
 
+    from tests.synthetic import make_featdir
+    from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser
+    from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+    from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
+    from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
     from tfkaldi_tpu_torch.nnet import Nnet
 
     def config(**over):
@@ -294,8 +301,21 @@ def test_unsupported_losses_and_specaugment_raise(tmp_path):
 
     with pytest.raises(ValueError, match="model = transducer and loss = rnnt"):  # ported: it pairs with transducer
         Nnet(config(loss="rnnt"), 4, 5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Nnet(config(specaugment="True"), 4, 5, device="cpu").train(dispenser=None)
+    featdir, alifile, info = make_featdir(tmp_path)
+    disp = AlignmentBatchDispenser(
+        FeatureReader(f"{featdir}/feats.scp", f"{featdir}/cmvn.scp", f"{featdir}/utt2spk", 0, 60),
+        AlignmentCoder(identity_normalizer, info["num_labels"]), 4, alifile)
+    net = Nnet(config(specaugment="True", batch_size="4", valid_batches="1", num_epochs="1",
+                      spec_time_width="4", spec_freq_width="2"),
+               info["feat_dim"], info["num_labels"], device="cpu")
+    calls = []
+    spec_augment = Trainer.spec_augment
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Trainer, "spec_augment", lambda self, state, batch: calls.append(state.step)
+                   or spec_augment(self, state, batch))
+        state = net.train(disp)
+    assert calls == list(range(state.step)) and state.step > 0
+    assert all(p.isfinite().all() for p in state.model.parameters())
 
 
 # bench.py's DNN (440 -> 6x2048 relu+BN -> 2000, compute_dtype bfloat16) at

@@ -139,19 +139,25 @@ def featdir(config, kind: str, section: str) -> str:
 
 
 def train_nnet(config, nnet, coder, num_labels: int) -> None:
-    """The ``train_nnet`` step (tfkaldi_tpu/cli/main.py:253-369, one host,
-    the Python dispenser): pdf alignments for the hybrid recipe, the
-    featdir's ``text`` through ``coder`` for the text-target one."""
+    """The ``train_nnet`` step (tfkaldi_tpu/cli/main.py:253-369, one
+    process): pdf alignments for the hybrid recipe, the featdir's ``text``
+    through ``coder`` for the text-target ones. The batches come from the
+    native bulk loader (``BulkAlignmentBatchSource`` /
+    ``BulkTextBatchSource``) when ``[nnet] native_loader`` is not ``False``
+    and the native library loads, else from the Python dispenser, as the
+    JAX CLI picks them (main.py:299-365)."""
+    from tfkaldi_tpu_torch.data.bulk_loader import BulkAlignmentBatchSource, BulkTextBatchSource
     from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser, TextBatchDispenser
     from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
     from tfkaldi_tpu_torch.data.target_coder import AlignmentCoder
     from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
     from tfkaldi_tpu_torch.frontend.prepare_data import shuffle_examples
+    from tfkaldi_tpu_torch.io import native, read_alignments
 
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # started by torchrun on several processes
         raise NotImplementedError(
-            "multi-process training is not in the port yet (ROADMAP.md, queue 1, slice 8); "
-            "use python -m tfkaldi_tpu.cli.main"
+            "multi-process training is not in the port yet (ROADMAP.md, queue 1, item 18: "
+            "parallel/mesh.py, parallel/multihost.py, data/sharding.py); use python -m tfkaldi_tpu.cli.main"
         )
     train_featdir = featdir(config, "train", "dnn-features")
     seed = config.getint("nnet", "seed", fallback=0)
@@ -166,32 +172,44 @@ def train_nnet(config, nnet, coder, num_labels: int) -> None:
         )
     with open(os.path.join(train_featdir, "maxlength")) as fid:
         max_input_length = int(fid.read())
-    featreader = FeatureReader(
-        os.path.join(train_featdir, "feats_shuffled.scp"),
-        cmvn_path(config, train_featdir),
-        os.path.join(train_featdir, "utt2spk"),
-        nnet.context_width,
-        max_input_length,
-    )
-    log.info("the native bulk training loader is not in the port yet (ROADMAP.md, queue 1, item 21); "
-             "using the Python dispenser")
+    train_scp = os.path.join(train_featdir, "feats_shuffled.scp")
+    cmvn, utt2spk = cmvn_path(config, train_featdir), os.path.join(train_featdir, "utt2spk")
     batch_size = config.getint("nnet", "batch_size")
-    if coder is not None:
-        dispenser = TextBatchDispenser(featreader, coder, batch_size, os.path.join(train_featdir, "text"))
-    else:
+    if coder is None:
         # merge per-job alignments (main.py:139-142)
         ali_dir = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali")
         alifile = os.path.join(ali_dir, "pdf.all.gz")
         if not os.path.isfile(alifile):
             alifile = merge_alignments(ali_dir, config.getint("general", "num_jobs"))
-        dispenser = AlignmentBatchDispenser(
-            featreader, AlignmentCoder(identity_normalizer, num_labels), batch_size, alifile,
-        )
+    featreader = None
+    if config.get("nnet", "native_loader", fallback="True") != "False" and native.available():
+        if coder is not None:
+            dispenser = BulkTextBatchSource(
+                train_scp, cmvn, utt2spk, nnet.context_width, coder, os.path.join(train_featdir, "text"),
+                batch_size, max_input_length=max_input_length,
+            )
+            log.info("using native bulk data loader (text targets)")
+        else:
+            dispenser = BulkAlignmentBatchSource(
+                train_scp, cmvn, utt2spk, nnet.context_width, read_alignments(alifile), batch_size,
+                num_labels=num_labels, max_input_length=max_input_length,
+            )
+            log.info("using native bulk data loader")
+    else:
+        log.info("using Python data loader (native unavailable or disabled)")
+        featreader = FeatureReader(train_scp, cmvn, utt2spk, nnet.context_width, max_input_length)
+        if coder is not None:
+            dispenser = TextBatchDispenser(featreader, coder, batch_size, os.path.join(train_featdir, "text"))
+        else:
+            dispenser = AlignmentBatchDispenser(
+                featreader, AlignmentCoder(identity_normalizer, num_labels), batch_size, alifile,
+            )
     log.info("------- training neural net ----------")
     try:
         nnet.train(dispenser)
     finally:
-        featreader.close()
+        if featreader is not None:
+            featreader.close()
 
 
 # the name the text test_nnet logs its scores under

@@ -19,6 +19,7 @@ maps a whole JAX ``TrainState``
 :class:`~tfkaldi_tpu_torch.train.trainer.TrainState`. The port's decode
 checkpoint is ``<savedir>/final.pt``, beside the JAX package's Orbax
 ``final/``; Orbax checkpoints are not read (``orbax`` imports JAX).
+:func:`jax_param_path` names a port parameter by its JAX pytree path.
 """
 
 from __future__ import annotations
@@ -190,6 +191,14 @@ def train_state_from_jax(state, config, *, seed: int = 0, device: str | torch.de
         adam_t=int(np.asarray(state.adam_t)),
         seed=int(seed),
     )
+
+
+def jax_param_path(name: str) -> str:
+    """The JAX pytree path (``jax.tree_util.keystr``) of the port's
+    parameter ``name`` for every family the functions above map:
+    dot-separated parts, a numeric part a list index, any other a dict key
+    (``hidden.0.w`` → ``['hidden'][0]['w']``)."""
+    return "".join(f"[{part}]" if part.isdigit() else f"[{part!r}]" for part in name.split("."))
 
 
 def save_checkpoint(savedir: str, state_dict: dict[str, torch.Tensor]) -> str:

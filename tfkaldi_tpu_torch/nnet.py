@@ -48,6 +48,7 @@ from tfkaldi_tpu_torch.models import (CNNConfig, DNNConfig, RNNConfig, Seq2SeqCo
                                       TransformerConfig, build_model)
 from tfkaldi_tpu_torch.train import NnetTrainOptions, Trainer, TrainerConfig, TrainingController
 from tfkaldi_tpu_torch.utils import MetricsLogger
+from tfkaldi_tpu_torch.utils.visualize import TensorBoardVisualizer
 
 log = logging.getLogger(__name__)
 
@@ -70,6 +71,7 @@ class Nnet:
         self.savedir = os.path.join(conf.get("directories", "expdir"), self.conf["name"])
         self.device = resolve_device(device)
         self.context_width = int(self.conf.get("context_width", 0))
+        self.raw_input_dim = input_dim  # pre-splice dim (SpecAugment bands)
         # spliced input dimension (nnet.py:39-40)
         self.input_dim = input_dim * (2 * self.context_width + 1)
         self.num_labels = num_labels
@@ -127,16 +129,14 @@ class Nnet:
         return batch_size // val
 
     def train(self, dispenser, *, init_state=None):
-        """Train the network (nnet.py:156-304, one device). ``init_state``
+        """Train the network (nnet.py:156-305, one device). ``init_state``
         (a :class:`~tfkaldi_tpu_torch.train.trainer.TrainState`, e.g. from
         :func:`tfkaldi_tpu_torch.convert.train_state_from_jax`) replaces
-        the seeded initialisation. Returns the final state."""
-        for key in ("visualise", "specaugment"):
-            if str(self.conf.get(key, "False")) == "True":
-                raise NotImplementedError(
-                    f"{key} = True is not in the port yet (ROADMAP.md, queue 1, slice 8); "
-                    "use tfkaldi_tpu.nnet.Nnet.train"
-                )
+        the seeded initialisation. ``[nnet] specaugment = True`` masks the
+        training inputs (``spec_time_masks``, ``spec_time_width``,
+        ``spec_freq_masks``, ``spec_freq_width``; the bands of the
+        pre-splice dim); ``visualise = True`` writes TensorBoard event files
+        under ``<savedir>/logdir``. Returns the final state."""
         opts = NnetTrainOptions.from_config(self.conf, self.savedir)
         trainer_cfg = TrainerConfig(
             init_learning_rate=float(self.conf.get("initial_learning_rate", 1e-3)),
@@ -145,15 +145,38 @@ class Nnet:
             loss_type=self.loss_type,
             micro_batches=self._micro_batches(opts.batch_size),
             ctc_blank_id=self.blank_id if self.blank_id is not None else 0,
+            spec_augment=str(self.conf.get("specaugment", "False")) == "True",
+            spec_time_masks=int(self.conf.get("spec_time_masks", 2)),
+            spec_time_width=int(self.conf.get("spec_time_width", 20)),
+            spec_freq_masks=int(self.conf.get("spec_freq_masks", 2)),
+            spec_freq_width=int(self.conf.get("spec_freq_width", 8)),
+            spec_raw_dim=self.raw_input_dim,
         )
         trainer = Trainer(self.model.config, trainer_cfg, device=self.device)
         metrics = MetricsLogger(os.path.join(self.savedir, "metrics.jsonl"))
-        controller = TrainingController(trainer, dispenser, DeviceBatcher(), opts, metrics_hook=metrics)
+        # TensorBoard summaries (reference trainer.py:207-211, 249-258)
+        viz = None
+        metrics_hook, validation_hook = metrics, None
+        if str(self.conf.get("visualise", "False")) == "True":
+            viz = TensorBoardVisualizer(os.path.join(self.savedir, "logdir"))
+
+            def metrics_hook(**kw):
+                metrics(**kw)
+                viz(**kw)
+
+            validation_hook = viz.validation
+        controller = TrainingController(trainer, dispenser, DeviceBatcher(), opts, metrics_hook=metrics_hook,
+                                        validation_hook=validation_hook)
         try:
-            return controller.train(init_state)
+            state = controller.train(init_state)
+            if viz is not None:
+                viz.params(state.step, state.model)
+            return state
         finally:
             log.info("avg training throughput: %.0f frames/sec", metrics.avg_frames_per_sec)
             metrics.close()
+            if viz is not None:
+                viz.close()
 
     def _load_model(self) -> torch.nn.Module:
         self.model.load_state_dict(load_checkpoint(self.savedir))

@@ -18,7 +18,12 @@ Port of :mod:`tfkaldi_tpu.train.controller` for one device:
 - ``training/step{N}.pt`` every ``check_freq`` steps, ``final.pt`` at
   the end (optionally the mean of the last ``average_last`` checkpoints);
 - the state prior = normalized target bincount → ``prior.npy``
-  (nnet.py:240-244).
+  (nnet.py:240-244);
+- with ``profile_steps > 0``, a torch.profiler trace of the steps
+  ``[profile_start, profile_start + profile_steps)`` into
+  ``<savedir>/profile`` (:class:`ProfileWindow`; controller.py:288-298),
+  taken once and stopped on every way out of the window: its end, a
+  validation rollback, termination or an exception.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import re
 import time
 
 import numpy as np
+import torch
 
 from tfkaldi_tpu_torch.convert import save_checkpoint
 from tfkaldi_tpu_torch.data.batching import DeviceBatcher, PaddedBatch
@@ -37,8 +43,34 @@ from tfkaldi_tpu_torch.data.dispenser import BatchDispenser
 from tfkaldi_tpu_torch.data.prefetch import PrefetchingBatchSource
 from tfkaldi_tpu_torch.train import checkpoint as ckpt
 from tfkaldi_tpu_torch.train.trainer import Trainer, TrainState
+from tfkaldi_tpu_torch.utils.profiling import Trace
 
 log = logging.getLogger(__name__)
+
+
+class ProfileWindow:
+    """The ``profile_steps`` trace (SURVEY §5: the reference has no
+    tracing): :meth:`at_step` starts it when the loop reaches
+    ``profile_start`` and ends it ``profile_steps`` steps later; :meth:`stop`
+    ends it early (a rollback: the steps replayed after a rewind are not
+    the window's) and after the loop. One window a run."""
+
+    def __init__(self, options: "NnetTrainOptions"):
+        self.start, self.steps = options.profile_start, options.profile_steps
+        self.logdir = os.path.join(options.savedir, "profile")
+        self._trace: Trace | None = None
+        self._done = self.steps <= 0
+
+    def at_step(self, step: int) -> None:
+        if self._trace is None and not self._done and step == self.start:
+            self._trace = Trace(self.logdir)
+        elif self._trace is not None and step >= self.start + self.steps:
+            self.stop()
+
+    def stop(self) -> None:
+        if self._trace is not None:
+            log.info("profile trace written to %s", self._trace.stop())
+            self._trace, self._done = None, True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +89,10 @@ class NnetTrainOptions:
     num_hidden_layers: int = 6
     starting_step: int = 0
     seed: int = 0
+    # capture a torch.profiler trace of steps [profile_start,
+    # profile_start + profile_steps) into <savedir>/profile when > 0
     profile_steps: int = 0
+    profile_start: int = 2
     # write final.pt as the parameter mean of the end state and the last
     # N-1 saved training/step*.pt checkpoints (0/1 = off); optimizer state
     # and batchnorm stats stay those of the end state
@@ -113,11 +148,6 @@ class TrainingController:
 
     def train(self, state: TrainState | None = None) -> TrainState:
         opt = self.opt
-        if opt.profile_steps > 0:
-            raise NotImplementedError(
-                "profile_steps > 0 is not in the port yet (ROADMAP.md, queue 1, slice 8); "
-                "use tfkaldi_tpu.train.TrainingController"
-            )
         os.makedirs(os.path.join(opt.savedir, "training"), exist_ok=True)
 
         # validation split (nnet.py:88-96)
@@ -178,12 +208,14 @@ class TrainingController:
         source = PrefetchingBatchSource(
             self.dispenser, self.batcher, depth=self.prefetch_depth, device=self.device
         )
+        profile = ProfileWindow(opt)
         try:
             state = self._train_loop(
                 state, source, step, num_steps, val_batches,
-                validation_loss, validation_step, num_retries, validated,
+                validation_loss, validation_step, num_retries, validated, profile,
             )
         finally:
+            profile.stop()
             source.close()
 
         if opt.average_last > 1:
@@ -229,14 +261,17 @@ class TrainingController:
         validation_step,
         num_retries,
         validated,
+        profile: ProfileWindow,
     ):
         opt = self.opt
         validated_path = os.path.join(opt.savedir, "training", "validated.pt")
         while step < num_steps:
+            profile.at_step(step)
             t0 = time.perf_counter()
-            batch = source.next()
-            state, loss = self.trainer.update(state, batch)
-            loss = float(loss)
+            with torch.profiler.record_function("train_step"):  # the span a trace's step is read by
+                batch = source.next()
+                state, loss = self.trainer.update(state, batch)
+                loss = float(loss)
             step_time = time.perf_counter() - t0
             log.info("step %d/%d loss: %f (%.3fs)", step, num_steps, loss, step_time)
             self.metrics_hook(
@@ -252,6 +287,7 @@ class TrainingController:
                 self.validation_hook(step, current_loss)
                 if opt.valid_adapt:
                     if current_loss > validation_loss:
+                        profile.stop()
                         # rewind consumed + prefetched batches (nnet.py:179-181)
                         source.rewind(step - validation_step)
                         state = ckpt.device_snapshot(validated)

@@ -2,8 +2,7 @@
 
 Port of :mod:`tfkaldi_tpu.train.trainer` for the hybrid recipe's
 cross-entropy loss, the character recipe's CTC loss, the attention
-recipe's joint loss and the transducer recipe's lattice loss (SpecAugment
-is not ported; :class:`tfkaldi_tpu_torch.nnet.Nnet` rejects it):
+recipe's joint loss and the transducer recipe's lattice loss:
 
 - frame-summed cross-entropy over real frames only (trainer.py:264-275;
   1:1 frames, so no subsampling front-end), or the summed per-utterance
@@ -23,13 +22,21 @@ is not ported; :class:`tfkaldi_tpu_torch.nnet.Nnet` rejects it):
   as JAX does, then ``p −= lr_t·m/(√v + ε)`` (ε outside the square root;
   ``torch.optim.Adam`` folds ε into the bias correction, a different
   update, so it is not used);
-- the average loss reported as loss_sum / num_frames.
+- the average loss reported as loss_sum / num_frames;
+- SpecAugment (``TrainerConfig.spec_augment``, trainer.py:46-60, 361-405):
+  time and frequency masks on the padded inputs of every training batch,
+  before the micro-batch split, for every loss; evaluation never masks.
+  :func:`spec_augment_draw` draws the bands with JAX's distribution and
+  :func:`spec_augment_apply` applies them, a pure function of the bands
+  and the batch.
 
 The state is a :class:`TrainState`; :meth:`Trainer.update` updates its
-model and Adam slots in place and returns it. Dropout masks come from a
-generator seeded from ``(seed, step)``, so resume and rollback replay the
-same masks (the bits are the port's own: JAX's threefry stream does not
-carry over).
+model and Adam slots in place and returns it. Dropout masks and
+SpecAugment bands come from two generators seeded from ``(seed, step)``
+with constants of their own (JAX's ``fold_in`` with 0x5EED and 0x5AEC),
+so resume and rollback replay the same masks, and turning SpecAugment on
+leaves the dropout stream as it was (the bits are the port's own: JAX's
+threefry stream does not carry over).
 """
 
 from __future__ import annotations
@@ -59,6 +66,69 @@ class TrainerConfig:
     loss_type: str = "cross_entropy"  # cross_entropy | ctc | attention | rnnt
     micro_batches: int = 1  # grad-accumulation factor (1 = whole batch at once)
     ctc_blank_id: int = 0  # blank class for CTC (model emits num_labels+1 classes)
+    # SpecAugment (Park et al., 2019; trainer.py:46-60): train-only input
+    # masks. Frequency bands cut the raw (pre-splice) feature dim and repeat
+    # across every spliced copy (spec_raw_dim = pre-splice dim; 0 masks the
+    # whole input dim); time bands zero whole frames within each
+    # utterance's real length. The loss masks are untouched.
+    spec_augment: bool = False
+    spec_time_masks: int = 2
+    spec_time_width: int = 20
+    spec_freq_masks: int = 2
+    spec_freq_width: int = 8
+    spec_raw_dim: int = 0
+
+
+def spec_augment_draw(generator: torch.Generator, batch_size: int, n_masks: int, max_width: int,
+                      limits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_masks`` random bands per row, as JAX draws them
+    (trainer.py:371-375): ``widths`` uniform on ``[0, max_width]`` and
+    ``starts`` a uniform draw on ``[0, 2³¹−1)`` taken modulo
+    ``max(limit − width, 1)``, ``limits [B]`` the rows' own bound (frames,
+    or the raw feature dim). Both ``[B, n_masks]`` int64 on the
+    generator's device."""
+    device = generator.device
+    shape = (int(batch_size), int(n_masks))
+    widths = torch.randint(0, int(max_width) + 1, shape, generator=generator, device=device)
+    starts = torch.randint(0, 2**31 - 1, shape, generator=generator, device=device)
+    span = torch.clamp(limits.to(device=device, dtype=torch.int64)[:, None] - widths, min=1)
+    return widths, starts % span
+
+
+def _band_keep(widths: torch.Tensor, starts: torch.Tensor, size: int, dtype) -> torch.Tensor:
+    """``[B, size]`` 0/1 in ``dtype``: 1 minus the union of the bands."""
+    idx = torch.arange(size, device=widths.device)[None, :, None]
+    in_band = (idx >= starts[:, None, :]) & (idx < (starts + widths)[:, None, :])
+    return 1.0 - torch.any(in_band, dim=-1).to(dtype)
+
+
+def spec_augment_apply(batch: PaddedBatch, time_bands, freq_bands, raw_dim: int = 0) -> PaddedBatch:
+    """The batch with its inputs masked (trainer.py:376-399): ``time_bands``
+    and ``freq_bands`` are ``(widths, starts)`` pairs from
+    :func:`spec_augment_draw`, or None for no mask of that kind. The time
+    keep-mask zeroes frames; the frequency band covers ``raw_dim`` columns
+    (0: the whole input dim), tiled ``d // raw_dim`` times across the
+    splice copies. The masks are in the inputs' dtype, as in JAX."""
+    x = batch.inputs
+    b, t, d = x.shape
+    keep = torch.ones((b, t, 1), dtype=x.dtype, device=x.device)
+    if time_bands is not None:
+        keep = keep * _band_keep(*time_bands, t, x.dtype)[:, :, None]
+    x = x * keep
+    if freq_bands is not None:
+        raw = raw_dim or d
+        if d % raw:
+            raise ValueError(f"spec_raw_dim {raw} does not divide the input dim {d}")
+        fk = _band_keep(*freq_bands, raw, x.dtype).repeat(1, d // raw)
+        x = x * fk[:, None, :]
+    return dataclasses.replace(batch, inputs=x)
+
+
+def _step_generator(device: torch.device, seed: int, step: int, salt: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, step)`` and a stream's
+    own constant."""
+    mixed = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + salt) % (1 << 63)
+    return torch.Generator(device=device).manual_seed(mixed)
 
 
 @dataclasses.dataclass
@@ -122,8 +192,25 @@ class Trainer:
         when the model has no dropout."""
         if not self.model_config.dropout < 1:
             return None
-        mixed = (state.seed * 0x9E3779B97F4A7C15 + state.step * 0xBF58476D1CE4E5B9 + 0x5EED) % (1 << 63)
-        return torch.Generator(device=self.device).manual_seed(mixed)
+        return _step_generator(self.device, state.seed, state.step, 0x5EED)
+
+    def spec_augment(self, state: TrainState, batch: PaddedBatch) -> PaddedBatch:
+        """The training batch under SpecAugment (trainer.py:361-405): the
+        time bands bounded by each row's ``input_lengths``, the frequency
+        bands by ``spec_raw_dim``, drawn on the state's device from a
+        generator seeded from ``(seed, step)`` with its own constant (JAX's
+        ``fold_in(rng, 0x5AEC)``), time first."""
+        cfg = self.config
+        b = batch.inputs.shape[0]
+        gen = _step_generator(self.device, state.seed, state.step, 0x5AEC)
+        time_bands = freq_bands = None
+        if cfg.spec_time_masks > 0 and cfg.spec_time_width > 0:
+            time_bands = spec_augment_draw(gen, b, cfg.spec_time_masks, cfg.spec_time_width, batch.input_lengths)
+        if cfg.spec_freq_masks > 0 and cfg.spec_freq_width > 0:
+            raw = cfg.spec_raw_dim or batch.inputs.shape[2]
+            limits = torch.full((b,), raw, dtype=torch.int64, device=self.device)
+            freq_bands = spec_augment_draw(gen, b, cfg.spec_freq_masks, cfg.spec_freq_width, limits)
+        return spec_augment_apply(batch, time_bands, freq_bands, cfg.spec_raw_dim)
 
     # ------------------------------------------------------------------
     # loss and gradients
@@ -273,6 +360,8 @@ class Trainer:
     def update(self, state: TrainState, batch: PaddedBatch):
         """One optimizer step on a batch (on the state's device), in place;
         returns ``(state, average loss)`` with the loss a 0-d tensor."""
+        if self.config.spec_augment:
+            batch = self.spec_augment(state, batch)
         grads, loss, frames = self.gradients(state, batch, self.dropout_generator(state))
         frames_safe = torch.clamp(frames, min=1.0)
         f32 = np.float32
