@@ -156,7 +156,23 @@ bench.py's TDNN and CNN.
    ones; latency p50 / p95, tick p50, real-time factor, ticks and rows.
 13. Drives bench.py's TDNN and CNN on the hybrid recipe at full width
    (``hybrid_family_path``, ``check_hybrid_family``).
-14. Prints one JSON line of per-kernel results (all seven; kernel 2 counts
+14. Drives the multi-process path (``multiprocess_path``), right after
+   the training path: ``torchrun --standalone --nproc_per_node
+   min(cards, 4)`` on a worker that brings up the NCCL process group on
+   ``cuda:LOCAL_RANK`` and calls ``cli.main --steps train_nnet,test_nnet``
+   on the training path's full-width f32 workspace (its own savedir), the
+   grid's collectives on every step, world size 1 included. The children
+   print their backend, world size, grid and kernel 1's and kernel 3's
+   launches by route (the counters live in the child), a host barrier and
+   an all-reduce of the step's gradient buffer timed on NCCL. The phase
+   fails unless the backend is NCCL, kernels 3 and 1 launched in the
+   child, every per-step loss equals the single-process CLI's within
+   ``MP_LOSS_RTOL`` (equality expected at world size 1: 1e-6; 2e-4 with
+   more ranks, whose global batch holds the rows in another order) and the
+   merged likelihood ark equals the single-process ark within ``LIKE_TOL``
+   (with more ranks, whose model is another rounding of the same
+   training, one process's decode of the run's ``final.pt``).
+15. Prints one JSON line of per-kernel results (all seven; kernel 2 counts
    the streaming path's offline features too, kernels 4 and 5 count the
    BiLSTM, the CTC, the transducer and, kernel 4, the text decode and
    streaming paths), then the final JSON line.
@@ -171,6 +187,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -185,6 +202,16 @@ TRAIN_UTTS = 800
 TRAIN_NNET = {"num_epochs": 1, "valid_frequency": 2, "check_freq": 2}
 # bench.py's DNN: the same [nnet] in bf16 (bench.py:48), in its own savedir
 BF16_DNN_NNET = {"compute_dtype": "bfloat16", "name": "dnn_bf16"}
+# the multi-process path: the training path's [nnet] in its own savedir, at
+# most 4 ranks; at world size 1 the losses are the single process's, bit for bit
+MP_NNET = {"name": "dnn_mp"}
+MP_MAX_RANKS = 4
+# the losses against the single-process CLI: equal at one rank (every
+# all-reduce returns its input); with more, a global batch holds the single
+# process's rows in another order (strided shards), so the sums round
+# otherwise: tests/test_distributed_cli.py's bound
+MP_LOSS_RTOL = {1: 1e-6, "more": 2e-4}
+MP_TIMEOUT_S = 600
 # the training knobs on the f32 DNN, in its own savedir: the trace covers steps 2-3 (profile_start 2)
 KNOBS_PROFILE_STEPS = 2
 KNOBS_NNET = {"name": "dnn_knobs", "specaugment": "True", "visualise": "True",
@@ -973,6 +1000,152 @@ def check_cli_run(card: str, tag: str, ws: dict, savedir: str, steps: list, note
     check_wfst(tag, ws["config"], savedir)
 
 
+# the multi-process path's rank: brings the NCCL group up itself (so that the
+# CLI leaves it up for the readings after), runs the CLI, prints one JSON line
+MP_WORKER = """import json, os, sys, time
+sys.path.insert(0, {root!r})
+import torch
+import torch.distributed as dist
+from tfkaldi_tpu_torch.cli import main as cli_main
+from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp
+from tfkaldi_tpu_torch.parallel import multihost
+
+device, _ = multihost.initialize("cuda")
+t0 = time.perf_counter()
+rc = cli_main.main(["--config", {cfg!r}, "--steps", "train_nnet,test_nnet"])
+run_s = time.perf_counter() - t0
+grads = torch.zeros({grad_numel}, device=device)
+times = {{"barrier_ms": [], "grad_allreduce_ms": []}}
+for _ in range(5):
+    t0 = time.perf_counter()
+    multihost.barrier("timing")
+    times["barrier_ms"].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(grads)
+    torch.cuda.synchronize()
+    times["grad_allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+print("MP_RANK " + json.dumps({{
+    "rank": dist.get_rank(), "rc": rc, "backend": dist.get_backend(), "world": dist.get_world_size(),
+    "device": str(device), "fused_ffn": dict(fused_mlp.launches_by_route),
+    "bn_dgrad": dict(bn_fused_bwd.launches_by_route), "run_s": run_s,
+    **{{k: sorted(v)[len(v) // 2] for k, v in times.items()}}}}), flush=True)
+multihost.shutdown()
+sys.exit(rc)
+"""
+
+
+def dnn_grad_numel() -> int:
+    """The f32 DNN's parameter count: the flat gradient buffer a step
+    all-reduces (the summed loss and the frame count ride along)."""
+    widths = [440] + [HIDDEN_UNITS] * HIDDEN_LAYERS
+    hidden = sum(a * b + 3 * b for a, b in zip(widths[:-1], widths[1:]))  # w, b, beta
+    return hidden + HIDDEN_UNITS * NUM_PDFS + NUM_PDFS + 2
+
+
+def multiprocess_path(card: str, ws: dict) -> dict:
+    """``torchrun`` over ``min(cards, MP_MAX_RANKS)`` ranks on the training
+    path's workspace (phase 14 of the module docstring). Returns the
+    children's launches of kernels 1 and 3."""
+    from configparser import ConfigParser
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    nproc = min(torch.cuda.device_count(), MP_MAX_RANKS)
+    config = ConfigParser()
+    config.read(ws["cfg_path"])
+    for key, value in MP_NNET.items():
+        config.set("nnet", key, value)
+    cfg_path = os.path.join(TRAIN_WORK, "config_dnn_mp.cfg")
+    with open(cfg_path, "w") as f:
+        config.write(f)
+    savedir = os.path.join(config.get("directories", "expdir"), MP_NNET["name"])
+    shutil.rmtree(savedir, ignore_errors=True)
+    worker = os.path.join(TRAIN_WORK, "mp_worker.py")
+    with open(worker, "w") as f:
+        f.write(MP_WORKER.format(root=ROOT, cfg=cfg_path, grad_numel=dnn_grad_numel()))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           "--tee", "3", worker]
+    log(f"multi-process path: {' '.join(cmd[1:])} ({torch.cuda.device_count()} card(s) visible)")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MP_TIMEOUT_S, cwd=ROOT)
+    wall_s = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    with open(os.path.join(TRAIN_WORK, "mp_run.log"), "w") as f:
+        f.write(out)
+    if proc.returncode != 0:
+        print(out[-6000:], flush=True)
+        raise RuntimeError(f"torchrun multi-process path: rc {proc.returncode}")
+    ranks = [json.loads(line.split("MP_RANK ", 1)[1]) for line in out.splitlines() if "MP_RANK " in line]
+    log(f"multi-process path children: {json.dumps(ranks)}")
+    if sorted(r["rank"] for r in ranks) != list(range(nproc)):
+        raise AssertionError(f"multi-process path: reports of ranks {[r['rank'] for r in ranks]}, want {nproc}")
+    for r in ranks:
+        if r["backend"] != "nccl" or r["world"] != nproc or r["rc"] != 0:
+            raise AssertionError(f"multi-process path rank {r['rank']}: backend {r['backend']}, world {r['world']}, "
+                                 f"rc {r['rc']}; want nccl, {nproc}, 0")
+        if not (sum(r["bn_dgrad"].values()) > 0 and sum(r["fused_ffn"].values()) > 0):
+            raise AssertionError(f"multi-process path rank {r['rank']}: kernel 3 {r['bn_dgrad']}, kernel 1 "
+                                 f"{r['fused_ffn']}; both must launch")
+    grid = re.search(r"training on a (\d+)x(\d+) grid of ranks", out)
+    if grid is None:
+        raise AssertionError("multi-process path: the trainer logged no grid")
+    with open(os.path.join(ws["savedir"], "metrics.jsonl")) as f:
+        single = [json.loads(line) for line in f]
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        multi = [json.loads(line) for line in f]
+    if len(multi) != len(single):
+        raise AssertionError(f"multi-process path: {len(multi)} steps, the single process ran {len(single)}")
+    loss_err = max(abs(m["loss"] - s["loss"]) / abs(s["loss"]) for m, s in zip(multi, single))
+    loss_tol = MP_LOSS_RTOL[1] if nproc == 1 else MP_LOSS_RTOL["more"]
+    log(f"multi-process per-step losses vs the single-process CLI ({len(multi)} steps): max rel diff "
+        f"{loss_err!r} (tol {loss_tol}; {'bit-equal' if loss_err == 0 else 'not bit-equal'})")
+    if not loss_err <= loss_tol:
+        raise AssertionError(f"multi-process losses {[m['loss'] for m in multi]} vs {[s['loss'] for s in single]}")
+    likes = read_ark(os.path.join(savedir, "decode", "feats.scp"))
+    single_ark = read_ark(os.path.join(ws["savedir"], "decode", "feats.scp"))
+    if nproc == 1:  # the same model: the single-process run's ark
+        want, against = single_ark, "the single-process ark"
+    else:  # another model (the sums rounded in another order): one process decodes the run's own final.pt
+        from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
+        from tfkaldi_tpu_torch.io import ArkWriter
+        from tfkaldi_tpu_torch.nnet import Nnet
+
+        test_featdir = ws["test_featdir"]
+        reader = FeatureReader(*(os.path.join(test_featdir, n) for n in ("feats.scp", "cmvn.scp", "utt2spk")),
+                               config.getint("nnet", "context_width"), 0)
+        out = os.path.join(TRAIN_WORK, "mp_one_process")
+        with ArkWriter(out + ".scp", out + ".ark") as writer:
+            Nnet(config, 40, NUM_PDFS, device="cuda").load_decoder().decode_to_writer(reader, writer, batch_size=16)
+        reader.close()
+        want, against = read_ark(out + ".scp"), "one process's decode of the run's final.pt"
+        trained = max(float(np.abs(likes[u] - m).max()) for u, m in single_ark.items())
+        log(f"multi-process ark vs the single-process training run's ark: max|diff| {trained!r} (two models)")
+    if sorted(likes) != sorted(want):
+        raise AssertionError(f"multi-process path: the merged ark's utterances differ from {against}'s")
+    like_err = max(float(np.abs(likes[u] - m).max()) for u, m in want.items())
+    log(f"multi-process merged likelihood ark vs {against} ({len(likes)} utts): max|diff| {like_err!r} "
+        f"(tol {LIKE_TOL})")
+    if not like_err <= LIKE_TOL:
+        raise AssertionError(f"multi-process likelihoods differ from {against}: {like_err}")
+    step_mp = sorted(m["step_time"] for m in multi[1:])[len(multi[1:]) // 2]
+    step_single = sorted(s["step_time"] for s in single[1:])[len(single[1:]) // 2]
+    times = {
+        "ranks": nproc, "grid": [int(grid.group(1)), int(grid.group(2))], "backend": ranks[0]["backend"],
+        "step_s_multi": step_mp, "step_s_single": step_single,
+        "barrier_ms": ranks[0]["barrier_ms"], "grad_allreduce_ms": ranks[0]["grad_allreduce_ms"],
+        "grad_allreduce_numel": dnn_grad_numel(), "child_cli_s": ranks[0]["run_s"], "torchrun_wall_s": wall_s,
+        "loss_max_rel_diff": loss_err, "like_max_abs_diff": like_err,
+    }
+    log(f"multi-process phase: {json.dumps(times)} [{card}]")
+    log(f"phase multi-process path: {time.perf_counter() - t_phase!r} s [{card}]")
+    launches = {"fused_ffn": sum(sum(r["fused_ffn"].values()) for r in ranks),
+                "bn_dgrad": sum(sum(r["bn_dgrad"].values()) for r in ranks)}
+    return launches
+
+
 def bf16_dnn_path(card: str, ws: dict) -> tuple[dict, object, str]:
     """bench.py's configuration at full width through the CLI: the
     workspace's 440 -> 6x2048 relu+BN -> 2000 ``[nnet]`` with
@@ -1171,7 +1344,7 @@ def check_spec_augment(card: str, host_batch, step_ms: float) -> dict:
     if not torch.equal(card_out, cpu_out):
         raise AssertionError(f"SpecAugment apply, card vs CPU on the same bands: max|diff| "
                              f"{float((card_out - cpu_out).abs().max())}")
-    state = types.SimpleNamespace(seed=0, step=5)
+    state = types.SimpleNamespace(seed=0, step=5, mesh=None)
     first = trainer.spec_augment(state, batch).inputs
     if not torch.equal(first, trainer.spec_augment(state, batch).inputs):
         raise AssertionError("SpecAugment: two draws for one (seed, step) differ on the card")
@@ -1180,7 +1353,7 @@ def check_spec_augment(card: str, host_batch, step_ms: float) -> dict:
     denom = float(batch.input_lengths.sum()) * d
     fractions = []
     for step in range(SPEC_DRAWS):
-        out = trainer.spec_augment(types.SimpleNamespace(seed=0, step=step), ones).inputs
+        out = trainer.spec_augment(types.SimpleNamespace(seed=0, step=step, mesh=None), ones).inputs
         fractions.append(float(((out == 0) & real).sum()) / denom)
     mean = float(np.mean(fractions))
     want = float(spec_masked_fraction(batch.input_lengths.cpu().numpy(), raw, cfg))
@@ -4934,6 +5107,9 @@ def main() -> int:
     check_train_step(card, train_ws, bn["float32"]["ms"], bn_dz_only_ms["float32"])
     log(f"phase training path: {time.perf_counter() - t0!r} s")
 
+    # ---- the multi-process path: torchrun + NCCL on the same workspace ----
+    mp_launches = multiprocess_path(card, train_ws)
+
     # ---- bench.py's bf16 DNN at full width ----
     t0 = time.perf_counter()
     bf16_launches, bf16_config, bf16_savedir = bf16_dnn_path(card, train_ws)
@@ -5020,13 +5196,14 @@ def main() -> int:
     log(f"kernel 1 at the streaming rows: {json.dumps(ffn_stream)} [{card}]")
     log(f"phase hybrid streaming path: {time.perf_counter() - t0!r} s")
 
-    # launches: f32, the served path's, the training path's, the training
-    # knobs' and the hybrid streaming path's runs together; bf16, the bf16 DNN path's and the
+    # launches: f32, the served path's, the training path's, the
+    # multi-process path's children's, the training knobs' and the hybrid
+    # streaming path's runs together; bf16, the bf16 DNN path's and the
     # hybrid streaming path's runs; kernels 4 and 5, the BiLSTM
     # path's, the CTC path's, the transducer path's and (kernel 4) the text
     # decode path's runs together
     total = {name: launches.get(name, 0) + train_launches[name] + knobs_launches.get(name, 0)
-             for name in train_launches}
+             + mp_launches.get(name, 0) for name in train_launches}
     total["frame_preemph"] += stream_launches["frame_preemph"] + hyb_launches["frame_preemph"]
     total["fused_ffn"] += hyb_launches["fused_ffn_f32"]
     kernels = [

@@ -175,7 +175,10 @@ def test_default_device_without_card_raises(slice_run):
 
 def test_port_imports_without_jax():
     """The port must not import JAX nor any module of the JAX package (run
-    in a subprocess: this test process has JAX loaded by tests/conftest.py)."""
+    in a subprocess: this test process has JAX loaded by tests/conftest.py).
+    The processes the port starts as ranks are held to the same rule by
+    tests/test_torch_distributed_cli.py and tests/test_torch_dryrun.py,
+    which run them with ``jax`` and ``tfkaldi_tpu`` blocked."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import tfkaldi_tpu_torch.cli.main, tfkaldi_tpu_torch.cli.serve, "
             "tfkaldi_tpu_torch.synthetic, tfkaldi_tpu_torch.profile_serve, "
@@ -194,7 +197,9 @@ def test_port_imports_without_jax():
             "tfkaldi_tpu_torch.frontend.functional, tfkaldi_tpu_torch.frontend, tfkaldi_tpu_torch.decode, "
             "tfkaldi_tpu_torch.data.bulk_loader, tfkaldi_tpu_torch.utils.tb_events, "
             "tfkaldi_tpu_torch.utils.visualize, tfkaldi_tpu_torch.utils.profiling, "
-            "tfkaldi_tpu_torch.io.kaldi_compat; "
+            "tfkaldi_tpu_torch.io.kaldi_compat, tfkaldi_tpu_torch.parallel, tfkaldi_tpu_torch.parallel.mesh, "
+            "tfkaldi_tpu_torch.parallel.multihost, tfkaldi_tpu_torch.parallel.comm, "
+            "tfkaldi_tpu_torch.parallel.dryrun, tfkaldi_tpu_torch.data.sharding; "
             "print(' '.join(m for m in sys.modules if m.split('.')[0] == 'tfkaldi_tpu'))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
@@ -228,5 +233,7 @@ def test_only_port_io_module_imports_jax_package(path):
     if path == "chip_smoke.py":  # the walk covers the model families and the Kaldi layer too
         for module in ("models/tdnn.py", "models/cnn.py", "kaldi/__init__.py", "kaldi/gmm.py",
                        "kaldi/decode_wfst.py", "frontend/perturb.py", "frontend/sigproc.py",
-                       "frontend/functional.py", "frontend/online.py", "decode/online.py"):
+                       "frontend/functional.py", "frontend/online.py", "decode/online.py",
+                       "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py", "parallel/comm.py",
+                       "parallel/dryrun.py", "data/sharding.py"):
             assert os.path.join("tfkaldi_tpu_torch", module) in _PORT_SOURCES, module

@@ -81,10 +81,32 @@ def test_default_device_without_card_raises_for_train_nnet(workspace):
         cli_main.main(["--config", workspace["cfg_path"], "--steps", "train_nnet"])
 
 
-def test_multi_process_training_raises(workspace, monkeypatch):
+def test_multi_process_training_raises(workspace, monkeypatch, tmp_path):
+    """Multi-process training is ported (tests/test_torch_distributed_cli.py
+    runs it under torchrun); what still raises is a launch that cannot form
+    its grid: WORLD_SIZE without torchrun's other variables, and a world
+    that does not divide over ``[nnet] model_parallel``."""
+    import socket
+    from configparser import ConfigParser
+
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE 4 without RANK, MASTER_ADDR, MASTER_PORT"):
         cli_main.main(["--config", workspace["cfg_path"], "--steps", "train_nnet", "--device", "cpu"])
+    config = ConfigParser()
+    config.read(workspace["cfg_path"])
+    config.set("nnet", "model_parallel", "3")
+    cfg = tmp_path / "mp3.cfg"
+    with open(cfg, "w") as f:
+        config.write(f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for key, value in (("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(ValueError, match=r"world size 1 does not divide over \[nnet\] model_parallel 3"):
+        cli_main.main(["--config", str(cfg), "--steps", "train_nnet", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()  # the CLI took its process group down
 
 
 def _reader(featdir: str, max_length: int, context_width: int = 1) -> FeatureReader:

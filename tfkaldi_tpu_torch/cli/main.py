@@ -34,10 +34,26 @@ recipe and the conformer-transducer recipe, with any model family of
   ``text`` into ``text.ref_normalized`` and logs the CER and the word-level
   WER under the loss's name.
 
+Several processes (tfkaldi_tpu/cli/main.py:128-445), started by
+``torchrun``: each rank is one process on one device (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``;
+:mod:`tfkaldi_tpu_torch.parallel.multihost`). The feature and GMM steps run
+on rank 0, each followed by a barrier; ``train_nnet`` trains on the
+``data x model`` grid of ``[nnet] model_parallel`` (default 1) with
+``[nnet] batch_size`` the global batch: rank 0 shuffles and writes the
+``data`` strided shards of the training scp (``drop_remainder``), and the
+ranks of one model group read the same shard, ``batch_size / data``
+utterances a batch. ``test_nnet`` decodes a strided shard of the test scp
+on every rank with the whole model (``likelihoods.p{i}.ark`` /
+``feats.p{i}.scp`` or ``text.p{i}``); after a barrier rank 0 merges the
+shards and runs the WFST decode or the scoring.
+
 Usage:
     python -m tfkaldi_tpu_torch.cli.main --config config/config_AURORA4.cfg \\
         --steps dnn_train_features,train_nnet,test_nnet [--device cuda]
     python -m tfkaldi_tpu_torch.cli.main --config ... --steps all
+    torchrun --standalone --nproc_per_node 4 -m tfkaldi_tpu_torch.cli.main --config ... \\
+        --steps train_nnet,test_nnet [--device cpu]
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ from configparser import ConfigParser
 
 from tfkaldi_tpu_torch.kaldi import LdaGmm, MonoGmm, TriGmm, merge_alignments
 from tfkaldi_tpu_torch.kaldi.decode_wfst import WfstDecodeOpts, best_wer, decode_wfst
+from tfkaldi_tpu_torch.parallel import multihost
 
 log = logging.getLogger("tfkaldi_tpu_torch")
 
@@ -138,14 +155,24 @@ def featdir(config, kind: str, section: str) -> str:
     return os.path.join(config.get("directories", f"{kind}_features"), config.get(section, "name"))
 
 
+def merge_shards(out_path: str, shard_paths: list) -> None:
+    """Concatenate the ranks' shard files into one output (rank 0)."""
+    with open(out_path, "w") as fout:
+        for p in shard_paths:
+            with open(p) as fin:
+                fout.write(fin.read())
+
+
 def train_nnet(config, nnet, coder, num_labels: int) -> None:
-    """The ``train_nnet`` step (tfkaldi_tpu/cli/main.py:253-369, one
-    process): pdf alignments for the hybrid recipe, the featdir's ``text``
-    through ``coder`` for the text-target ones. The batches come from the
-    native bulk loader (``BulkAlignmentBatchSource`` /
-    ``BulkTextBatchSource``) when ``[nnet] native_loader`` is not ``False``
-    and the native library loads, else from the Python dispenser, as the
-    JAX CLI picks them (main.py:299-365)."""
+    """The ``train_nnet`` step (tfkaldi_tpu/cli/main.py:253-369): pdf
+    alignments for the hybrid recipe, the featdir's ``text`` through
+    ``coder`` for the text-target ones. The batches come from the native
+    bulk loader (``BulkAlignmentBatchSource`` / ``BulkTextBatchSource``)
+    when ``[nnet] native_loader`` is not ``False`` and the native library
+    loads, else from the Python dispenser, as the JAX CLI picks them
+    (main.py:299-365). Under a process group rank 0 shuffles and writes the
+    grid's ``data`` shards of the scp, and each rank reads shard ``rank //
+    model_parallel`` with ``batch_size / data`` utterances a batch."""
     from tfkaldi_tpu_torch.data.bulk_loader import BulkAlignmentBatchSource, BulkTextBatchSource
     from tfkaldi_tpu_torch.data.dispenser import AlignmentBatchDispenser, TextBatchDispenser
     from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
@@ -153,28 +180,37 @@ def train_nnet(config, nnet, coder, num_labels: int) -> None:
     from tfkaldi_tpu_torch.data.target_normalizers import identity_normalizer
     from tfkaldi_tpu_torch.frontend.prepare_data import shuffle_examples
     from tfkaldi_tpu_torch.io import native, read_alignments
+    from tfkaldi_tpu_torch.data.sharding import shard_path, shard_scp
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # started by torchrun on several processes
-        raise NotImplementedError(
-            "multi-process training is not in the port yet (ROADMAP.md, queue 1, item 18: "
-            "parallel/mesh.py, parallel/multihost.py, data/sharding.py); use python -m tfkaldi_tpu.cli.main"
-        )
+    from tfkaldi_tpu_torch.parallel import grid_shape
+
+    rank = multihost.rank()
+    batch_size = config.getint("nnet", "batch_size")  # the global batch
+    data, model = grid_shape(multihost.world_size(), config.getint("nnet", "model_parallel", fallback=1), batch_size)
     train_featdir = featdir(config, "train", "dnn-features")
     seed = config.getint("nnet", "seed", fallback=0)
-    if config.get("nnet", "starting_step") == "0":
-        log.info("------- shuffling examples ----------")
-        # keep the validation carve (head of the scp) uniformly sampled
-        valid_head = config.getint("nnet", "valid_batches") * config.getint("nnet", "batch_size")
-        shuffle_examples(
-            train_featdir, seed=seed,
-            length_bands=config.getint("nnet", "shuffle_length_bands", fallback=0),
-            valid_head=valid_head,
-        )
+    train_scp = os.path.join(train_featdir, "feats_shuffled.scp")
+    if rank == 0:
+        if config.get("nnet", "starting_step") == "0":
+            log.info("------- shuffling examples ----------")
+            # keep the validation carve (head of the scp) uniformly sampled
+            valid_head = config.getint("nnet", "valid_batches") * batch_size
+            shuffle_examples(
+                train_featdir, seed=seed,
+                length_bands=config.getint("nnet", "shuffle_length_bands", fallback=0),
+                valid_head=valid_head,
+            )
+        for i in range(data if data > 1 else 0):
+            # equal shard sizes, so the ranks' batch counts agree before the agreement
+            shard_scp(train_scp, num_shards=data, shard_index=i, drop_remainder=True)
+    multihost.barrier("shuffle")
+    if data > 1:
+        train_scp = shard_path(train_scp, data, rank // model)
+        batch_size //= data
+        log.info("rank %d training on scp shard %s, %d utterances a batch", rank, train_scp, batch_size)
     with open(os.path.join(train_featdir, "maxlength")) as fid:
         max_input_length = int(fid.read())
-    train_scp = os.path.join(train_featdir, "feats_shuffled.scp")
     cmvn, utt2spk = cmvn_path(config, train_featdir), os.path.join(train_featdir, "utt2spk")
-    batch_size = config.getint("nnet", "batch_size")
     if coder is None:
         # merge per-job alignments (main.py:139-142)
         ali_dir = os.path.join(config.get("directories", "expdir"), config.get("nnet", "gmm_name"), "ali")
@@ -218,7 +254,8 @@ _LOSS_NAMES = {"ctc": "CTC", "attention": "attention", "rnnt": "transducer"}
 
 def test_text(nnet, coder, featreader, test_featdir: str, decodedir: str) -> None:
     """The text-target ``test_nnet`` (tfkaldi_tpu/cli/main.py:394-426):
-    decode to ``<decodedir>/text``, then, when the test featdir has a
+    decode to ``<decodedir>/text`` (each rank its shard to ``text.p{i}``,
+    merged by rank 0 after a barrier), then, when the test featdir has a
     ``text``, score it in the coder's normalised token space: CER over
     character tokens, WER over the words they spell."""
     from tfkaldi_tpu_torch.utils.wer import char_tokens_to_words, score_text_files
@@ -226,7 +263,13 @@ def test_text(nnet, coder, featreader, test_featdir: str, decodedir: str) -> Non
     log.info("------- decoding transcriptions ----------")
     name = _LOSS_NAMES[nnet.loss_type]
     out = os.path.join(decodedir, "text")
-    nnet.decode_text(featreader, coder, out)
+    rank, world = multihost.rank(), multihost.world_size()
+    nnet.decode_text(featreader, coder, out if world == 1 else f"{out}.p{rank}")
+    multihost.barrier("text decode")
+    if rank != 0:
+        return
+    if world > 1:
+        merge_shards(out, [f"{out}.p{p}" for p in range(world)])
     log.info("wrote %s transcriptions to %s", name, out)
     ref_text = os.path.join(test_featdir, "text")
     if not os.path.isfile(ref_text):
@@ -267,9 +310,23 @@ def main(argv=None) -> int:
         log.error("%s", exc)
         return 1
 
-    from tfkaldi_tpu_torch.device import resolve_device
+    # the process group first: under torchrun every rank runs this program
+    device, owns_group = multihost.initialize(args.device)
+    try:
+        return _run(args, config, steps, device)
+    finally:
+        if owns_group:
+            multihost.shutdown()
 
-    device = resolve_device(args.device)
+
+def _run(args, config, steps: set, device) -> int:
+    rank, world = multihost.rank(), multihost.world_size()
+    if world > 1:
+        log.info("multi-process run: rank %d of %d on %s", rank, world, device)
+    if "train_nnet" in steps:  # a grid that cannot form fails before any step runs
+        from tfkaldi_tpu_torch.parallel import grid_shape
+
+        grid_shape(world, config.getint("nnet", "model_parallel", fallback=1), config.getint("nnet", "batch_size"))
 
     from tfkaldi_tpu_torch.frontend.prepare_data import compute_cmvn, prepare_data
 
@@ -285,6 +342,8 @@ def main(argv=None) -> int:
             continue
         if section == "dnn-features" and same_feats:
             continue  # identical to the gmm features (main.py:45, 67)
+        if rank != 0:
+            continue  # the featdirs are written once (barrier below)
         feat_cfg = dict(config.items(section))
         out = featdir(config, kind, section)
         log.info("------- computing %s %s features ----------", kind, section)
@@ -295,9 +354,12 @@ def main(argv=None) -> int:
         )
         log.info("------- computing cmvn stats ----------")
         compute_cmvn(out)
+    multihost.barrier("features")
 
-    # ---- GMM stages (main.py:77-114), in external Kaldi ----
+    # ---- GMM stages (main.py:77-114), in external Kaldi, on rank 0 ----
     for cls, prefix in [(MonoGmm, "mono"), (TriGmm, "tri"), (LdaGmm, "lda")]:
+        if rank != 0:
+            break
         gmm = cls(config)
         if f"train_{prefix}" in steps:
             log.info("------- training %s GMM ----------", prefix)
@@ -308,6 +370,8 @@ def main(argv=None) -> int:
         if f"test_{prefix}" in steps:
             log.info("------- testing %s GMM ----------", prefix)
             gmm.test()
+    if {s for s in steps if s.startswith(("train_", "align_", "test_")) and "nnet" not in s}:
+        multihost.barrier("gmm")
 
     if not ({"train_nnet", "test_nnet"} & steps):
         return 0
@@ -326,13 +390,17 @@ def main(argv=None) -> int:
     if "test_nnet" not in steps:
         return 0
 
+    from tfkaldi_tpu_torch.data.sharding import shard_scp
+
     decodedir = os.path.join(nnet.savedir, "decode")
     os.makedirs(decodedir, exist_ok=True)
     test_featdir = featdir(config, "test", "dnn-features")
     with open(os.path.join(test_featdir, "maxlength")) as fid:
         max_length = int(fid.read())
+    # every rank decodes its strided shard of the test set (no drop)
+    test_scp = shard_scp(os.path.join(test_featdir, "feats.scp"), num_shards=world, shard_index=rank)
     featreader = FeatureReader(
-        os.path.join(test_featdir, "feats.scp"),
+        test_scp,
         cmvn_path(config, test_featdir),
         os.path.join(test_featdir, "utt2spk"),
         nnet.context_width,
@@ -343,13 +411,20 @@ def main(argv=None) -> int:
             test_text(nnet, coder, featreader, test_featdir, decodedir)
             return 0
         log.info("------- computing state pseudo-likelihoods ----------")
-        like_path = os.path.join(decodedir, "likelihoods.ark")
+        suffix = "" if world == 1 else f".p{rank}"
+        like_path = os.path.join(decodedir, f"likelihoods{suffix}.ark")
         if os.path.isfile(like_path):
             os.remove(like_path)
-        nnet.decode(featreader, ArkWriter(os.path.join(decodedir, "feats.scp"), like_path))
+        nnet.decode(featreader, ArkWriter(os.path.join(decodedir, f"feats{suffix}.scp"), like_path))
     finally:
         featreader.close()
     log.info("wrote %s", like_path)
+    multihost.barrier("likelihoods")
+    if rank != 0:
+        return 0  # rank 0 merges the scp shards and runs the WFST decode
+    if world > 1:
+        merge_shards(os.path.join(decodedir, "feats.scp"),
+                     [os.path.join(decodedir, f"feats.p{p}.scp") for p in range(world)])
     decode_wfst_step(config, decodedir, test_featdir)
     return 0
 

@@ -137,8 +137,20 @@ class BatchDispenser:
 
     @property
     def num_batches(self) -> float:
-        """May be fractional (batchdispenser.py:147-155)."""
-        return self.num_utt / self.size
+        """May be fractional (batchdispenser.py:147-155). A multi-process
+        run pins it with :meth:`limit_num_batches`, so that every process
+        derives the same ``num_steps``."""
+        raw = self.num_utt / self.size
+        limit = getattr(self, "_num_batches_limit", None)
+        return raw if limit is None else min(raw, limit)
+
+    def limit_num_batches(self, limit: float) -> None:
+        """Cap ``num_batches`` at a value agreed between processes
+        (tfkaldi_tpu/data/dispenser.py:154): equal-size scp shards do not
+        give equal batch counts when target coverage falls unevenly across
+        them, and processes that disagree on ``num_steps`` would wait on
+        each other's collectives forever."""
+        self._num_batches_limit = float(limit)
 
     @property
     def num_utt(self) -> int:

@@ -30,7 +30,10 @@ Where the arithmetic must follow the JAX model step by step:
   which round before batchnorm); the logits are f32, not rounded.
 
 No hand kernel lies on this path: the JAX model computes its convolutions
-and products outside Pallas. Every entry point resolves its device through
+and products outside Pallas. Split over a grid's model group (``tp``, set
+by :func:`tfkaldi_tpu_torch.parallel.mesh.shard_state`) the conv stack is
+replicated and the dense stack splits as the DNN's: hidden columns in
+blocks, the output rows in blocks (when there is a dense stack). Every entry point resolves its device through
 :func:`tfkaldi_tpu_torch.device.resolve_device`, which pins TF32 off for
 cuDNN's convolutions.
 """
@@ -45,7 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tfkaldi_tpu_torch.layers import product
-from tfkaldi_tpu_torch.models.dnn import _DTYPES, _Layer, _nonlin, masked_batchnorm
+from tfkaldi_tpu_torch.models.dnn import _DTYPES, _Layer, _nonlin, dropout_keep, masked_batchnorm
+from tfkaldi_tpu_torch.parallel import comm
 
 
 def _parse_int_list(spec: str, name: str) -> tuple[int, ...]:
@@ -193,6 +197,7 @@ class CNN(nn.Module):
         self.hidden = nn.ModuleList(_Layer(f, h, cfg.batch_norm) for f in fan_ins[: cfg.num_hidden_layers])
         out_in = h if cfg.num_hidden_layers > 0 else cfg.conv_output_dim()
         self.out = _Layer(out_in, cfg.num_labels, batch_norm=False)
+        self.tp = None  # the grid whose model group splits the dense stack (parallel.mesh.shard_state)
         self.register_buffer("depth", torch.zeros((), dtype=torch.int32))
         if cfg.batch_norm:
             self.bn_conv_mean = _Stats(filters, 0.0)
@@ -246,13 +251,18 @@ class CNN(nn.Module):
     # forward (models/cnn.py:244-359)
     # ------------------------------------------------------------------
 
-    def _dropout(self, z, train: bool, generator):
+    def _dropout(self, z, train: bool, generator, b: int, t: int):
+        """Dropout of a conv activation ``[b, t, W, C]`` (replicated) or a
+        dense one ``[b·t, C]`` (a column block under ``tp``)."""
         p = self.config.dropout
         if not (train and p < 1):
             return z
         if generator is None:
             raise ValueError("dropout requires a generator in training mode")
-        keep = torch.rand(z.shape, generator=generator, device=z.device) < p
+        if z.dim() == 2:
+            keep = dropout_keep(z, b, t, p, generator, self.tp)
+        else:
+            keep = comm.keep_mask(z.shape, p, generator, z.device)
         return torch.where(keep, z / p, 0.0)
 
     def forward(
@@ -269,15 +279,25 @@ class CNN(nn.Module):
         h = self.conv_stack(inputs, lengths, train=train, generator=generator)
         mask = (torch.arange(t, device=inputs.device)[None, :] < lengths.to(inputs.device)[:, None])
         mask = mask.reshape(b * t).float()
+        tp = self.tp
+        if tp is not None and len(self.hidden):
+            # the replicated conv features feed column blocks: their cotangent
+            # is summed over the model group (Megatron's f)
+            h = comm.copy_to_model(h, tp)
         for l, layer in enumerate(self.hidden):
+            if tp is not None and l > 0:
+                h = comm.gather_columns(h, tp)
             z = product(h, layer.w, cd) + layer.b.float()
             if cfg.batch_norm:  # on the f32 z; the rounding comes after (models/cnn.py:326-342)
                 z = masked_batchnorm(z, mask, layer.beta, self.bn_mean[l], self.bn_var[l], train=train,
                                      eps=cfg.bn_eps, decay=cfg.bn_decay)
             z = _nonlin(z.to(cd), cfg.nonlin)
-            z = self._dropout(z, train, generator)
+            z = self._dropout(z, train, generator, b, t)
             h = z * mask[:, None].to(z.dtype)
-        logits = product(h, self.out.w, cd) + self.out.b.float()
+        logits = product(h, self.out.w, cd)
+        if tp is not None and len(self.hidden):
+            logits = comm.reduce_from_model(logits, tp)
+        logits = logits + self.out.b.float()
         return logits.reshape(b, t, cfg.num_labels)
 
     def conv_stack(
@@ -311,7 +331,7 @@ class CNN(nn.Module):
             if p > 1:  # frequency-only max-pool: stride = window, VALID
                 w_out = (z.shape[2] - p) // p + 1
                 z = z[:, :, : w_out * p].reshape(b, t, w_out, p, z.shape[-1]).amax(dim=3)
-            z = self._dropout(z, train, generator)
+            z = self._dropout(z, train, generator, b, t)
             h = z * mask_bt[:, :, None, None].to(z.dtype)
         # flatten (freq, channels), W-major then C as JAX does
         return h.reshape(b * t, -1)

@@ -21,6 +21,14 @@ Eval (``train=False``): hidden layers whose chain fits the fused epilogue
 runs as plain tensor code. Callers run it under ``torch.inference_mode()``.
 The output layer is a plain ``torch.matmul`` in both modes, as the JAX
 package leaves it outside any kernel.
+
+Split over a grid's model group (``tp``, set by
+:func:`tfkaldi_tpu_torch.parallel.mesh.shard_state`), every hidden layer
+holds a block of the ``H`` columns and reads the whole activation,
+gathered over the group (:func:`~tfkaldi_tpu_torch.parallel.comm.gather_columns`);
+the output layer holds a block of the rows, and its partial logits are
+summed over the group before ``out.b``. Dropout takes the rank's rows and
+columns of the whole batch's draw (:func:`~tfkaldi_tpu_torch.parallel.comm.keep_mask`).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from torch import nn
 from tfkaldi_tpu_torch.layers import affine, batchnorm, masked_moments
 from tfkaldi_tpu_torch.ops.bn_fused_bwd import BnReluLayer
 from tfkaldi_tpu_torch.ops.fused_mlp import fused_ffn_block
+from tfkaldi_tpu_torch.parallel import comm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -102,6 +111,7 @@ class DNN(nn.Module):
             _Layer(f, cfg.num_hidden_units, cfg.batch_norm) for f in fan_ins
         )
         self.out = _Layer(cfg.num_hidden_units, cfg.num_labels, batch_norm=False)
+        self.tp = None  # the grid whose model group splits the layers (parallel.mesh.shard_state)
         self.register_buffer("depth", torch.zeros((), dtype=torch.int32))
         if cfg.batch_norm:
             shape = (cfg.num_hidden_layers, cfg.num_hidden_units)
@@ -174,9 +184,12 @@ class DNN(nn.Module):
         fuse_bn = cfg.batch_norm and cfg.nonlin == "relu" and not cfg.l2_norm and not cfg.dropout < 1
         activations = []
         h = x
+        tp = self.tp
         # every layer runs (the JAX package stacks them all and selects by
         # depth), so every layer's moving stats update as they do there
         for l, layer in enumerate(self.hidden):
+            if tp is not None and l > 0:
+                h = comm.gather_columns(h, tp)
             if fuse_bn:
                 z, mean_b, var_b = BnReluLayer.apply(h.to(cd), layer.w, layer.b, layer.beta, mask, cfg.bn_eps)
                 _update_moving(self.bn_mean[l], self.bn_var[l], mean_b, var_b, cfg.bn_decay)
@@ -191,12 +204,12 @@ class DNN(nn.Module):
                 if cfg.dropout < 1:
                     if generator is None:
                         raise ValueError("dropout requires a generator in training mode")
-                    keep = torch.rand(z.shape, generator=generator, device=z.device) < cfg.dropout
+                    keep = dropout_keep(z, b, t, cfg.dropout, generator, tp)
                     z = torch.where(keep, z / cfg.dropout, 0.0)
             activations.append(z)
             h = z
         h = activations[self._selected_layers() - 1]
-        logits = affine(h, self.out.w, self.out.b, cd)
+        logits = affine(h, self.out.w, self.out.b, cd, tp)
         return logits.float().reshape(b, t, cfg.num_labels)
 
     def _eval_forward(self, inputs):
@@ -207,8 +220,11 @@ class DNN(nn.Module):
         # are not computed
         n_layers = self._selected_layers()
         fused = not cfg.l2_norm and cfg.nonlin in ("relu", "linear")
+        tp = self.tp
         for l in range(n_layers):
             layer = self.hidden[l]
+            if tp is not None and l > 0:
+                h = comm.gather_columns(h, tp)
             scale = shift = None
             if cfg.batch_norm:
                 scale = torch.rsqrt(self.bn_var[l] + cfg.bn_eps)
@@ -227,8 +243,18 @@ class DNN(nn.Module):
             if cfg.l2_norm:
                 z = _l2_norm(z)
             h = z
-        logits = affine(h, self.out.w, self.out.b, cfg.compute_dtype)
+        logits = affine(h, self.out.w, self.out.b, cfg.compute_dtype, tp)
         return logits.float().reshape(b, t, cfg.num_labels)
+
+
+def dropout_keep(z, b: int, t: int, keep: float, generator, tp=None):
+    """Dropout's keep mask of a dense layer's ``z [b·t, C]`` (``b``
+    utterances of ``t`` frames), drawn as ``[b, t, C]``: under a data split
+    the rank's rows of the whole batch's draw, under the column split
+    (``tp``) its columns of the whole ``C·model``."""
+    rows, c = z.shape
+    cols = None if tp is None else (c * tp.model, c * tp.model_index)
+    return comm.keep_mask((b, t, c), keep, generator, z.device, cols=cols).reshape(rows, c)
 
 
 @torch.no_grad()

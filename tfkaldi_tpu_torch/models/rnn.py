@@ -44,6 +44,7 @@ from torch import nn
 
 from tfkaldi_tpu_torch.layers import product
 from tfkaldi_tpu_torch.ops import gru_bidi, lstm_bidi, rnn_bidi
+from tfkaldi_tpu_torch.parallel import comm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -179,7 +180,7 @@ class LSTM(nn.Module):
             if train and cfg.dropout < 1:
                 if generator is None:
                     raise ValueError("dropout requires a generator in training mode")
-                keep = torch.rand(x.shape, generator=generator, device=x.device) < cfg.dropout
+                keep = comm.keep_mask(x.shape, cfg.dropout, generator, x.device, batch_dim=1)
                 x = torch.where(keep, x / cfg.dropout, 0.0)
         logits = product(x.reshape(t * b, -1), self.out.w, cfg.compute_dtype) + self.out.b.float()
         return logits.reshape(t, b, cfg.num_labels).transpose(0, 1)

@@ -20,6 +20,12 @@ again before the next layer's shifts. The output layer starts at zero and
 takes compute-dtype operands into f32 logits.
 No hand kernel lies on this path: the JAX model computes its products
 outside Pallas.
+
+Split over a grid's model group (``tp``, set by
+:func:`tfkaldi_tpu_torch.parallel.mesh.shard_state`) the hidden layers hold
+blocks of the ``H`` columns and the output layer a block of the rows, as
+the DNN's (:mod:`tfkaldi_tpu_torch.models.dnn`): the whole activation is
+gathered before each layer's shifts.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tfkaldi_tpu_torch.layers import affine, product
-from tfkaldi_tpu_torch.models.dnn import _DTYPES, _Layer, _nonlin, masked_batchnorm
+from tfkaldi_tpu_torch.models.dnn import _DTYPES, _Layer, _nonlin, dropout_keep, masked_batchnorm
+from tfkaldi_tpu_torch.parallel import comm
 
 
 def parse_context(spec: str, num_layers: int) -> tuple[tuple[int, ...], ...]:
@@ -120,6 +127,7 @@ class TDNN(nn.Module):
             _Layer(f * len(offs), h, cfg.batch_norm) for f, offs in zip(fan_ins, cfg.offsets)
         )
         self.out = _Layer(h, cfg.num_labels, batch_norm=False)
+        self.tp = None  # the grid whose model group splits the layers (parallel.mesh.shard_state)
         self.register_buffer("depth", torch.zeros((), dtype=torch.int32))
         if cfg.batch_norm:
             self.register_buffer("bn_mean", torch.zeros(cfg.num_hidden_layers, h))
@@ -184,7 +192,10 @@ class TDNN(nn.Module):
         mask = mask_bt.reshape(b * t)
         # zero the padding rows before the first splice
         h = (inputs * mask_bt[:, :, None]).to(cd)
+        tp = self.tp
         for l, (layer, offs) in enumerate(zip(self.hidden, cfg.offsets)):
+            if tp is not None and l > 0:
+                h = comm.gather_columns(h, tp)
             spliced = torch.cat([_shift(h, o) for o in offs], dim=-1) if offs != (0,) else h
             z = affine(spliced.reshape(b * t, -1), layer.w, layer.b, cd)
             if cfg.batch_norm:
@@ -194,11 +205,14 @@ class TDNN(nn.Module):
             if train and cfg.dropout < 1:
                 if generator is None:
                     raise ValueError("dropout requires a generator in training mode")
-                keep = torch.rand(z.shape, generator=generator, device=z.device) < cfg.dropout
+                keep = dropout_keep(z, b, t, cfg.dropout, generator, tp)
                 z = torch.where(keep, z / cfg.dropout, 0.0)
             # padding frames stay zero, so the next layer's shifts read zeros there
             h = z.reshape(b, t, -1) * mask_bt[:, :, None].to(z.dtype)
         # compute-dtype operands, f32 result and bias: unlike the DNN's, these
         # logits are not rounded to the compute dtype (models/tdnn.py:232-238)
-        logits = product(h.reshape(b * t, -1), self.out.w, cd) + self.out.b.float()
+        logits = product(h.reshape(b * t, -1), self.out.w, cd)
+        if tp is not None:
+            logits = comm.reduce_from_model(logits, tp)
+        logits = logits + self.out.b.float()
         return logits.reshape(b, t, cfg.num_labels)

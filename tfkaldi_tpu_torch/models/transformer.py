@@ -32,7 +32,18 @@ added after the input projection from the f32 sinusoid of
 the conv input is zero-masked and the hidden state is re-masked between
 blocks, so logits at real frames do not depend on the padding. Dropout is a
 keep probability, its masks drawn from the trainer's generator (the bits
-are the port's own).
+are the port's own; under a data split the rank's rows of the whole
+batch's draw, :func:`tfkaldi_tpu_torch.parallel.comm.keep_mask`).
+
+Split over a grid's model group (``tp``, set by
+:func:`tfkaldi_tpu_torch.parallel.mesh.shard_state`): Megatron's split of
+every block, ``wq``/``wk``/``wv`` and the FFNs' ``w1`` by columns (whole
+heads: ``num_heads / model`` of them a rank), ``wo`` and ``w2`` by rows,
+their partial products summed over the group before the replicated bias,
+and the cotangent of each split sublayer's replicated input summed over the
+group (:func:`~tfkaldi_tpu_torch.parallel.comm.copy_to_model`). The input
+projection, the layernorms, the conv module and the output layer are
+replicated.
 
 Streaming (models/transformer.py:478-784), eval only, for a model with
 ``left_context >= 0``, ``right_context = 0`` and, for the conformer, a
@@ -65,6 +76,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tfkaldi_tpu_torch.layers import affine, batchnorm, masked_moments, product
+from tfkaldi_tpu_torch.parallel import comm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NEG = -1e30  # the additive mask of the JAX package's attention
@@ -182,17 +194,23 @@ def dropout(x: torch.Tensor, keep: float, generator, train: bool) -> torch.Tenso
         return x
     if generator is None:
         raise ValueError("dropout requires a generator in training mode")
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = comm.keep_mask(x.shape, keep, generator, x.device)
     return torch.where(mask, x / keep, 0.0)
 
 
-def attention(hq, hkv, p, mask, num_heads: int, dtype) -> torch.Tensor:
+def attention(hq, hkv, p, mask, num_heads: int, dtype, tp=None) -> torch.Tensor:
     """Multi-head attention of ``hq [B, Tq, D]`` over ``hkv [B, Tk, D]``
     with the projections of ``p`` (``wq, bq, …, wo, bo``); ``mask`` (bool,
-    broadcast to ``[B, h, Tq, Tk]``) marks the attendable keys."""
+    broadcast to ``[B, h, Tq, Tk]``) marks the attendable keys. With ``tp``
+    the projections hold this rank's ``num_heads / model`` heads."""
     b, tq, d = hq.shape
     tk = hkv.shape[1]
     dh = d // num_heads
+    if tp is not None:
+        num_heads //= tp.model
+        same = hkv is hq
+        hq = comm.copy_to_model(hq, tp)
+        hkv = hq if same else comm.copy_to_model(hkv, tp)
     q = affine(hq, p.wq, p.bq, dtype).reshape(b, tq, num_heads, dh).transpose(1, 2)
     k = affine(hkv, p.wk, p.bk, dtype).reshape(b, tk, num_heads, dh).transpose(1, 2)
     v = affine(hkv, p.wv, p.bv, dtype).reshape(b, tk, num_heads, dh).transpose(1, 2)
@@ -200,12 +218,15 @@ def attention(hq, hkv, p, mask, num_heads: int, dtype) -> torch.Tensor:
     scores = torch.where(mask, scores, _NEG)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     ctx = product(probs, v, dtype).to(dtype)
-    return affine(ctx.transpose(1, 2).reshape(b, tq, d), p.wo, p.bo, dtype)
+    return affine(ctx.transpose(1, 2).reshape(b, tq, num_heads * dh), p.wo, p.bo, dtype, tp)
 
 
-def feed_forward(h, p, dtype) -> torch.Tensor:
-    """``w2·swish(w1·h + b1) + b2`` (the FFN of both stacks)."""
-    return affine(swish(affine(h, p.w1, p.b1, dtype), dtype), p.w2, p.b2, dtype)
+def feed_forward(h, p, dtype, tp=None) -> torch.Tensor:
+    """``w2·swish(w1·h + b1) + b2`` (the FFN of both stacks); with ``tp``
+    ``w1`` holds a block of the columns and ``w2`` of the rows."""
+    if tp is not None:
+        h = comm.copy_to_model(h, tp)
+    return affine(swish(affine(h, p.w1, p.b1, dtype), dtype), p.w2, p.b2, dtype, tp)
 
 
 class Params(nn.Module):
@@ -274,6 +295,7 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.num_blocks))
         self.ln_final = ln_params(cfg.d_model)
         self.out = Params(w=(cfg.d_model, cfg.num_labels), b=(cfg.num_labels,))
+        self.tp = None  # the grid whose model group splits the blocks (parallel.mesh.shard_state)
         if cfg.conformer:
             self.register_buffer("bn_conv_mean", torch.zeros(cfg.num_blocks, cfg.d_model))
             self.register_buffer("bn_conv_var", torch.ones(cfg.num_blocks, cfg.d_model))
@@ -396,18 +418,19 @@ class Transformer(nn.Module):
         h = h + sinusoidal_at(t, cfg.d_model, device).to(dtype)
         h = h * mask_btf.to(h.dtype)
         attn_mask = key_mask[:, None, None, :] & self._rel_mask(t, device)[None, None]
+        tp = self.tp
 
         for l, blk in enumerate(self.blocks):
             if cfg.conformer:
                 z = layernorm(h, blk.ln_ffn1, eps)
-                h = h + 0.5 * dropout(feed_forward(z, blk.ffn1, dtype), keep, generator, train)
+                h = h + 0.5 * dropout(feed_forward(z, blk.ffn1, dtype, tp), keep, generator, train)
             z = layernorm(h, blk.ln_attn, eps)
-            h = h + dropout(attention(z, z, blk.attn, attn_mask, cfg.num_heads, dtype), keep, generator, train)
+            h = h + dropout(attention(z, z, blk.attn, attn_mask, cfg.num_heads, dtype, tp), keep, generator, train)
             if cfg.conformer:
                 z = layernorm(h, blk.ln_conv, eps)
                 h = h + dropout(self._conv_module(z, blk, l, mask_btf, train, dtype), keep, generator, train)
             z = layernorm(h, blk.ln_ffn, eps)
-            f = dropout(feed_forward(z, blk.ffn, dtype), keep, generator, train)
+            f = dropout(feed_forward(z, blk.ffn, dtype, tp), keep, generator, train)
             if cfg.conformer:
                 h = layernorm(h + 0.5 * f, blk.ln_out, eps)
             else:

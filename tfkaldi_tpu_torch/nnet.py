@@ -22,6 +22,17 @@ or rescoring decode (``decode_mode = rescoring``), or the transducer's
 greedy (``beam_width = 1``) or beam search; ``[nnet] lm_path`` (with
 ``lm_alpha`` and ``lm_beta``) fuses an ARPA LM into the CTC, transducer and
 attention beams.
+
+Under a ``torch.distributed`` process group (``torchrun``, see
+:mod:`tfkaldi_tpu_torch.parallel`) :meth:`Nnet.train` trains on a ``data x
+model`` grid of the ranks (``[nnet] model_parallel``, default 1), as
+tfkaldi_tpu/nnet.py:156-275 does on its mesh: ``[nnet] batch_size`` is the
+global batch, each rank's dispenser serves ``batch_size / data`` of it from
+its scp shard; the ranks agree on ``num_batches`` (the minimum) and
+``max_target_length`` (the maximum) before anything derives from them and
+pin the padded lengths; only rank 0 writes ``metrics.jsonl`` (rank ``i``
+writes ``metrics.p{i}.jsonl``) and the visualiser's event files. The
+decoders run on each rank's own device with the whole model.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.io import ArkWriter
 from tfkaldi_tpu_torch.models import (CNNConfig, DNNConfig, RNNConfig, Seq2SeqConfig, TDNNConfig, TransducerConfig,
                                       TransformerConfig, build_model)
+from tfkaldi_tpu_torch.parallel import grid_shape, make_mesh, multihost
 from tfkaldi_tpu_torch.train import NnetTrainOptions, Trainer, TrainerConfig, TrainingController
 from tfkaldi_tpu_torch.utils import MetricsLogger
 from tfkaldi_tpu_torch.utils.visualize import TensorBoardVisualizer
@@ -128,6 +140,20 @@ class Nnet:
             )
         return batch_size // val
 
+    def _agree(self, dispenser) -> int:
+        """The ranks' agreement before training (tfkaldi_tpu/nnet.py:158-178),
+        in f64: ``num_batches`` becomes the minimum over the ranks
+        (``limit_num_batches``), and the maximum ``max_target_length`` is
+        returned."""
+        import torch.distributed as dist
+
+        lo = torch.tensor([float(dispenser.num_batches)], dtype=torch.float64, device=self.device)
+        hi = torch.tensor([float(dispenser.max_target_length)], dtype=torch.float64, device=self.device)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dispenser.limit_num_batches(float(lo.item()))
+        return int(hi.item())
+
     def train(self, dispenser, *, init_state=None):
         """Train the network (nnet.py:156-305, one device). ``init_state``
         (a :class:`~tfkaldi_tpu_torch.train.trainer.TrainState`, e.g. from
@@ -136,8 +162,26 @@ class Nnet:
         training inputs (``spec_time_masks``, ``spec_time_width``,
         ``spec_freq_masks``, ``spec_freq_width``; the bands of the
         pre-splice dim); ``visualise = True`` writes TensorBoard event files
-        under ``<savedir>/logdir``. Returns the final state."""
+        under ``<savedir>/logdir``. Under a process group it trains on the
+        ``data x model`` grid of ``[nnet] model_parallel``
+        (:func:`~tfkaldi_tpu_torch.parallel.mesh.grid_shape`), ``dispenser``
+        serving this rank's share of the global batch. Returns the final
+        state (this rank's blocks of it on a grid)."""
         opts = NnetTrainOptions.from_config(self.conf, self.savedir)
+        mesh, batcher, rank = None, DeviceBatcher(), multihost.rank()
+        if multihost.is_initialized():
+            data, model = grid_shape(multihost.world_size(), int(self.conf.get("model_parallel", 1)), opts.batch_size)
+            agreed_target_length = self._agree(dispenser)
+            mesh = make_mesh(data, model)
+            log.info("training on a %dx%d grid of ranks (data x model)", data, model)
+            if multihost.world_size() > 1:
+                # pinned padded lengths (tfkaldi_tpu/nnet.py:245-260): every
+                # rank builds the same shapes; the corpus-wide maxlength for
+                # the frames, the agreed maximum for CTC targets
+                t_max = int(dispenser.max_input_length)
+                batcher = DeviceBatcher(fixed_input_length=t_max,
+                                        fixed_target_length=agreed_target_length if self.loss_type == "ctc"
+                                        else t_max)
         trainer_cfg = TrainerConfig(
             init_learning_rate=float(self.conf.get("initial_learning_rate", 1e-3)),
             learning_rate_decay=float(self.conf.get("learning_rate_decay", 1)),
@@ -152,12 +196,13 @@ class Nnet:
             spec_freq_width=int(self.conf.get("spec_freq_width", 8)),
             spec_raw_dim=self.raw_input_dim,
         )
-        trainer = Trainer(self.model.config, trainer_cfg, device=self.device)
-        metrics = MetricsLogger(os.path.join(self.savedir, "metrics.jsonl"))
-        # TensorBoard summaries (reference trainer.py:207-211, 249-258)
+        trainer = Trainer(self.model.config, trainer_cfg, device=self.device, mesh=mesh)
+        # rank 0 writes the primary metrics file, rank i its own (nnet.py:265-268)
+        metrics = MetricsLogger(os.path.join(self.savedir, "metrics.jsonl" if rank == 0 else f"metrics.p{rank}.jsonl"))
+        # TensorBoard summaries (reference trainer.py:207-211, 249-258), rank 0's
         viz = None
         metrics_hook, validation_hook = metrics, None
-        if str(self.conf.get("visualise", "False")) == "True":
+        if str(self.conf.get("visualise", "False")) == "True" and rank == 0:
             viz = TensorBoardVisualizer(os.path.join(self.savedir, "logdir"))
 
             def metrics_hook(**kw):
@@ -165,7 +210,7 @@ class Nnet:
                 viz(**kw)
 
             validation_hook = viz.validation
-        controller = TrainingController(trainer, dispenser, DeviceBatcher(), opts, metrics_hook=metrics_hook,
+        controller = TrainingController(trainer, dispenser, batcher, opts, metrics_hook=metrics_hook,
                                         validation_hook=validation_hook)
         try:
             state = controller.train(init_state)

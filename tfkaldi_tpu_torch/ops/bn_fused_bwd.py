@@ -19,6 +19,15 @@ Port of :mod:`tfkaldi_tpu.ops.bn_fused_bwd`. :class:`BnReluLayer` is the
 - then ``db = Σdz`` and ``dW = hᵀ @ dz`` (a ``torch.matmul``, as the JAX
   package leaves it to XLA).
 
+Under a data split (:mod:`tfkaldi_tpu_torch.parallel.comm`) the forward's
+moments are the global batch's, and the backward sums ``S1`` and ``S2``
+over the data group before it forms ``c1`` and ``c2``, so the kernel runs
+on the rank's rows with the global batch's feedback terms. Under the
+column split the layer holds a block of ``H``: its moments stay per
+column, and the ``dh`` it returns is a partial sum that the caller's
+column gather (:func:`~tfkaldi_tpu_torch.parallel.comm.gather_columns`)
+reduces over the model group.
+
 The mask is a plain ``[N]`` float32 row mask: the TPU kernel's 128-lane
 broadcast of it was a Mosaic block-alignment artefact.
 """
@@ -27,8 +36,11 @@ from __future__ import annotations
 
 import torch
 
+import torch.distributed as dist
+
 from tfkaldi_tpu_torch.layers import affine, batchnorm, masked_moments
 from tfkaldi_tpu_torch.ops import _build
+from tfkaldi_tpu_torch.parallel import comm
 from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan, tma_ok
 
 launches = 0  # wrapper calls that launched the kernel since the last reset (read by chip_smoke.py)
@@ -81,6 +93,8 @@ def bn_dgrad(g, z, mask, w, mean, r, beta, c1, c2, *, need_dh: bool = True):
     k = w.shape[0]
     if mask.shape != (n,):
         raise ValueError(f"bn_dgrad: mask must be [{n}]")
+    if n == 0:  # a rank's empty slice of a micro-batch: nothing to launch
+        return (g.new_empty((0, k)) if need_dh else None), torch.empty_like(z)
     vecs = []
     for name, v in (("mean", mean), ("r", r), ("beta", beta), ("c1", c1), ("c2", c2)):
         if v.shape != (h,) or v.device != g.device:
@@ -127,6 +141,7 @@ class BnReluLayer(torch.autograd.Function):
         mean, var, count = masked_moments(zf, mask)
         act = torch.relu(batchnorm(zf, mean, var, beta, eps, cd))
         ctx.eps = eps
+        ctx.split = comm.row_split()  # the data group the backward sums S1 and S2 over
         ctx.save_for_backward(h, w, beta, mask, z, mean, var, count)
         ctx.mark_non_differentiable(mean, var)
         return act, mean, var
@@ -142,6 +157,11 @@ class BnReluLayer(torch.autograd.Function):
         dpre = torch.where(bn > 0, g.float(), 0.0) * mask[:, None]
         s1 = dpre.sum(0)
         s2 = (dpre * xhat).sum(0)
+        dbeta = s1  # this rank's rows: the trainer sums the gradients over the data group
+        if ctx.split is not None:  # the global batch's feedback terms (one collective)
+            s12 = torch.stack([s1, s2])
+            dist.all_reduce(s12, group=ctx.split.group)
+            s1, s2 = s12[0], s12[1]
         c1 = r * s1 / count
         c2 = r * r * r * s2 / count
         del zf, xhat, bn, dpre
@@ -150,4 +170,4 @@ class BnReluLayer(torch.autograd.Function):
         dzf = dz.float()
         db = dzf.sum(0)
         dw = torch.matmul(h.float().t(), dzf)
-        return dh, dw, db, s1, None, None
+        return dh, dw, db, dbeta, None, None

@@ -653,3 +653,64 @@ def write_char_arpa(path: str, text_files: list[str], *, coder=None, order: int 
                 f.write(f"{logp[g]:.6f}\t{' '.join(g)}{bo}\n")
         f.write("\n\\end\\\n")
     return sum(len(g) for g in grams)
+
+
+def make_featdir(
+    root: str,
+    num_speakers: int = 2,
+    utts_per_speaker: int = 6,
+    feat_dim: int = 8,
+    num_labels: int = 10,
+    min_frames: int = 20,
+    max_frames: int = 60,
+    seed: int = 0,
+    learnable: bool = False,
+):
+    """A featdir with no audio behind it, the tests' ``make_featdir``
+    (tests/synthetic.py): ``<root>/featdir`` with feats.ark/scp,
+    cmvn.ark/scp (f32 stats), utt2spk, spk2utt and maxlength, and a gzipped
+    pdf alignment archive ``<root>/pdf.all.gz``. ``learnable`` derives each
+    frame's pdf from a fixed random linear map of its features, so that a
+    trained model's validation loss falls. Returns ``(featdir, alifile,
+    info)``; the same seed gives the same bytes as the tests' copy."""
+    from tfkaldi_tpu_torch.frontend.cmvn import cmvn_stats
+    from tfkaldi_tpu_torch.io import ArkWriter
+
+    rng = np.random.default_rng(seed)
+    featdir = os.path.join(str(root), "featdir")
+    os.makedirs(featdir, exist_ok=True)
+    label_map = rng.standard_normal((feat_dim, num_labels)) if learnable else None
+    utts: dict[str, np.ndarray] = {}
+    utt2spk: dict[str, str] = {}
+    alignments: dict[str, np.ndarray] = {}
+    for s in range(num_speakers):
+        spk = f"spk{s}"
+        for u in range(utts_per_speaker):
+            utt = f"{spk}_utt{u}"
+            t = int(rng.integers(min_frames, max_frames + 1))
+            utts[utt] = (rng.standard_normal((t, feat_dim)) * 2 + s).astype(np.float32)
+            utt2spk[utt] = spk
+            if learnable:
+                alignments[utt] = np.argmax(utts[utt] @ label_map, axis=1).astype(np.int32)
+            else:
+                alignments[utt] = rng.integers(0, num_labels, size=t).astype(np.int32)
+    with ArkWriter(f"{featdir}/feats.scp", f"{featdir}/feats.ark") as w:
+        for utt, mat in utts.items():
+            w.write_next_utt(utt, mat)
+    speakers = [f"spk{s}" for s in range(num_speakers)]
+    with ArkWriter(f"{featdir}/cmvn.scp", f"{featdir}/cmvn.ark") as w:
+        for spk in speakers:
+            frames = np.concatenate([m for u, m in utts.items() if utt2spk[u] == spk], axis=0)
+            w.write_next_utt(spk, cmvn_stats(frames).astype(np.float32))
+    with open(f"{featdir}/utt2spk", "w") as f:
+        f.writelines(f"{utt} {spk}\n" for utt, spk in utt2spk.items())
+    with open(f"{featdir}/spk2utt", "w") as f:
+        f.writelines(f"{spk} {' '.join(u for u in utts if utt2spk[u] == spk)}\n" for spk in speakers)
+    with open(f"{featdir}/maxlength", "w") as f:
+        f.write(str(max(m.shape[0] for m in utts.values())))
+    alifile = os.path.join(str(root), "pdf.all.gz")
+    with gzip.open(alifile, "wt") as f:
+        f.writelines(utt + " " + " ".join(str(int(x)) for x in ali) + "\n" for utt, ali in alignments.items())
+    info = {"utts": utts, "utt2spk": utt2spk, "alignments": alignments, "num_labels": num_labels,
+            "feat_dim": feat_dim}
+    return featdir, alifile, info

@@ -12,6 +12,13 @@ steps, and the rollback point ``validated.pt`` with its
 ``validated.meta.json`` sidecar ``{loss, step}``, written only after the
 state. The decode model ``<savedir>/final.pt`` stays the bare model
 ``state_dict`` (:func:`tfkaldi_tpu_torch.convert.save_checkpoint`).
+
+On a grid of ranks (``state.mesh``) there is one writer
+(tfkaldi_tpu/train/checkpoint.py:109): the split tensors are gathered over
+the model group, the grid's first rank writes the same file a single
+process writes, and every rank waits at a barrier after it. A restore
+reads the whole file on every rank and keeps the rank's blocks, so a
+checkpoint written on one grid resumes or decodes on any other.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import os
 import numpy as np
 import torch
 
+from tfkaldi_tpu_torch.parallel.mesh import full_state_dict, local_state_dict
 from tfkaldi_tpu_torch.train.trainer import TrainState
 
 
@@ -37,37 +45,62 @@ def _cpu(tensors: dict) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
+def writes(state: TrainState) -> bool:
+    """Whether this process writes the run's files: always alone, on a
+    grid only its first rank."""
+    return state.mesh is None or state.mesh.writer
+
+
+def barrier(state: TrainState) -> None:
+    """After a write: the grid's ranks wait for the writer (a no-op
+    alone)."""
+    if state.mesh is not None:
+        state.mesh.barrier()
+
+
+def model_state_dict(state: TrainState) -> dict:
+    """The whole model ``state_dict`` on the CPU (gathered over the model
+    group on a grid: every rank of it must call this)."""
+    return full_state_dict(state.model, state.mesh)
+
+
 def save_state(path: str, state: TrainState) -> None:
-    """Write ``state`` to ``path`` (a ``.pt`` file), atomically."""
-    _atomic_save(
-        {
-            "step": int(state.step),
-            "lr_fact": float(state.lr_fact),
-            "adam_t": int(state.adam_t),
-            "seed": int(state.seed),
-            "model": _cpu(state.model.state_dict()),
-            "adam_m": _cpu(state.adam_m),
-            "adam_v": _cpu(state.adam_v),
-        },
-        path,
-    )
+    """Write ``state`` to ``path`` (a ``.pt`` file), atomically; on a grid
+    the whole state, by its first rank, then a barrier."""
+    mesh = state.mesh
+    blob = {
+        "step": int(state.step),
+        "lr_fact": float(state.lr_fact),
+        "adam_t": int(state.adam_t),
+        "seed": int(state.seed),
+        "model": model_state_dict(state),
+        "adam_m": full_state_dict(state.model, mesh, state.adam_m) if mesh else _cpu(state.adam_m),
+        "adam_v": full_state_dict(state.model, mesh, state.adam_v) if mesh else _cpu(state.adam_v),
+    }
+    if writes(state):
+        _atomic_save(blob, path)
+    barrier(state)
 
 
 def restore_state(path: str, template: TrainState) -> TrainState:
-    """A new state read from ``path``, on the template's device; the
-    template is left as it is."""
+    """A new state read from ``path``, on the template's device and, on a
+    grid, split as the template is (this rank's blocks of the whole saved
+    state); the template is left as it is."""
     saved = torch.load(path, map_location="cpu", weights_only=True)
     model = copy.deepcopy(template.model)
-    model.load_state_dict(saved["model"])
+    mesh = template.mesh
+    local = (lambda d: d) if mesh is None else (lambda d: local_state_dict(template.model, d, mesh))
+    model.load_state_dict(local(saved["model"]))
     device = next(model.parameters()).device
     return TrainState(
         step=int(saved["step"]),
         lr_fact=float(saved["lr_fact"]),
         model=model,
-        adam_m={k: v.to(device) for k, v in saved["adam_m"].items()},
-        adam_v={k: v.to(device) for k, v in saved["adam_v"].items()},
+        adam_m={k: v.to(device) for k, v in local(saved["adam_m"]).items()},
+        adam_v={k: v.to(device) for k, v in local(saved["adam_v"]).items()},
         adam_t=int(saved["adam_t"]),
         seed=int(saved["seed"]),
+        mesh=mesh,
     )
 
 
@@ -88,12 +121,15 @@ def save_validated(path: str, state: TrainState, loss: float, step: int) -> None
     ``training/validated`` on every successful validation,
     nnet.py:148-149, 206-207). The loss/step sidecar is written only after
     the state, so a crash mid-save never leaves a sidecar pointing at a
-    partial state."""
+    partial state. On a grid the first rank writes both, then a
+    barrier."""
     save_state(path, state)
-    tmp = _meta_path(path) + ".tmp"
-    with open(tmp, "w") as fid:
-        json.dump({"loss": float(loss), "step": int(step)}, fid)
-    os.replace(tmp, _meta_path(path))
+    if writes(state):
+        tmp = _meta_path(path) + ".tmp"
+        with open(tmp, "w") as fid:
+            json.dump({"loss": float(loss), "step": int(step)}, fid)
+        os.replace(tmp, _meta_path(path))
+    barrier(state)
 
 
 def load_validated_meta(path: str) -> dict | None:
@@ -117,6 +153,7 @@ def device_snapshot(state: TrainState) -> TrainState:
         adam_v={k: v.clone() for k, v in state.adam_v.items()},
         adam_t=state.adam_t,
         seed=state.seed,
+        mesh=state.mesh,
     )
 
 

@@ -24,6 +24,17 @@ Port of :mod:`tfkaldi_tpu.train.controller` for one device:
   ``<savedir>/profile`` (:class:`ProfileWindow`; controller.py:288-298),
   taken once and stopped on every way out of the window: its end, a
   validation rollback, termination or an exception.
+
+On a grid of ranks (a :class:`~tfkaldi_tpu_torch.train.trainer.Trainer`
+with a ``mesh``; tfkaldi_tpu/train/controller.py with a mesh) each rank
+carves its validation batches from its own shard and rewinds and
+fast-forwards its own loader; the validation loss is the global one
+(:meth:`Trainer.evaluate`), so every rank takes the same rollback decision;
+checkpoints and ``final.pt`` are gathered and written by the grid's first
+rank (:mod:`tfkaldi_tpu_torch.train.checkpoint`); the prior's counts are
+summed over the data group in int64 and the first rank writes
+``prior.npy``, then a barrier (tfkaldi_tpu/train/controller.py:216-232);
+the profile trace is the first rank's.
 """
 
 from __future__ import annotations
@@ -36,11 +47,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tfkaldi_tpu_torch.convert import save_checkpoint
 from tfkaldi_tpu_torch.data.batching import DeviceBatcher, PaddedBatch
 from tfkaldi_tpu_torch.data.dispenser import BatchDispenser
 from tfkaldi_tpu_torch.data.prefetch import PrefetchingBatchSource
+from tfkaldi_tpu_torch.parallel.mesh import shard_state
 from tfkaldi_tpu_torch.train import checkpoint as ckpt
 from tfkaldi_tpu_torch.train.trainer import Trainer, TrainState
 from tfkaldi_tpu_torch.utils.profiling import Trace
@@ -165,6 +178,8 @@ class TrainingController:
 
         if state is None:
             state = self.trainer.init_state(opt.seed)
+        elif self.trainer.mesh is not None and state.mesh is None:
+            state = shard_state(state, self.trainer.mesh)
         if step > 0:
             state = ckpt.restore_state(self._step_path(step), state)
 
@@ -208,7 +223,7 @@ class TrainingController:
         source = PrefetchingBatchSource(
             self.dispenser, self.batcher, depth=self.prefetch_depth, device=self.device
         )
-        profile = ProfileWindow(opt)
+        profile = ProfileWindow(opt if ckpt.writes(state) else dataclasses.replace(opt, profile_steps=0))
         try:
             state = self._train_loop(
                 state, source, step, num_steps, val_batches,
@@ -220,12 +235,21 @@ class TrainingController:
 
         if opt.average_last > 1:
             state = self._average_final(state)
-        save_checkpoint(opt.savedir, state.model.state_dict())
+        final = ckpt.model_state_dict(state)
+        if ckpt.writes(state):
+            save_checkpoint(opt.savedir, final)
 
-        # state prior (nnet.py:240-244)
-        counts = self.dispenser.compute_target_count().astype(np.float64)
+        # state prior (nnet.py:240-244), over the global training set on a grid
+        counts = self.dispenser.compute_target_count().astype(np.int64)
+        if state.mesh is not None:
+            summed = torch.from_numpy(counts).to(self.device)
+            dist.all_reduce(summed, group=state.mesh.data_group)
+            counts = summed.cpu().numpy()
+        counts = counts.astype(np.float64)
         prior = (counts / counts.sum()).astype(np.float32)
-        ckpt.save_prior(os.path.join(opt.savedir, "prior.npy"), prior)
+        if ckpt.writes(state):
+            ckpt.save_prior(os.path.join(opt.savedir, "prior.npy"), prior)
+        ckpt.barrier(state)
         return state
 
     def _average_final(self, state: TrainState) -> TrainState:

@@ -30,6 +30,20 @@ recipe's joint loss and the transducer recipe's lattice loss:
   :func:`spec_augment_apply` applies them, a pure function of the bands
   and the batch.
 
+On a grid of ranks (``Trainer(..., mesh=...)``, see
+:mod:`tfkaldi_tpu_torch.parallel`) ``[nnet] batch_size`` is the global
+batch, the ranks' local batches concatenated in the order of their data
+index, and a step is the global batch's (tfkaldi_tpu/nnet.py:200-205): the
+summed loss, the frame count and the summed gradients are all-reduced over
+the data group in one collective, then divided by the global frame count
+and clipped, in that order (DDP's average over ranks is another function).
+Micro-batch ``j`` is global rows ``[j·B/k, (j+1)·B/k)``: each rank runs its
+own rows of that range, none at all on some ranks, and joins every
+collective. Batchnorm moments and dropout and SpecAugment draws are the
+global batch's (:mod:`tfkaldi_tpu_torch.parallel.comm`), so the result
+does not depend on the grid. Evaluation sums loss and frames over the data
+group.
+
 The state is a :class:`TrainState`; :meth:`Trainer.update` updates its
 model and Adam slots in place and returns it. Dropout masks and
 SpecAugment bands come from two generators seeded from ``(seed, step)``
@@ -41,16 +55,20 @@ threefry stream does not carry over).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tfkaldi_tpu_torch.data.batching import PaddedBatch
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.models import build_model
 from tfkaldi_tpu_torch.ops import rnnt_loss
+from tfkaldi_tpu_torch.parallel import comm
+from tfkaldi_tpu_torch.parallel.mesh import batch_sharding, shard_state
 from tfkaldi_tpu_torch.train import ctc
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -80,17 +98,21 @@ class TrainerConfig:
 
 
 def spec_augment_draw(generator: torch.Generator, batch_size: int, n_masks: int, max_width: int,
-                      limits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                      limits: torch.Tensor, rows: slice | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``n_masks`` random bands per row, as JAX draws them
     (trainer.py:371-375): ``widths`` uniform on ``[0, max_width]`` and
     ``starts`` a uniform draw on ``[0, 2³¹−1)`` taken modulo
     ``max(limit − width, 1)``, ``limits [B]`` the rows' own bound (frames,
     or the raw feature dim). Both ``[B, n_masks]`` int64 on the
-    generator's device."""
+    generator's device. With ``rows``, ``batch_size`` rows are drawn and
+    only ``rows`` of them kept (a rank's part of the global batch; then
+    ``limits`` covers those rows)."""
     device = generator.device
     shape = (int(batch_size), int(n_masks))
     widths = torch.randint(0, int(max_width) + 1, shape, generator=generator, device=device)
     starts = torch.randint(0, 2**31 - 1, shape, generator=generator, device=device)
+    if rows is not None:
+        widths, starts = widths[rows], starts[rows]
     span = torch.clamp(limits.to(device=device, dtype=torch.int64)[:, None] - widths, min=1)
     return widths, starts % span
 
@@ -145,6 +167,7 @@ class TrainState:
     adam_v: dict[str, torch.Tensor]
     adam_t: int
     seed: int
+    mesh: object = None  # the grid of ranks the state is split over (parallel.mesh.shard_state), or None
 
     def params(self) -> dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -157,14 +180,17 @@ class Trainer:
     (:func:`~tfkaldi_tpu_torch.models.build_model`: ``DNNConfig`` → DNN,
     ``RNNConfig`` → LSTM or GRU, ``TransformerConfig`` → Transformer,
     ``Seq2SeqConfig`` → AttentionSeq2Seq, ``TransducerConfig`` →
-    Transducer)."""
+    Transducer). With ``mesh`` (a :class:`~tfkaldi_tpu_torch.parallel.mesh.Mesh`)
+    the states it makes are split over that grid and its steps are the
+    global batch's."""
 
-    def __init__(self, model_config, config: TrainerConfig, device: str | torch.device = "cuda"):
+    def __init__(self, model_config, config: TrainerConfig, device: str | torch.device = "cuda", mesh=None):
         if config.loss_type not in ("cross_entropy", "ctc", "attention", "rnnt"):
             raise ValueError(f"unknown loss {config.loss_type!r}")
         self.model_config = model_config
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     # ------------------------------------------------------------------
     # state
@@ -172,12 +198,13 @@ class Trainer:
 
     def init_state(self, seed: int) -> TrainState:
         """A fresh state: the model initialised from a CPU generator seeded
-        with ``seed`` (the same weights on every device), zero Adam slots."""
+        with ``seed`` (the same weights on every device), zero Adam slots;
+        split over the trainer's grid when it has one."""
         model = build_model(self.model_config)
         model.reset_parameters(torch.Generator().manual_seed(int(seed)))
         model.to(self.device)
         params = dict(model.named_parameters())
-        return TrainState(
+        state = TrainState(
             step=0,
             lr_fact=1.0,
             model=model,
@@ -186,6 +213,7 @@ class Trainer:
             adam_t=0,
             seed=int(seed),
         )
+        return state if self.mesh is None else shard_state(state, self.mesh)
 
     def dropout_generator(self, state: TrainState) -> torch.Generator | None:
         """The step's dropout generator, seeded from ``(seed, step)``; None
@@ -203,13 +231,18 @@ class Trainer:
         cfg = self.config
         b = batch.inputs.shape[0]
         gen = _step_generator(self.device, state.seed, state.step, 0x5AEC)
+        n, rows = b, None
+        if state.mesh is not None:  # this rank's rows of the global batch's draw
+            n = b * state.mesh.data
+            rows = batch_sharding(state.mesh, n)
         time_bands = freq_bands = None
         if cfg.spec_time_masks > 0 and cfg.spec_time_width > 0:
-            time_bands = spec_augment_draw(gen, b, cfg.spec_time_masks, cfg.spec_time_width, batch.input_lengths)
+            time_bands = spec_augment_draw(gen, n, cfg.spec_time_masks, cfg.spec_time_width, batch.input_lengths,
+                                           rows)
         if cfg.spec_freq_masks > 0 and cfg.spec_freq_width > 0:
             raw = cfg.spec_raw_dim or batch.inputs.shape[2]
             limits = torch.full((b,), raw, dtype=torch.int64, device=self.device)
-            freq_bands = spec_augment_draw(gen, b, cfg.spec_freq_masks, cfg.spec_freq_width, limits)
+            freq_bands = spec_augment_draw(gen, n, cfg.spec_freq_masks, cfg.spec_freq_width, limits, rows)
         return spec_augment_apply(batch, time_bands, freq_bands, cfg.spec_raw_dim)
 
     # ------------------------------------------------------------------
@@ -317,21 +350,32 @@ class Trainer:
     def gradients(self, state: TrainState, batch: PaddedBatch, generator=None):
         """Summed gradients over the microbatches, the summed loss and the
         frame count. Parameters that do not reach the loss (hidden layers
-        past the depth selector) get zero gradients, as under autodiff."""
+        past the depth selector) get zero gradients, as under autodiff. On
+        a grid all three are the global batch's, summed over the data
+        group."""
         model = state.model
+        mesh = state.mesh
         for p in model.parameters():
             p.grad = None
         k = self.config.micro_batches
         b = batch.inputs.shape[0]
-        if b % k != 0:
-            raise ValueError(f"batch size {b} not divisible by micro_batches {k}")
-        micro = b // k
+        n_global = b if mesh is None else b * mesh.data
+        if n_global % k != 0:
+            raise ValueError(f"batch size {n_global} not divisible by micro_batches {k}")
+        micro = n_global // k
+        first = 0 if mesh is None else b * mesh.data_index  # this rank's first global row
         loss_total = torch.zeros((), device=self.device)
         frames_total = torch.zeros((), device=self.device)
-        for i in range(0, b, micro):
-            mb = PaddedBatch(*(a[i : i + micro] for a in batch.fields()))
-            loss, frames = self._loss_sum(model, mb, train=True, generator=generator)
-            loss.backward()
+        for j in range(k):
+            # this rank's rows of global micro-batch j (none on some ranks)
+            lo, hi = max(j * micro, first), min((j + 1) * micro, first + b)
+            lo, hi = (lo, hi) if hi > lo else (first, first)
+            mb = PaddedBatch(*(a[lo - first: hi - first] for a in batch.fields()))
+            split = (contextlib.nullcontext() if mesh is None
+                     else comm.data_split(mesh.data_group, micro, lo - j * micro if hi > lo else 0))
+            with split:
+                loss, frames = self._loss_sum(model, mb, train=True, generator=generator)
+                loss.backward()
             loss_total += loss.detach()
             frames_total += frames
         grads = {
@@ -340,6 +384,10 @@ class Trainer:
         }
         for p in model.parameters():
             p.grad = None
+        if mesh is not None:  # the global batch's, in one all-reduce
+            *summed, loss_total, frames_total = comm.all_reduce_tensors([*grads.values(), loss_total, frames_total],
+                                                                        mesh.data_group)
+            grads = dict(zip(grads, summed))
         return grads, loss_total, frames_total
 
     # ------------------------------------------------------------------
@@ -395,6 +443,10 @@ class Trainer:
                 loss, frames = self._loss_sum(state.model, batch, train=False)
                 total_loss += float(loss)
                 total_frames += float(frames)
+            if state.mesh is not None:  # the global validation set's, the same value on every rank
+                sums = torch.tensor([total_loss, total_frames], dtype=torch.float64, device=self.device)
+                dist.all_reduce(sums, group=state.mesh.data_group)
+                total_loss, total_frames = (float(v) for v in sums.cpu())
         return total_loss / max(total_frames, 1.0)
 
     @staticmethod
