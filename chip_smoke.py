@@ -23,7 +23,15 @@ accuracy gates.
    w [2048,2048] and [440,2048] and the dz-only launch of the first layer,
    f32 and bf16, and a bf16 case at N = 8192. Kernels 1 and 3 must take
    the TMA route of the GEMM core at all these shapes; each row prints its
-   route, tile, grid and shared memory (``gemm_plan``); the recurrences (kernels 4-7) at one layer of the repo's
+   route, tile, grid and shared memory (``gemm_plan``); kernel 1 below one
+   wave of tiles (``check_ffn_streaming``: the streamed DNN's 8-600 rows,
+   K 440 and 2048, f32 and bf16; ``ffn_small_row``) on the route its plan
+   names (``splitk``: K split over grid z, the partials summed in a fixed
+   order, two calls bit-equal; or ``tma``; on 128-row tiles or the 64-row
+   half tile), timed by its own device time
+   (torch.profiler) beside CUDA events around its wrapper, the wrapper's
+   host microseconds a call, the plain version, ``torch.matmul`` and the
+   bound; the recurrences (kernels 4-7) at one layer of the repo's
    BiLSTM/BiGRU, T 512, B 128, H 512, f32 and bf16, ragged lengths of
    204-512 frames with garbage in the padding: every output and residual,
    the backward alone on the plain residuals, and their times beside
@@ -57,7 +65,8 @@ accuracy gates.
    lowered. Counts reset before, read after: bn_dgrad launches = 6 per
    train step; the step-0 loss is ln 2000 (zero output layer); the ark
    covers the test set; kernel 3's launches are on the TMA route (layer 0: the dz pass
-   alone), kernel 1's all on the TMA route, kernel 2's all on the bulk
+   alone), kernel 1's each on the route its plan names for its shape
+   (TMA at the recipe's batches, none SIMT), kernel 2's all on the bulk
    route. Then, from the step-2 checkpoint, with the kernels and with the
    plain versions: the validation loss over the validation batches (the number that decides a
    rollback) and the eval logits agree; one full-width step on one batch
@@ -194,7 +203,8 @@ accuracy gates.
    the streaming path's offline features too, kernels 4 and 5 count the
    BiLSTM, the CTC, the transducer, the held-out gates and, kernel 4,
    the text decode and streaming paths; kernels 1 and 3 the held-out
-   gates of their dtype too), then the final JSON line.
+   gates of their dtype too; kernel 1's also by route, ``launches_by_route``),
+   then the final JSON line.
 
 Any failure raises and exits non-zero; nothing is caught and passed over.
 """
@@ -211,6 +221,11 @@ import shutil
 import subprocess
 import sys
 import time
+
+# kernel 1's tolerance, the card's peaks and bound, the windowed events
+# timer and bench.py's streaming sweep, shared with the kernel-1 profiler
+from tfkaldi_tpu_torch.profile_ffn import FFN_TOL, PEAK_BF16, PEAK_F32, PEAK_F64, bench_sweep, bound
+from tfkaldi_tpu_torch.profile_ffn import events_ms as ms_median
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -244,7 +259,6 @@ SPEC_DRAWS = 200  # SpecAugment draws whose masked share is held to its expectat
 NUM_PDFS = 2000
 HIDDEN_UNITS = 2048
 HIDDEN_LAYERS = 6
-FFN_TOL = {"float32": 1e-4, "bfloat16": 0.0625}  # see check_ffn
 LIKE_TOL = 1e-3
 # kernel 3 vs its plain version, max|diff| / max|ref| (see check_bn_dgrad)
 BN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
@@ -307,11 +321,6 @@ def bf16_rounds(mine: float, theirs: float) -> bool:
     the plain bf16 version's, less RNN_F32_TOL. A kernel that skipped those
     roundings would sit near zero there."""
     return mine >= theirs / RNN_BF16_RATIO - RNN_F32_TOL
-# H100 SXM peaks (NVIDIA data sheet): f32 and f64 outside the tensor cores, HBM
-PEAK_F32 = 67e12
-PEAK_F64 = 34e12
-PEAK_BF16 = 989e12  # dense, tensor cores
-PEAK_BYTES = 3.35e12
 
 
 def log(*parts) -> None:
@@ -334,44 +343,35 @@ def ms_per_call(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def ms_median(fn, calls: int = 20, windows: int = 3) -> float:
-    """ms a call: the median over ``windows`` windows of ``calls`` calls each
-    (CUDA events around each window), after 3 warm-up calls. The
-    recurrences and their library yardstick are timed so: a single short
-    window let cuDNN's bf16 backward wander from run to run."""
-    import statistics
-
-    return statistics.median(ms_per_call(fn, iters=calls) for _ in range(windows))
-
-
-def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32) -> dict:
-    """The least time the card could take: the larger of operations over
-    the peak rate and bytes over the memory rate."""
-    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def plan_text(plan) -> str:
+    split = f" x {plan.splits} splits of {plan.slabs} slabs ({plan.ctas} CTAs)" if plan.route == "splitk" else ""
     return (f"route {plan.route}, tile {plan.bm}x{plan.bn}x{plan.bk} x {plan.stages} stages, grid "
-            f"{plan.grid[0]}x{plan.grid[1]} of {plan.threads} threads, {plan.smem_bytes} B of shared memory")
+            f"{plan.grid[0]}x{plan.grid[1]}{split} of {plan.threads} threads, {plan.smem_bytes} B of shared memory")
 
 
-def check_plan(plan, dtype) -> None:
-    """A recipe shape must take the TMA route, and the plan's shared memory
-    must be the one the source sets (``tk_gemm_smem``)."""
+def check_plan(plan, dtype, routes=("tma",)) -> None:
+    """A recipe shape must take the TMA route on full tiles (a shape below
+    one wave of tiles the TMA or split route, ``routes``, on either tile),
+    and the plan's shared memory and blocks an SM must be the ones the
+    source sets for its tile (``tk_gemm_smem``, ``tk_gemm_blocks_per_sm``:
+    the split route's blocks are the TMA route's)."""
     import torch
 
     from tfkaldi_tpu_torch.ops import _build
+    from tfkaldi_tpu_torch.ops.gemm_plan import blocks_per_sm
 
-    if plan.route != "tma":
-        raise AssertionError(f"a recipe shape took the {plan.route} route")
-    want = _build.load().tk_gemm_smem(int(dtype == torch.bfloat16))
+    if plan.route not in routes or (routes == ("tma",) and plan.bm != 128):
+        raise AssertionError(f"a shape took the {plan.route} route on {plan.bm}-row tiles, want {routes}")
+    lib, bf16 = _build.load(), int(dtype == torch.bfloat16)
+    want = lib.tk_gemm_smem(bf16, plan.bm)
     if plan.smem_bytes != want:
         raise AssertionError(f"gemm_plan's shared memory {plan.smem_bytes} B, the source's {want} B")
+    if blocks_per_sm(dtype, plan.bm) != lib.tk_gemm_blocks_per_sm(bf16, plan.bm):
+        raise AssertionError(f"gemm_plan's blocks an SM at {plan.bm} rows differ from the source's")
 
 
 def check_ffn(card: str) -> dict:
@@ -864,17 +864,29 @@ def reset_counts() -> None:
         c.reset_counts()
 
 
+# kernel 1's launches on the main paths by compute dtype and route (the
+# kernels line), added where each path reads its counts
+FFN_ROUTES = {"float32": {}, "bfloat16": {}}
+
+
+def add_ffn_routes(dtype: str, by_route: dict) -> None:
+    for route, count in by_route.items():
+        FFN_ROUTES[dtype][route] = FFN_ROUTES[dtype].get(route, 0) + count
+
+
 def check_dnn_routes(tag: str, steps: int) -> None:
-    """A DNN training path's kernel-1 and kernel-3 launches by route: every
-    kernel-1 launch (validation, decode) on the TMA route; kernel 3 once per
-    hidden layer per step, layers 1-5 on the TMA route and layer 0 (whose
-    input needs no gradient) on the dz pass alone; no SIMT edge launch."""
+    """A DNN training path's kernel-1 and kernel-3 launches by route:
+    kernel 1 (validation, decode) on the TMA route at the recipe's batches
+    (split-K only for a batch the plan splits: a short last one); kernel 3
+    once per hidden layer per step, layers 1-5 on the TMA route and layer 0
+    (whose input needs no gradient) on the dz pass alone; no SIMT edge
+    launch."""
     from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp
 
     ffn, bn = dict(fused_mlp.launches_by_route), dict(bn_fused_bwd.launches_by_route)
     log(f"{tag} launches by route: fused_ffn {ffn}, bn_dgrad {bn} ({steps} train steps)")
     if not (ffn["tma"] > 0 and ffn["simt"] == 0):
-        raise AssertionError(f"{tag}: fused_ffn routes {ffn}, want all on tma")
+        raise AssertionError(f"{tag}: fused_ffn routes {ffn}, want tma (and splitk where planned), no simt")
     if bn != {"tma": (HIDDEN_LAYERS - 1) * steps, "dz": steps, "simt": 0}:
         raise AssertionError(f"{tag}: bn_dgrad routes {bn}, want tma {(HIDDEN_LAYERS - 1) * steps}, dz {steps}")
 
@@ -968,6 +980,7 @@ def train_path(card: str) -> tuple[dict, dict, dict]:
         raise RuntimeError(f"cli.main training path: rc {rc}")
     launches = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches,
                 "bn_dgrad": bn_fused_bwd.launches}
+    add_ffn_routes("float32", fused_mlp.launches_by_route)
     savedir = ws["savedir"]
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
@@ -1190,6 +1203,8 @@ def _mp_run(card: str, ws: dict, nproc: int, nnet: dict, want_grid: tuple) -> tu
     }
     launches = {"fused_ffn": sum(sum(r["fused_ffn"].values()) for r in ranks),
                 "bn_dgrad": sum(sum(r["bn_dgrad"].values()) for r in ranks)}
+    for r in ranks:
+        add_ffn_routes("float32", r["fused_ffn"])
     return times, launches
 
 
@@ -1229,6 +1244,7 @@ def bf16_dnn_path(card: str, ws: dict) -> tuple[dict, object, str]:
     if rc != 0:
         raise RuntimeError(f"cli.main bf16 DNN path: rc {rc}")
     launches = {"fused_ffn": fused_mlp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    add_ffn_routes("bfloat16", fused_mlp.launches_by_route)
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
     check_loader("bf16 DNN path", "alignment", cfg_path, len(steps))
@@ -1465,6 +1481,7 @@ def knobs_path(card: str, ws: dict) -> tuple[dict, dict]:
     if rc != 0:
         raise RuntimeError(f"cli.main training knobs: rc {rc}")
     launches = {"fused_ffn": fused_mlp.launches, "bn_dgrad": bn_fused_bwd.launches}
+    add_ffn_routes("float32", fused_mlp.launches_by_route)
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
     check_loader("training knobs", "alignment", cfg_path, len(steps))
@@ -4508,11 +4525,11 @@ def check_hybrid_family(card: str, family: str, cfg_path: str, savedir: str, ws:
 
 # kernel 1 at the streamed DNN's row counts: B x T_pad with T padded to the
 # emitters' frame_bucket of 8 (chunks of 4, 16 and 64 frames at batch 1, 8
-# ragged rows), below one 128-row TMA tile or with a ragged last one
+# ragged rows), below one 128-row TMA tile or with a ragged last one: the
+# split route's shapes
 STREAM_FFN_ROWS = (8, 16, 64, 72, 600)
 HYBRID_STREAM_UTTS = 8  # test utterances a streamed check runs, at batch 1 and as 8 ragged rows
 HYBRID_CHUNKS = (4, 16, 64)  # frames a feature chunk: 40, 160 and 640 ms at the 10 ms step (bench.py:1013)
-HYBRID_TIMED_AUDIO_S = 10.0  # audio a timed sweep pushes (bench.py's sweep pushes 40 s)
 HYBRID_WINDOWED_CHUNK = 16
 # the delta front-end on the card against the offline extractor: derivative
 # columns (rtol, atol), the f64 bar of tests/test_online_features.py; static
@@ -4548,16 +4565,68 @@ HELDOUT_FFN_CASES = ((2048, 48, 64, ("float32",)), (2048, 64, 64, ("float32",)),
 HELDOUT_BN_ROWS = 128 * 128  # kernel 3 at the flagship's training batch: 128 utterances x the 128-frame bucket
 
 
-def check_ffn_streaming(card: str) -> dict:
-    """Kernel 1 below one row tile: ``[n, K] @ [K, 2048]`` at n in
-    STREAM_FFN_ROWS, K 440 and 2048, f32 and bf16, each on the TMA route
-    its plan gives (TMA loads zeros past row n and the epilogue masks the
-    stores), held to the plain version within FFN_TOL and timed beside
-    ``torch.matmul`` and the bound. Returns ``{dtype: [rows]}``."""
+def ffn_small_row(card: str, tag: str, x, w, b, scale, shift) -> dict:
+    """Kernel 1 on ``x @ w`` below one wave of tiles: launched twice on the
+    route its plan names (``splitk`` where splitting K beats the TMA grid's
+    few CTAs, else ``tma``; on the 64-row half tile where it wins; never the
+    plain version), each launch counted
+    there; held to the plain version within FFN_TOL; the two calls
+    bit-equal on the split route (fixed split order, no atomics). Timed: its
+    device time (``profile_ffn.device_ms``: torch.profiler's kernels of 20
+    calls, the GEMM and the reduction, over 20), CUDA events around 20 calls
+    (where the host enqueues slower than the card runs, the host's time),
+    the wrapper's host microseconds a call (``profile_ffn.host_us``), beside
+    the plain version's and ``torch.matmul``'s events and the bound.
+    Returns the row."""
     import torch
 
+    from tfkaldi_tpu_torch import profile_ffn
     from tfkaldi_tpu_torch.ops import fused_mlp
     from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan
+
+    (n, k), m, dtype = x.shape, w.shape[1], x.dtype
+    name = str(dtype).replace("torch.", "")
+    plan = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr()))
+    check_plan(plan, dtype, ("tma", "splitk"))
+    before = dict(fused_mlp.launches_by_route)
+    got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=True)
+    again = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=True)
+    want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=True)
+    torch.cuda.synchronize()
+    if fused_mlp.launches_by_route != {**before, plan.route: before[plan.route] + 2}:
+        raise AssertionError(f"fused_ffn {tag} [{n},{k}]x[{k},{m}] {name}: launches {fused_mlp.launches_by_route} "
+                             f"(before {before}), want 2 more on {plan.route}")
+    err = (got.float() - want.float()).abs().max().item()
+    if not (err <= FFN_TOL[name] and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"fused_ffn {tag} {name} [{n},{k},{m}]: max|diff| {err} > {FFN_TOL[name]}")
+    repeat = bool(torch.equal(got, again))
+    if plan.route == "splitk" and not repeat:
+        raise AssertionError(f"fused_ffn {tag} {name} [{n},{k},{m}] on the split route: two calls differ")
+    call = lambda: fused_mlp.fused_ffn_block(x, w, b, scale, shift)  # noqa: E731
+    device_ms = profile_ffn.device_ms(call)
+    events_ms = ms_median(call)
+    host_us = profile_ffn.host_us(call)
+    plain_ms = ms_median(lambda: fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift))
+    library_ms = ms_median(lambda: torch.matmul(x, w))
+    b_ = profile_ffn.ffn_bound(n, k, m, dtype, affine=scale is not None)
+    log(f"fused_ffn {tag} [{n},{k}]x[{k},{m}] {name}: max|diff| {err!r} (tol {FFN_TOL[name]}), repeat bit-equal "
+        f"{repeat}, device {device_ms!r} ms, events {events_ms!r} ms ({events_ms / plain_ms!r} of the plain "
+        f"version's), host {host_us!r} us a call, plain {plain_ms!r} ms, library (torch.matmul) {library_ms!r} ms "
+        f"(device {device_ms / library_ms!r}x), bound {b_['bound_ms']!r} ms by {b_['bound_by']}; {plan_text(plan)} "
+        f"[{card}]")
+    return {"n": n, "k": k, "m": m, "dtype": name, "route": plan.route, "tile_rows": plan.bm, "splits": plan.splits,
+            "max_abs_err": err,
+            "bit_equal_repeat": repeat, "ms": device_ms, "events_ms": events_ms, "host_us": host_us,
+            "plain_ms": plain_ms, "library_ms": library_ms, **b_}
+
+
+def check_ffn_streaming(card: str) -> dict:
+    """Kernel 1 below one row tile: ``[n, K] @ [K, 2048]`` at n in
+    STREAM_FFN_ROWS, K 440 and 2048, f32 and bf16, by ``ffn_small_row``:
+    on the route its plan names, within FFN_TOL of the plain version,
+    bit-equal over two calls on the split route, timed by device, events
+    and host. Returns ``{dtype: [rows]}``."""
+    import torch
 
     gen = torch.Generator().manual_seed(1)
     m = HIDDEN_UNITS
@@ -4571,51 +4640,26 @@ def check_ffn_streaming(card: str) -> dict:
             shift = (torch.randn(m, generator=gen) * 0.1).cuda()
             for n in STREAM_FFN_ROWS:
                 x = torch.randn(n, k, generator=gen).to("cuda", dtype)
-                plan = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr()))
-                check_plan(plan, dtype)
-                before = fused_mlp.launches_by_route["tma"]
-                got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=True)
-                want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=True)
-                torch.cuda.synchronize()
-                if fused_mlp.launches_by_route["tma"] != before + 1:
-                    raise AssertionError(f"fused_ffn [{n},{k}] did not launch on the TMA route")
-                err = (got.float() - want.float()).abs().max().item()
-                kernel_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block(x, w, b, scale, shift))
-                plain_ms = ms_per_call(lambda: fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift))
-                library_ms = ms_per_call(lambda: torch.matmul(x, w))
-                b_ = bound(2 * n * k * m + 4 * n * m, nbytes(x, w, b, scale, shift, got),
-                           PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
-                log(f"fused_ffn streaming rows [{n},{k}]x[{k},{m}] {name}: max|diff| {err!r} (tol {FFN_TOL[name]}), "
-                    f"kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, library (torch.matmul) {library_ms!r} ms "
-                    f"({kernel_ms / library_ms!r}x), bound {b_['bound_ms']!r} ms by {b_['bound_by']}; "
-                    f"{plan_text(plan)} [{card}]")
-                if not (err <= FFN_TOL[name] and torch.isfinite(got.float()).all()):
-                    raise AssertionError(f"fused_ffn {name} [{n},{k},{m}]: max|diff| {err} > {FFN_TOL[name]}")
-                rows[name].append({"n": n, "k": k, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                                   "library_ms": library_ms, **b_})
+                rows[name].append(ffn_small_row(card, "streaming rows", x, w, b, scale, shift))
     return rows
 
 
-def bench_sweep(push, chunk_s: float, warmup: int = 8) -> dict:
-    """bench.py's streaming sweep (bench.py:1017-1038) over
-    HYBRID_TIMED_AUDIO_S of audio: ``push()`` once per chunk after
-    ``warmup`` pushes, each push's wall time (the likelihoods read back on
-    the host, as serving reads them); p50 and p99 in ms, and bench's
-    ``rtf``, audio seconds per wall second."""
-    import numpy as np
+def streamed_ffn_routes(dtype, calls: int, rows) -> dict:
+    """Kernel 1's launches by route that ``calls`` emitting calls of the
+    streamed DNN may make: layer 0 at K 440 and layers 1-5 at K 2048, each
+    at one of ``rows`` (the B x T_pad it can be given), on the route the
+    plan gives aligned operands there. ``{route: (least, most)}``: a
+    layer's launches count towards ``least`` where every row count plans
+    the same route for its K."""
+    from tfkaldi_tpu_torch.ops.gemm_plan import plan_uncached
 
-    n = max(8, int(round(HYBRID_TIMED_AUDIO_S / chunk_s)))
-    for _ in range(warmup):
-        push()
-    lat = np.empty(n)
-    t_start = time.perf_counter()
-    for i in range(n):
-        t0 = time.perf_counter()
-        push()
-        lat[i] = time.perf_counter() - t0
-    wall = time.perf_counter() - t_start
-    return {"p50_ms": float(np.percentile(lat, 50) * 1e3), "p99_ms": float(np.percentile(lat, 99) * 1e3),
-            "rtf": n * chunk_s / wall, "chunks": n}
+    want = {}
+    for k, layers in ((440, 1), (HIDDEN_UNITS, HIDDEN_LAYERS - 1)):
+        routes = {plan_uncached(n, k, HIDDEN_UNITS, dtype, "mn", True).route for n in rows}
+        for r in routes:
+            lo, hi = want.get(r, (0, 0))
+            want[r] = (lo + (layers * calls if len(routes) == 1 else 0), hi + layers * calls)
+    return want
 
 
 def hybrid_streaming_path(card: str, ws: dict, train_ws: dict, bf16_conf, families: dict, ctc_cfg: str,
@@ -4633,7 +4677,9 @@ def hybrid_streaming_path(card: str, ws: dict, train_ws: dict, bf16_conf, famili
       offline decode than RNN_BF16_RATIO times the bf16 offline decode's
       own distance, + RNN_F32_TOL: the stream's products have other row
       counts, which round otherwise). Kernel 1's counts reset before and
-      read after: 6 launches per emitting call, all on the TMA route;
+      read after: 6 launches per emitting call, each on the route its plan
+      names for the rows it can be given (``streamed_ffn_routes``), none
+      on the SIMT route;
     - bench.py's ``lstm_hybrid`` (2 x LSTM-512, unidirectional, bf16, 2000
       pdfs, seeded) through ``OnlineRecurrentDecoder`` at chunk 16, and the
       TDNN and CNN ``final.pt`` of ``hybrid_family_path`` through
@@ -4785,12 +4831,19 @@ def hybrid_streaming_path(card: str, ws: dict, train_ws: dict, bf16_conf, famili
                                                              got, off, off32)
         sync()
         routes = dict(fused_mlp.launches_by_route)
+        # B x T_pad: batch 1 or the ragged rows, T_pad a multiple of 8 up to
+        # the largest chunk and both contexts
+        rows = sorted({b * t for b in (1, len(feats)) for t in range(8, max(HYBRID_CHUNKS) + 2 * c + 8, 8)})
+        want = streamed_ffn_routes(getattr(torch, name), calls, rows)
         log(f"hybrid streaming {name} DNN (context {c}): {calls} emitting calls, kernel 1 launches {fused_mlp.launches} "
-            f"by route {routes} (want {HIDDEN_LAYERS} a call, all tma)")
-        if not (fused_mlp.launches == HIDDEN_LAYERS * calls > 0 and routes["simt"] == 0):
+            f"by route {routes} (want {HIDDEN_LAYERS} a call; by route, at {rows[0]}..{rows[-1]} rows: {want})")
+        if not (fused_mlp.launches == HIDDEN_LAYERS * calls > 0 and routes["simt"] == 0
+                and all(lo <= routes.get(r, 0) <= hi for r, (lo, hi) in want.items())
+                and set(routes) - set(want) <= {"simt"}):
             raise AssertionError(f"{name} DNN streaming: kernel 1 launches {fused_mlp.launches} by route {routes}, "
-                                 f"want {HIDDEN_LAYERS} x {calls} on tma")
+                                 f"want {HIDDEN_LAYERS} x {calls} within {want}, none on simt")
         launches[f"fused_ffn_{'f32' if name == 'float32' else 'bf16'}"] = fused_mlp.launches
+        add_ffn_routes(name, routes)
         timings[f"dnn_{name}_max_abs_diff"] = errs
         dnns[name] = (model, prior, c)
     log(f"phase hybrid streaming, DNN: {time.perf_counter() - t0!r} s")
@@ -4998,12 +5051,12 @@ def hybrid_streaming_path(card: str, ws: dict, train_ws: dict, bf16_conf, famili
 def check_heldout_kernels(card: str) -> dict:
     """Kernels 1, 4 and 5 against their plain versions at the held-out
     gates' shapes, which no other phase gives them: kernel 1 at
-    HELDOUT_FFN_CASES by the rules of ``check_ffn`` (the flagship's recipe
-    shapes on the TMA route; the hybrid gate's 48- and 64-wide layers on
-    the route their plan gives, printed), kernels 4 and 5 at
-    HELDOUT_RNN_SHAPES by ``check_rnn_kernels`` (f32 and bf16). Kernel 3 at
-    the flagship's batch is a case of ``check_bn_dgrad``. Returns the
-    kernel-1 rows."""
+    HELDOUT_FFN_CASES, the flagship's recipe shapes by the rules of
+    ``check_ffn`` (the TMA route), the hybrid gate's 48- and 64-wide layers
+    by ``ffn_small_row`` (the route their plan names, device, events and
+    host times); kernels 4 and 5 at HELDOUT_RNN_SHAPES by
+    ``check_rnn_kernels`` (f32 and bf16). Kernel 3 at the flagship's batch
+    is a case of ``check_bn_dgrad``. Returns the kernel-1 rows."""
     import torch
 
     from tfkaldi_tpu_torch.ops import fused_mlp
@@ -5017,9 +5070,11 @@ def check_heldout_kernels(card: str) -> dict:
             x = torch.randn(n, k, generator=gen).to("cuda", dtype)
             w = (torch.randn(k, m, generator=gen) / k ** 0.5).to("cuda", dtype)
             b = (torch.randn(m, generator=gen) * 0.1).cuda()
+            if m != HIDDEN_UNITS:
+                rows.append(ffn_small_row(card, "held-out", x, w, b, None, None))
+                continue
             plan = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr()))
-            if m == HIDDEN_UNITS:
-                check_plan(plan, dtype)
+            check_plan(plan, dtype)
             before = sum(fused_mlp.launches_by_route.values())
             got = fused_mlp.fused_ffn_block(x, w, b, None, None, relu=True)
             want = fused_mlp.fused_ffn_block_ref(x, w, b, None, None, relu=True)
@@ -5075,6 +5130,7 @@ def heldout_path(card: str) -> dict:
             raise AssertionError(f"held-out gate {name}: {bad}")
         for k in heldout.KERNELS:
             totals[f"{k}_{result['compute_dtype']}"] += sum(result["launches"][k].values())
+        add_ffn_routes(result["compute_dtype"], result["launches"]["fused_ffn"])
         results.append(result)
     log(f"phase held-out accuracy: {time.perf_counter() - t_phase!r} s, {len(results)} gates passed, launches "
         f"{json.dumps(totals)} [{card}]")
@@ -5171,7 +5227,8 @@ def main() -> int:
     if rc != 0:
         raise RuntimeError(f"cli.serve: rc {rc}")
     launches = {"fused_ffn": fused_mlp.launches, "frame_preemph": fp.launches}
-    log(f"main-path launches: {launches}")
+    add_ffn_routes("float32", fused_mlp.launches_by_route)
+    log(f"main-path launches: {launches}; kernel 1 by route {dict(fused_mlp.launches_by_route)}")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -5367,13 +5424,19 @@ def main() -> int:
     total["bn_dgrad"] += heldout_launches["bn_dgrad_float32"]
     for part in ("fwd", "bwd"):
         rnn_launches[f"lstm_{part}"] += sum(heldout_launches[f"lstm_{part}_{dt}"] for dt in ("float32", "bfloat16"))
+    ffn_launches = {"float32": total["fused_ffn"], "bfloat16": bf16_launches["fused_ffn"]
+                    + hyb_launches["fused_ffn_bf16"] + heldout_launches["fused_ffn_bfloat16"]}
+    for dtype, count in ffn_launches.items():
+        log(f"kernel 1 {dtype} main-path launches by route: {FFN_ROUTES[dtype]} ({count} in all)")
+        if sum(FFN_ROUTES[dtype].values()) != count or FFN_ROUTES[dtype].get("simt", 0) != 0:
+            raise AssertionError(f"kernel 1 {dtype}: launches by route {FFN_ROUTES[dtype]}, {count} in all")
     kernels = [
         dict(name="fused_ffn_f32", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
-             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=total["fused_ffn"], **ffn["float32"]),
+             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=ffn_launches["float32"],
+             launches_by_route=FFN_ROUTES["float32"], **ffn["float32"]),
         dict(name="fused_ffn_bf16", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/fused_ffn.cu",
-             replaces="tfkaldi_tpu/ops/fused_mlp.py:40",
-             launches=bf16_launches["fused_ffn"] + hyb_launches["fused_ffn_bf16"]
-             + heldout_launches["fused_ffn_bfloat16"], **ffn["bfloat16"]),
+             replaces="tfkaldi_tpu/ops/fused_mlp.py:40", launches=ffn_launches["bfloat16"],
+             launches_by_route=FFN_ROUTES["bfloat16"], **ffn["bfloat16"]),
         dict(name="frame_preemph", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/frame_preemph.cu",
              replaces="tfkaldi_tpu/ops/pallas_frontend.py:69", launches=total["frame_preemph"],
              launches_by_route={r: frame_routes[r] + train_frame_routes[r] + stream_launches["frame_routes"][r]

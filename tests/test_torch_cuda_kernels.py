@@ -17,7 +17,9 @@ order) and one bf16 step (2^-7 of max|ref|) in bf16.
 
 Kernels 1 and 3 run their products on the GEMM core of
 ``csrc/gemm_sm90.cuh``; each case names the route ``ops.gemm_plan`` gives
-its shape (``tma``: TMA + wgmma for bf16, TMA + FMA for f32; ``simt``: the
+its shape (``tma``: TMA + wgmma for bf16, TMA + FMA for f32; ``splitk``:
+kernel 1 below one wave of tiles, K split over grid z and the partials
+summed in a fixed order, so a repeat call is bit-equal; ``simt``: the
 edge route for row pitches that are not multiples of 16 bytes, or
 misaligned views) and asserts that the launch was counted on it. Kernel 1
 reads w as an MN-major B, kernel 3 reads w as a K-major B. Kernel 2's
@@ -37,6 +39,7 @@ from tfkaldi_tpu_torch.models.dnn import DNN, DNNConfig
 from tfkaldi_tpu_torch.ops import bn_fused_bwd
 from tfkaldi_tpu_torch.ops import frame_preemph as fp
 from tfkaldi_tpu_torch.ops import fused_mlp
+from tfkaldi_tpu_torch.ops.gemm_plan import gemm_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -67,10 +70,15 @@ def _ffn_operands(seed, n, k, m, device):
 ])
 @pytest.mark.parametrize("affine,relu", [(True, True), (False, False)])
 def test_fused_ffn_matches_plain(cuda, dtype, tol, n, k, m, route, affine, relu):
+    """``route`` is the TMA core's route; where the TMA grid leaves SMs
+    idle the plan may split K (``splitk``, the route its plan names)."""
     x, w, b, scale, shift = _ffn_operands(n + k + m, n, k, m, cuda)
     x, w = x.to(dtype), w.to(dtype)
     if not affine:
         scale = shift = None
+    plan = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr()))
+    assert plan.route == route or (route, plan.route) == ("tma", "splitk")
+    route = plan.route
     before, by_route = fused_mlp.launches, dict(fused_mlp.launches_by_route)
     got = fused_mlp.fused_ffn_block(x, w, b, scale, shift, relu=relu)
     want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift, relu=relu)
@@ -82,22 +90,70 @@ def test_fused_ffn_matches_plain(cuda, dtype, tol, n, k, m, route, affine, relu)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
-@pytest.mark.parametrize("n", [8, 16, 64, 72, 600])
+@pytest.mark.parametrize("n", [1, 8, 13, 16, 64, 72, 600])
 @pytest.mark.parametrize("k", [440, 2048])
 def test_fused_ffn_streaming_rows(cuda, dtype, tol, n, k):
     """The streamed DNN's hidden layers (``OnlineSplicedDecoder``: B x T_pad
-    rows, T padded to 8): fewer rows than one 128-row tile, or a ragged
-    last tile, on the TMA route: the tile's rows past n read as zeros and
-    are not stored."""
+    rows, T padded to 8; 1 and 13 rows off that grid): fewer rows than one
+    128-row tile, or a ragged last tile, on the route the plan names
+    (``splitk`` where splitting K beats the TMA grid's few CTAs, else
+    ``tma``): the tile's rows past n read as zeros and are not stored."""
     x, w, b, scale, shift = _ffn_operands(n + k, n, k, 2048, cuda)
     x, w = x.to(dtype), w.to(dtype)
-    before = fused_mlp.launches_by_route["tma"]
+    route = gemm_plan(n, k, 2048, dtype, "mn", (x.data_ptr(), w.data_ptr())).route
+    assert route in ("splitk", "tma")
+    before = dict(fused_mlp.launches_by_route)
     got = fused_mlp.fused_ffn_block(x, w, b, scale, shift)
     want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift)
     torch.cuda.synchronize()
-    assert fused_mlp.launches_by_route["tma"] == before + 1
+    assert fused_mlp.launches_by_route == {**before, route: before[route] + 1}
     assert got.shape == (n, 2048) and torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
+@pytest.mark.parametrize("n,k,m", [(2048, 48, 64), (2048, 64, 64)])
+def test_fused_ffn_gate_narrow_layers(cuda, dtype, tol, n, k, m):
+    """The hybrid held-out gate's two layers (16 utterances x 128 frames,
+    16-dim spliced input, 64 units): one column tile, on the route the plan
+    names."""
+    x, w, b, _, _ = _ffn_operands(n + k + m, n, k, m, cuda)
+    x, w = x.to(dtype), w.to(dtype)
+    route = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr())).route
+    before = dict(fused_mlp.launches_by_route)
+    got = fused_mlp.fused_ffn_block(x, w, b, None, None)
+    want = fused_mlp.fused_ffn_block_ref(x, w, b, None, None)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches_by_route == {**before, route: before[route] + 1}
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", [(8, 2048), (72, 2048), (600, 2048), (13, 440)])
+def test_fused_ffn_splitk_repeat_is_bit_equal(cuda, dtype, n, k):
+    """The split route sums its f32 partials in a fixed split order, with
+    no atomics: two calls on the same inputs give the same bits, on the
+    128-row tile and on the 64-row half tile. Also every tile and split
+    count of the shape agrees with the plain version."""
+    from tfkaldi_tpu_torch.profile_ffn import variant
+
+    x, w, b, scale, shift = _ffn_operands(n * k, n, k, 2048, cuda)
+    x, w = x.to(dtype), w.to(dtype)
+    plan = gemm_plan(n, k, 2048, dtype, "mn", (x.data_ptr(), w.data_ptr()))
+    assert plan.route in ("splitk", "tma")
+    want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift)
+    tol = 1e-4 if dtype == torch.float32 else 0.0625
+    nk = -(-k // plan.bk)
+    for bm in (128, 64):
+        split = variant(plan, n, k, dtype, bm, max(2, plan.splits))
+        first = fused_mlp.launch(split, x, w, b, scale, shift)
+        second = fused_mlp.launch(split, x, w, b, scale, shift)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), bm
+        for splits in (1, 2, 3, plan.splits, nk):
+            got = fused_mlp.launch(variant(plan, n, k, dtype, bm, splits), x, w, b, scale, shift)
+            torch.cuda.synchronize()
+            assert (got.float() - want.float()).abs().max().item() <= tol, (bm, splits)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])

@@ -39,13 +39,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
-    # kernels 1 and 3: (..., shape, route (1 = TMA, 0 = SIMT edge), stream)
-    "tk_fused_ffn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tk_fused_ffn_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tk_gemm_smem": [_I],
+    # kernel 1: (..., shape, relu, route (1 = TMA, 0 = SIMT edge, 2 = split-K),
+    # the tile's rows, split-K workspace, splits, slabs a split, stream)
+    "tk_fused_ffn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    "tk_fused_ffn_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    "tk_gemm_smem": [_I, _I],
+    "tk_gemm_blocks_per_sm": [_I, _I],
     # kernel 2: (..., shape, c, route, frames a tile, grid: ops/frame_preemph.py::frame_plan, stream)
     "tk_frame_preemph_f64": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_double, _I, _I, _I, _P],
     "tk_frame_smem": [_I, _I, _I, _I],
+    # kernel 3: (..., shape, route (1 = TMA, 0 = SIMT edge), stream)
     "tk_bn_dgrad_f32": [_P] * 11 + [_I, _I, _I, _I, _P],
     "tk_bn_dgrad_bf16": [_P] * 11 + [_I, _I, _I, _I, _P],
     # the recurrences: (pointer block, mask, dirs, T, B, H[, residuals], stream)

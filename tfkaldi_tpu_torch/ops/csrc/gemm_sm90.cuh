@@ -41,6 +41,34 @@
 // bytes, an operand not 16-byte aligned: ops/gemm_plan.py decides) take the
 // route "simt" (simt_gemm below): a 128 x 128 register-blocked SGEMM with
 // scalar masked loads, slower but valid for any shape.
+//
+// Below one wave of tiles (route "splitk", launch_splitk below): kernel 1
+// in the streamed DNN runs [n, K] @ [K, 2048] at n = 8..600 rows, where
+// the TMA grid is 16 x 1..5 f32 tiles or 8 x 1..5 bf16 tiles on 132 SMs
+// and each CTA streams all of K. There the work is bound by reading w
+// once (16.8 MB f32 / 8.4 MB bf16 at K 2048: 5.0 / 2.5 us at n <= 72) or,
+// at f32 n = 600, by the FMAs (75 us), and the whole-K tile by neither:
+// one SM runs all 2 * 128 * 128 * 2048 FMAs of its tile. The split route
+// cuts K into `splits` disjoint ranges of `slabs` BK-deep slabs (grid
+// z), so tiles x splits CTAs fill the card and each streams its range of
+// w exactly once, through the same TMA ring and consumers; f32 consumers
+// skip the row blocks past the last real row (a warp's rows are 2w,
+// 2w + 1 + 16 i, so the skip is warp-uniform), which leaves a few rows
+// bound by the bytes of w. Each CTA stores its f32 partial tile to a
+// workspace [splits, rows, cols]; splitk_reduce then sums the splits in
+// the fixed order z = 0, 1, ..., applies the epilogue and rounds once to
+// T. No atomics: two calls on the same inputs are bit-identical.
+//
+// The half tile (HALF_BM = 64 rows, kernel 1 on either route): at n in
+// the hundreds a 128-row tile leaves the card few, long CTAs, and at a few
+// rows a bf16 CTA runs the tensor work of 128 rows for 8. The half tile's
+// A box is 64 rows; f32 warps hold 4 x 8 outputs each (rows ty + 16 i,
+// i < 4) and an SM holds two such blocks (100,928 B of shared memory and
+// 80 registers a thread each), so one block's ring fill, waits and stores
+// overlap the other's FMAs; the two bf16 warpgroups each take one
+// 128-column half of the 64 x 256 tile with wgmma m64n128k16 (B's
+// descriptor offset by two 64-column boxes), half the tensor work of the
+// full tile for the same bytes of w.
 
 #pragma once
 
@@ -71,10 +99,15 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int SWIZZLE_BYTES = 128;  // TMA box inner extent = swizzle span
 constexpr int EPI_PARAMS = 3;  // [BN] f32 vectors an epilogue may stage per tile
 
-template <typename T>
+// HALF_BM: the half tile's rows (BM 64 for either dtype, kernel 1's
+// MN-major products only; see "Below one wave of tiles" above)
+constexpr int HALF_BM = 64;
+
+// The ring's layout for a tile of BM rows (TmaCfg's, or HALF_BM)
+template <typename T, int BM = TmaCfg<T>::BM>
 struct TmaLayout {
   using C = TmaCfg<T>;
-  static constexpr int A_BYTES = C::BM * C::BK * (int)sizeof(T);
+  static constexpr int A_BYTES = BM * C::BK * (int)sizeof(T);
   static constexpr int B_BYTES = C::BN * C::BK * (int)sizeof(T);
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   // MN-major B arrives as BN / BOX_N boxes of [BK k-rows, 128 bytes of n]
@@ -104,6 +137,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // C = acc, stored in T
 template <typename T>
 struct StoreEpi {
+  static constexpr bool VEC4 = false;  // no apply4
   T* out;
   int64_t ldc;
   __device__ __forceinline__ void stage(float*, int, int64_t, int64_t, int, int) {}
@@ -122,6 +156,7 @@ struct StoreEpi {
 // C = act((acc + bias) * scale + shift), stored in T (scale/shift may be null)
 template <typename T>
 struct FfnEpi {
+  static constexpr bool VEC4 = false;
   T* out;
   int64_t ldc;
   const float* bias;
@@ -169,6 +204,30 @@ struct FfnEpi {
     if (row < m) store2(out + row * ldc + col, act(v00, b.x, s.x, h.x), act(v01, b.y, s.y, h.y));
     if (row + rstep < m)
       store2(out + (row + rstep) * ldc + col, act(v10, b.x, s.x, h.x), act(v11, b.y, s.y, h.y));
+  }
+  // f() with the parameters read from global memory: splitk_reduce's
+  // epilogue, which stages nothing
+  __device__ __forceinline__ float finish(int64_t col, float v) const {
+    v = (v + bias[col]) * (scale ? scale[col] : 1.0f) + (shift ? shift[col] : 0.0f);
+    return relu ? fmaxf(v, 0.0f) : v;
+  }
+};
+
+// The split route's partial tiles: the f32 accumulator of split z stored
+// to ws[z, row, col] (out points at plane z of the [splits, rows, ldc] f32
+// workspace), nothing applied
+struct PartialEpi : StoreEpi<float> {
+  static constexpr bool VEC4 = true;  // apply4: four adjacent columns as one 16-byte store
+  // columns col .. col + 3 of one row, those below n
+  __device__ __forceinline__ void apply4(int64_t row, int64_t col, int64_t n, const float (&v)[4]) const {
+    float* p = out + row * ldc + col;
+    if (col + 3 < n && ldc % 4 == 0) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col + c < n) p[c] = v[c];
   }
 };
 
@@ -242,9 +301,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keep the compiler from moving accumulator reads or writes across an
 // asynchronous wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D[64 x 256] += A[64 x 16] * B[16 x 256], bf16 in, f32 accumulators;
@@ -285,34 +345,71 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
+// D[64 x 128] += A[64 x 16] * B[16 x 128]: the half tile's wgmma, each
+// consumer warpgroup on one 128-column half of the 64 x 256 tile
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
 // ---------------------------------------------------------------------------
-// the consumers' math, one specialisation per operand type
+// the consumers' math, one specialisation per operand type; `nk` is the
+// number of slabs the block streams through its ring (all of K, or its
+// split's range), SKIP lets f32 warps skip the rows past the last one
 // ---------------------------------------------------------------------------
 
-template <typename T, bool B_KMAJOR>
+template <typename T, bool B_KMAJOR, int BM = TmaCfg<T>::BM>
 struct Consumer;
 
-// bf16: two warpgroups, each 64 rows x 256 columns on the tensor cores
-template <bool B_KMAJOR>
-struct Consumer<__nv_bfloat16, B_KMAJOR> {
-  using L = TmaLayout<__nv_bfloat16>;
+// bf16: two warpgroups on the tensor cores, each 64 rows x 256 columns of
+// the 128 x 256 tile, or (the half tile, BM 64) the tile's 64 rows x one
+// 128-column half
+template <bool B_KMAJOR, int BM>
+struct Consumer<__nv_bfloat16, B_KMAJOR, BM> {
+  using L = TmaLayout<__nv_bfloat16, BM>;
   using C = TmaCfg<__nv_bfloat16>;
+  static constexpr int WN = BM == C::BM ? C::BN : C::BN / 2;  // a warpgroup's columns
+  static_assert(BM == C::BM || BM == HALF_BM, "bf16 tiles are 128 or 64 rows");
 
-  template <class Epi>
+  template <bool SKIP, class Epi>
   static __device__ __forceinline__ void run(uint32_t ring, uint32_t full, uint32_t empty, int nk,
                                              int ctid, int64_t row0, int64_t col0, int64_t m,
                                              int64_t n, const Epi& epi) {
-    const int wg = ctid / 128;  // 0 or 1: rows 64*wg .. 64*wg + 63 of the tile
+    const int wg = ctid / 128;  // 0 or 1: rows 64*wg .. of the tile, or columns WN*wg .. of the half tile
     const int lane = ctid % 32;
-    float d[128];
+    constexpr bool HALF = WN != C::BN;
+    float d[WN / 2];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+    for (int i = 0; i < WN / 2; ++i) d[i] = 0.0f;
+    // a warpgroup's A rows and B columns in a stage: MN-major B's columns
+    // are boxes of BOX_N, K-major B's are 128-byte rows
+    const uint32_t a_off = HALF ? 0 : wg * 64 * SWIZZLE_BYTES;
+    const uint32_t b_off = !HALF ? 0 : B_KMAJOR ? wg * WN * SWIZZLE_BYTES : wg * (WN / L::BOX_N) * L::B_BOX_BYTES;
 
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % C::STAGES;
       mbar_wait(full + 8 * s, (kt / C::STAGES) & 1);
-      const uint32_t a = ring + s * L::STAGE_BYTES + wg * 64 * SWIZZLE_BYTES;
-      const uint32_t b = ring + s * L::STAGE_BYTES + L::A_BYTES;
+      const uint32_t a = ring + s * L::STAGE_BYTES + a_off;
+      const uint32_t b = ring + s * L::STAGE_BYTES + L::A_BYTES + b_off;
       fence_acc(d);
       wgmma_fence();
 #pragma unroll
@@ -323,7 +420,10 @@ struct Consumer<__nv_bfloat16, B_KMAJOR> {
         const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
         const uint64_t db = B_KMAJOR ? sw128_desc(b + kk * 32, 16, 1024)
                                      : sw128_desc(b + kk * 16 * SWIZZLE_BYTES, L::B_BOX_BYTES, 1024);
-        wgmma_m64n256k16<B_KMAJOR ? 0 : 1>(d, da, db);
+        if constexpr (HALF)
+          wgmma_m64n128k16<B_KMAJOR ? 0 : 1>(d, da, db);
+        else
+          wgmma_m64n256k16<B_KMAJOR ? 0 : 1>(d, da, db);
       }
       wgmma_commit();
       fence_acc(d);
@@ -340,10 +440,11 @@ struct Consumer<__nv_bfloat16, B_KMAJOR> {
     // two columns
     const int warp = (ctid % 128) / 32;
     const bool pairs = epi.pairs();
-    const int64_t row = row0 + wg * 64 + warp * 16 + lane / 4;
+    const int64_t row = row0 + (HALF ? 0 : wg * 64) + warp * 16 + lane / 4;
+    const int64_t wcol0 = col0 + (HALF ? wg * WN : 0);
 #pragma unroll
-    for (int i = 0; i < 128; i += 4) {
-      const int64_t col = col0 + 2 * (lane % 4) + 8 * (i / 4);
+    for (int i = 0; i < WN / 2; i += 4) {
+      const int64_t col = wcol0 + 2 * (lane % 4) + 8 * (i / 4);
       if (pairs && col + 1 < n) {
         epi.apply2x2(row, 8, m, col, d[i], d[i + 1], d[i + 2], d[i + 3]);
         continue;
@@ -358,24 +459,29 @@ struct Consumer<__nv_bfloat16, B_KMAJOR> {
   }
 };
 
-// f32: 256 threads, 8 x 8 outputs each, exact FMAs from the swizzled ring
-template <bool B_KMAJOR>
-struct Consumer<float, B_KMAJOR> {
-  using L = TmaLayout<float>;
+// f32: 256 threads, 8 x 8 outputs each (4 x 8 on the half tile), exact
+// FMAs from the swizzled ring
+template <bool B_KMAJOR, int BM>
+struct Consumer<float, B_KMAJOR, BM> {
+  using L = TmaLayout<float, BM>;
   using C = TmaCfg<float>;
+  static_assert(BM == C::BM || BM == HALF_BM, "f32 tiles are 128 or 64 rows");
 
-  template <class Epi>
-  static __device__ __forceinline__ void run(uint32_t ring, uint32_t full, uint32_t empty, int nk,
-                                             int ctid, int64_t row0, int64_t col0, int64_t m,
-                                             int64_t n, const Epi& epi) {
+  // The thread's rows ty + 16 i for i < I (I = BM / 16: the whole tile;
+  // fewer where the rows past I are past the last row), its 8 columns.
+  template <int I, class Epi>
+  static __device__ __forceinline__ void rows(uint32_t ring, uint32_t full, uint32_t empty, int nk,
+                                              int ctid, int64_t row0, int64_t col0, int64_t m,
+                                              int64_t n, const Epi& epi) {
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const int tx = ctid % 16;
     const int ty = ctid / 16;
     const int lane = ctid % 32;
-    float acc[8][8];
+    constexpr int IA = I > 0 ? I : 1;
+    float acc[IA][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < IA; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
@@ -395,11 +501,11 @@ struct Consumer<float, B_KMAJOR> {
       const uint8_t* a = smem_raw + (ring - raw) + s * L::STAGE_BYTES + a_row;
       const uint8_t* b = smem_raw + (ring - raw) + s * L::STAGE_BYTES + L::A_BYTES + b_row;
 #pragma unroll
-      for (int kq = 0; kq < C::BK / 4; ++kq) {
+      for (int kq = 0; kq < (I > 0 ? C::BK / 4 : 0); ++kq) {
         const uint32_t ka = (kq << 4) ^ xa;
-        float4 av[8];
+        float4 av[IA];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < I; ++i)
           av[i] = *reinterpret_cast<const float4*>(a + ka + i * 16 * SWIZZLE_BYTES);
         if (B_KMAJOR) {
           // columns tx + 16j: the 16 rows a warp reads fall on 8 chunk
@@ -410,7 +516,7 @@ struct Consumer<float, B_KMAJOR> {
           for (int j = 0; j < 8; ++j)
             bv[j] = *reinterpret_cast<const float4*>(b + kb + j * 16 * SWIZZLE_BYTES);
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < I; ++i)
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
               acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
@@ -431,7 +537,7 @@ struct Consumer<float, B_KMAJOR> {
               bj[4 * h + 0] = v.x; bj[4 * h + 1] = v.y; bj[4 * h + 2] = v.z; bj[4 * h + 3] = v.w;
             }
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
+            for (int i = 0; i < I; ++i) {
               const float ai = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
 #pragma unroll
               for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, bj[j], acc[i][j]);
@@ -443,15 +549,59 @@ struct Consumer<float, B_KMAJOR> {
       if (lane == 0) mbar_arrive(empty + 8 * s);
     }
 
+    if constexpr (Epi::VEC4 && !B_KMAJOR) {
+      // columns 64h + 4tx + {0..3} of each row: one 16-byte store
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int64_t col = col0 + (B_KMAJOR ? tx + 16 * j : (j / 4) * 64 + tx * 4 + j % 4);
-      if (col >= n) continue;
+      for (int h = 0; h < 2; ++h) {
+        const int64_t col = col0 + h * 64 + tx * 4;
+        if (col >= n) continue;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int64_t row = row0 + ty + 16 * i;
-        if (row < m) epi.apply(row, col, acc[i][j]);
+        for (int i = 0; i < I; ++i) {
+          const int64_t row = row0 + ty + 16 * i;
+          const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+          if (row < m) epi.apply4(row, col, n, v);
+        }
       }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int64_t col = col0 + (B_KMAJOR ? tx + 16 * j : (j / 4) * 64 + tx * 4 + j % 4);
+        if (col >= n) continue;
+#pragma unroll
+        for (int i = 0; i < I; ++i) {
+          const int64_t row = row0 + ty + 16 * i;
+          if (row < m) epi.apply(row, col, acc[i][j]);
+        }
+      }
+    }
+  }
+
+  // rows<I> for the largest I <= TOP with I == TOP or I <= ni
+  template <int TOP, class Epi>
+  static __device__ __forceinline__ void rows_upto(int ni, uint32_t ring, uint32_t full, uint32_t empty, int nk,
+                                                   int ctid, int64_t row0, int64_t col0, int64_t m, int64_t n,
+                                                   const Epi& epi) {
+    if constexpr (TOP == 0) {
+      rows<0>(ring, full, empty, nk, ctid, row0, col0, m, n, epi);
+    } else {
+      if (ni >= TOP)
+        rows<TOP>(ring, full, empty, nk, ctid, row0, col0, m, n, epi);
+      else
+        rows_upto<TOP - 1>(ni, ring, full, empty, nk, ctid, row0, col0, m, n, epi);
+    }
+  }
+
+  template <bool SKIP, class Epi>
+  static __device__ __forceinline__ void run(uint32_t ring, uint32_t full, uint32_t empty, int nk,
+                                             int ctid, int64_t row0, int64_t col0, int64_t m,
+                                             int64_t n, const Epi& epi) {
+    if constexpr (!SKIP) {
+      rows<BM / 16>(ring, full, empty, nk, ctid, row0, col0, m, n, epi);
+    } else {
+      // warp w holds ty = 2w, 2w + 1: its row blocks i with row0 + 2w + 16 i < m
+      const int64_t left = m - row0 - 2 * (ctid / 32);
+      const int ni = left <= 0 ? 0 : static_cast<int>(left >= BM ? BM / 16 : (left + 15) / 16);
+      rows_upto<BM / 16>(ni, ring, full, empty, nk, ctid, row0, col0, m, n, epi);
     }
   }
 };
@@ -460,20 +610,46 @@ struct Consumer<float, B_KMAJOR> {
 // the TMA route
 // ---------------------------------------------------------------------------
 
-template <typename T, bool B_KMAJOR, class Epi>
-__global__ void __launch_bounds__(TMA_THREADS, 1)
+// A launch's plan beyond its route (ops/gemm_plan.py's GemmPlan): the
+// tile's rows (0: TmaCfg's BM; HALF_BM: the half tile), and the split
+// route's f32 partials ws [splits, m, n] and the slabs of a split (unused
+// by the other routes).
+struct Plan {
+  int bm = 0;
+  float* ws = nullptr;
+  int splits = 1;
+  int slabs = 0;
+};
+
+// Blocks an SM holds: two of the f32 half tile (100,928 B of shared
+// memory and at most 80 registers a thread each), so that one block's
+// ring fill and partial stores overlap the other's FMAs; one otherwise.
+template <typename T, int BM>
+constexpr int tma_blocks_per_sm() {
+  return sizeof(T) == 4 && BM == HALF_BM ? 2 : 1;
+}
+
+// SPLIT: the route "splitk"'s first pass: block z streams slabs
+// [z * slabs, z * slabs + slabs) of K (the last range may be shorter), f32
+// warps skipping the rows past the last one, and stores its f32 partial
+// tile to ws[z] (epi is splitk_reduce's). Otherwise every block streams
+// all of K and applies epi to its accumulator (split is unused).
+template <typename T, bool B_KMAJOR, class Epi, bool SPLIT = false, int BM = TmaCfg<T>::BM>
+__global__ void __launch_bounds__(TMA_THREADS, tma_blocks_per_sm<T, BM>())
 tma_gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-         int m, int n, int k, Epi epi) {
+         int m, int n, int k, Plan split, Epi epi) {
   using C = TmaCfg<T>;
-  using L = TmaLayout<T>;
+  using L = TmaLayout<T, BM>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
   const uint32_t full = ring + C::STAGES * L::STAGE_BYTES;
   const uint32_t empty = full + 8 * C::STAGES;
   float* params = reinterpret_cast<float*>(smem_raw + (empty + 8 * C::STAGES - raw));
-  const int nk = (k + C::BK - 1) / C::BK;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * C::BM;
+  const int nk_all = (k + C::BK - 1) / C::BK;
+  const int kt0 = SPLIT ? static_cast<int>(blockIdx.z) * split.slabs : 0;
+  const int nk = SPLIT ? min(split.slabs, nk_all - kt0) : nk_all;  // the slabs this block streams
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
   const int64_t col0 = static_cast<int64_t>(blockIdx.x) * C::BN;
 
   if (threadIdx.x == 0) {
@@ -487,12 +663,13 @@ tma_gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
 
   if (threadIdx.x < 128) {  // producer warpgroup: one thread drives the ring
     if (threadIdx.x != 0) return;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % C::STAGES;
-      mbar_wait(empty + 8 * s, ((kt / C::STAGES) & 1) ^ 1);  // the first pass finds every stage free
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % C::STAGES;
+      mbar_wait(empty + 8 * s, ((it / C::STAGES) & 1) ^ 1);  // the first pass finds every stage free
       const uint32_t a = ring + s * L::STAGE_BYTES;
       const uint32_t b = a + L::A_BYTES;
       const uint32_t bar = full + 8 * s;
+      const int kt = kt0 + it;
       // the count is the full boxes even where the TMA clips at an edge
       mbar_arrive_expect_tx(bar, L::STAGE_BYTES);
       tma_load_2d(a, &map_a, bar, kt * C::BK, static_cast<int>(row0));
@@ -506,11 +683,62 @@ tma_gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUte
     }
     return;
   }
-  // consumers: stage the epilogue's parameters while the first slabs load
-  Epi e = epi;
-  e.stage(params, C::BN, col0, n, threadIdx.x - 128, 256);
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the 256 consumer threads only
-  Consumer<T, B_KMAJOR>::run(ring, full, empty, nk, threadIdx.x - 128, row0, col0, m, n, e);
+  const int ctid = threadIdx.x - 128;
+  if constexpr (!SPLIT) {
+    // consumers: stage the epilogue's parameters while the first slabs load
+    Epi e = epi;
+    e.stage(params, C::BN, col0, n, ctid, 256);
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the 256 consumer threads only
+    Consumer<T, B_KMAJOR, BM>::template run<false>(ring, full, empty, nk, ctid, row0, col0, m, n, e);
+  } else {
+    const int64_t plane = static_cast<int64_t>(m) * n;
+    const PartialEpi part{{split.ws + blockIdx.z * plane, n}};
+    Consumer<T, B_KMAJOR, BM>::template run<true>(ring, full, empty, nk, ctid, row0, col0, m, n, part);
+  }
+}
+
+// The split route's second pass: out[r, c] = Epi::finish(c, sum over z of
+// ws[z, r, c]), the splits added in the order z = 0, 1, ..., rounded once
+// to T; V adjacent columns a thread (4 where the row pitch allows 16-byte
+// loads, else 1). The partials are f32 and L2-resident (written just
+// before), and the pass spreads over the whole card, so it costs about one
+// read of the partials and one write of the output. (Summing a tile in
+// its last-arriving CTA instead, in the first pass's tail, measured slower
+// at every streamed shape: one CTA's loads of a tile's partials wait on
+// L2 in turn.)
+constexpr int REDUCE_THREADS = 256;
+
+template <typename T, int V, class Epi>
+__global__ void __launch_bounds__(REDUCE_THREADS)
+splitk_reduce(const float* __restrict__ ws, int splits, int64_t rows, int cols, Epi epi) {
+  const int64_t plane = rows * cols;
+  const int64_t total = plane / V;
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * REDUCE_THREADS + threadIdx.x; q < total;
+       q += static_cast<int64_t>(gridDim.x) * REDUCE_THREADS) {
+    const int64_t e = q * V;
+    const int64_t col = e % cols;
+    float v[V];
+    if constexpr (V == 4) {
+      const float4 p = *reinterpret_cast<const float4*>(ws + e);
+      v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+      for (int z = 1; z < splits; ++z) {
+        const float4 r = *reinterpret_cast<const float4*>(ws + z * plane + e);
+        v[0] += r.x; v[1] += r.y; v[2] += r.z; v[3] += r.w;
+      }
+    } else {
+      v[0] = ws[e];
+      for (int z = 1; z < splits; ++z) v[0] += ws[z * plane + e];
+    }
+#pragma unroll
+    for (int c = 0; c < V; ++c) v[c] = epi.finish(col + c, v[c]);
+    T* out = epi.out + (e / cols) * epi.ldc + col;
+    if constexpr (V == 4) {
+      store2(out, v[0], v[1]);
+      store2(out + 2, v[2], v[3]);
+    } else {
+      store1(out, v[0]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -676,27 +904,29 @@ inline int encode_2d(CUtensorMap* map, const T* ptr, int64_t inner, int64_t oute
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
-// C[m, n] = A[m, k] @ B on the TMA route; B is [n, k] (B_KMAJOR) or [k, n].
-// Returns 0 or an error code (see NO_ENCODER).
-template <typename T, bool B_KMAJOR, class Epi>
-int launch_tma(const T* a, const T* b, int m, int n, int k, const Epi& epi, cudaStream_t stream) {
+// C[m, n] = A[m, k] @ B on the TMA route with BM-row tiles (SPLIT: the
+// split route, K in split.splits ranges on grid z); B is [n, k]
+// (B_KMAJOR) or [k, n]. Returns 0 or an error code (see NO_ENCODER).
+template <typename T, bool B_KMAJOR, class Epi, bool SPLIT = false, int BM = TmaCfg<T>::BM>
+int launch_tma(const T* a, const T* b, int m, int n, int k, const Epi& epi, cudaStream_t stream,
+               const Plan& split = Plan{}) {
   using C = TmaCfg<T>;
-  using L = TmaLayout<T>;
+  using L = TmaLayout<T, BM>;
   if (m <= 0 || n <= 0) return 0;
   CUtensorMap map_a, map_b;
-  int code = encode_2d(&map_a, a, k, m, C::BK, C::BM);
+  int code = encode_2d(&map_a, a, k, m, C::BK, BM);
   if (code != 0) return code;
   code = B_KMAJOR ? encode_2d(&map_b, b, k, n, C::BK, C::BN) : encode_2d(&map_b, b, n, k, L::BOX_N, C::BK);
   if (code != 0) return code;
-  auto kernel = tma_gemm<T, B_KMAJOR, Epi>;
+  auto kernel = tma_gemm<T, B_KMAJOR, Epi, SPLIT, BM>;
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM);
-  kernel<<<grid, TMA_THREADS, L::SMEM, stream>>>(map_a, map_b, m, n, k, epi);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + BM - 1) / BM, SPLIT ? split.splits : 1);
+  kernel<<<grid, TMA_THREADS, L::SMEM, stream>>>(map_a, map_b, m, n, k, split, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -708,11 +938,53 @@ int launch_simt(const T* a, const T* b, int m, int n, int k, const Epi& epi, cud
   return static_cast<int>(cudaGetLastError());
 }
 
-// route: 1 = tma, 0 = simt (ops/gemm_plan.py decides)
+// The split route: split.ws is [splits, m, n] f32 (the wrapper's
+// workspace); the first pass stores each split's partial tile there,
+// splitk_reduce sums them and applies epi. splits * slabs slabs cover K
+// and each of the splits ranges holds at least one (ops/gemm_plan.py
+// plans both).
+template <typename T, bool B_KMAJOR, class Epi, int BM>
+int launch_splitk(const T* a, const T* b, int m, int n, int k, const Epi& epi, const Plan& split,
+                  cudaStream_t stream) {
+  if (m <= 0 || n <= 0) return 0;
+  const int nk = (k + TmaCfg<T>::BK - 1) / TmaCfg<T>::BK;
+  if (split.ws == nullptr || split.splits < 1 || split.slabs < 1 || (split.splits - 1) * split.slabs >= nk ||
+      split.splits * split.slabs < nk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int code = launch_tma<T, B_KMAJOR, Epi, true, BM>(a, b, m, n, k, epi, stream, split);
+  if (code != 0) return code;
+  const bool vec = n % 4 == 0;
+  const int64_t total = static_cast<int64_t>(m) * n / (vec ? 4 : 1);
+  const int blocks = static_cast<int>(
+      total < 1024LL * REDUCE_THREADS ? (total + REDUCE_THREADS - 1) / REDUCE_THREADS : 1024);
+  if (vec)
+    splitk_reduce<T, 4, Epi><<<blocks, REDUCE_THREADS, 0, stream>>>(split.ws, split.splits, m, n, epi);
+  else
+    splitk_reduce<T, 1, Epi><<<blocks, REDUCE_THREADS, 0, stream>>>(split.ws, split.splits, m, n, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// route: 1 = tma, 0 = simt, 2 = splitk, on plan.bm-row tiles (0: TmaCfg's
+// BM; HALF_BM), as ops/gemm_plan.py plans; only kernel 1's MN-major
+// products split or take the half tile, so a K-major B refuses both
 template <typename T, bool B_KMAJOR, class Epi>
-int launch(int route, const T* a, const T* b, int m, int n, int k, const Epi& epi, cudaStream_t stream) {
-  return route == 1 ? launch_tma<T, B_KMAJOR>(a, b, m, n, k, epi, stream)
-                    : launch_simt<T, B_KMAJOR>(a, b, m, n, k, epi, stream);
+int launch(int route, const T* a, const T* b, int m, int n, int k, const Epi& epi, cudaStream_t stream,
+           const Plan& plan = Plan{}) {
+  constexpr int FULL = TmaCfg<T>::BM;
+  if (route == 0) return launch_simt<T, B_KMAJOR>(a, b, m, n, k, epi, stream);
+  const bool half = plan.bm == HALF_BM;
+  if ((route != 1 && route != 2) || (plan.bm != 0 && plan.bm != FULL && !half))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (B_KMAJOR) {
+    if (route == 2 || half) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tma<T, B_KMAJOR>(a, b, m, n, k, epi, stream);
+  } else {
+    if (route == 2)
+      return half ? launch_splitk<T, B_KMAJOR, Epi, HALF_BM>(a, b, m, n, k, epi, plan, stream)
+                  : launch_splitk<T, B_KMAJOR, Epi, FULL>(a, b, m, n, k, epi, plan, stream);
+    return half ? launch_tma<T, B_KMAJOR, Epi, false, HALF_BM>(a, b, m, n, k, epi, stream)
+                : launch_tma<T, B_KMAJOR>(a, b, m, n, k, epi, stream);
+  }
 }
 
 }  // namespace tkgemm
