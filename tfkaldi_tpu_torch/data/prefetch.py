@@ -6,7 +6,10 @@ batches ahead: it pulls utterances from the dispenser, pads them
 device, copies the padded arrays into pinned host tensors. The consumer
 (:meth:`PrefetchingBatchSource.next`) issues the host→device copy with
 ``non_blocking=True`` on its current stream, so the copy overlaps the
-previous step's device work.
+previous step's device work. The worker's batch build runs under a
+``prefetch.build`` ``torch.profiler`` span on its own thread, and
+:meth:`~PrefetchingBatchSource.next` (the queue wait and the copy's
+enqueue) under ``prefetch.next`` on the consumer's.
 
 A pinned buffer must outlive its asynchronous copy: freeing or reusing it
 earlier corrupts a batch, and only on the card. Each consumed host batch
@@ -72,15 +75,16 @@ class PrefetchingBatchSource:
     def _worker(self) -> None:
         try:
             while not self._stop.is_set():
-                with self._lock:
-                    if self._stop.is_set():
-                        return
-                    host_batch = self.dispenser.get_padded_batch(self.batcher)
-                    self._in_flight += 1
-                tensors = (torch.from_numpy(a) for a in host_batch.fields())
-                if self._pin:
-                    tensors = (t.pin_memory() for t in tensors)
-                batch = PaddedBatch(*tensors)
+                with torch.profiler.record_function("prefetch.build"):
+                    with self._lock:
+                        if self._stop.is_set():
+                            return
+                        host_batch = self.dispenser.get_padded_batch(self.batcher)
+                        self._in_flight += 1
+                    tensors = (torch.from_numpy(a) for a in host_batch.fields())
+                    if self._pin:
+                        tensors = (t.pin_memory() for t in tensors)
+                    batch = PaddedBatch(*tensors)
                 while not self._stop.is_set():
                     try:
                         self._queue.put(batch, timeout=0.1)
@@ -101,20 +105,21 @@ class PrefetchingBatchSource:
     def next(self) -> PaddedBatch:
         """Blocking fetch of the next batch, on ``device``. Re-raises any
         exception the worker thread died on."""
-        host = self._queue.get()
-        if host is _WORKER_FAILED:
-            raise RuntimeError("prefetch worker failed") from self._error
-        with self._lock:
-            self._in_flight -= 1
-        if not self._pin:
-            return host.to(self.device)
-        batch = host.to(self.device, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()  # on the current stream, after the copies
-        self._copies.append((done, host))
-        while self._copies and self._copies[0][0].query():
-            self._copies.popleft()
-        return batch
+        with torch.profiler.record_function("prefetch.next"):
+            host = self._queue.get()
+            if host is _WORKER_FAILED:
+                raise RuntimeError("prefetch worker failed") from self._error
+            with self._lock:
+                self._in_flight -= 1
+            if not self._pin:
+                return host.to(self.device)
+            batch = host.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()  # on the current stream, after the copies
+            self._copies.append((done, host))
+            while self._copies and self._copies[0][0].query():
+                self._copies.popleft()
+            return batch
 
     def _halt_and_drain(self) -> None:
         self._stop.set()

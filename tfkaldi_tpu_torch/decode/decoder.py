@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from tfkaldi_tpu_torch.data.feature_reader import FeatureReader
 from tfkaldi_tpu_torch.decode.streaming import pick_stream
@@ -58,13 +59,27 @@ class Decoder:
         bucket_multiple: int = 128,
     ) -> int:
         """Stream the whole test set (read + CMVN + splice, batch, compute,
-        write; nnet.py:270-286). Returns the number of utterances."""
+        write; nnet.py:270-286). Returns the number of utterances.
+
+        Each batch runs under four ``torch.profiler`` spans on the calling
+        thread, one after the other: ``decode.read`` (the reader's next
+        batch: read, CMVN, splice, pad; one more ends the stream),
+        ``decode.compute`` (the copy in and the forward's launches),
+        ``decode.fetch`` (the wait for the device and the copy out) and
+        ``decode.write`` (the batch's ark records)."""
+        batches = pick_stream(reader)(reader, batch_size=batch_size, bucket_multiple=bucket_multiple)
         count = 0
-        for utt_ids, inputs, lengths in pick_stream(reader)(
-            reader, batch_size=batch_size, bucket_multiple=bucket_multiple
-        ):
-            out = self.compute_batch(inputs, lengths).cpu().numpy()
-            for i, utt_id in enumerate(utt_ids):
-                writer.write_next_utt(utt_id, out[i, : lengths[i]])
-                count += 1
-        return count
+        while True:
+            with record_function("decode.read"):
+                batch = next(batches, None)
+            if batch is None:
+                return count
+            utt_ids, inputs, lengths = batch
+            with record_function("decode.compute"):
+                out = self.compute_batch(inputs, lengths)
+            with record_function("decode.fetch"):
+                out = out.cpu().numpy()
+            with record_function("decode.write"):
+                for i, utt_id in enumerate(utt_ids):
+                    writer.write_next_utt(utt_id, out[i, : lengths[i]])
+                    count += 1

@@ -10,8 +10,10 @@ place, so a crash never leaves a torn checkpoint. Saves are synchronous.
 Files under ``<savedir>/training/``: ``step{N}.pt`` every ``check_freq``
 steps, and the rollback point ``validated.pt`` with its
 ``validated.meta.json`` sidecar ``{loss, step}``, written only after the
-state. The decode model ``<savedir>/final.pt`` stays the bare model
-``state_dict`` (:func:`tfkaldi_tpu_torch.convert.save_checkpoint`).
+state. Each save runs under a ``train.checkpoint`` ``torch.profiler``
+span (a validated save's holds its state's). The decode model
+``<savedir>/final.pt`` stays the bare model ``state_dict``
+(:func:`tfkaldi_tpu_torch.convert.save_checkpoint`).
 
 On a grid of ranks (``state.mesh``) there is one writer
 (tfkaldi_tpu/train/checkpoint.py:109): the split tensors are gathered over
@@ -67,19 +69,20 @@ def model_state_dict(state: TrainState) -> dict:
 def save_state(path: str, state: TrainState) -> None:
     """Write ``state`` to ``path`` (a ``.pt`` file), atomically; on a grid
     the whole state, by its first rank, then a barrier."""
-    mesh = state.mesh
-    blob = {
-        "step": int(state.step),
-        "lr_fact": float(state.lr_fact),
-        "adam_t": int(state.adam_t),
-        "seed": int(state.seed),
-        "model": model_state_dict(state),
-        "adam_m": full_state_dict(state.model, mesh, state.adam_m) if mesh else _cpu(state.adam_m),
-        "adam_v": full_state_dict(state.model, mesh, state.adam_v) if mesh else _cpu(state.adam_v),
-    }
-    if writes(state):
-        _atomic_save(blob, path)
-    barrier(state)
+    with torch.profiler.record_function("train.checkpoint"):
+        mesh = state.mesh
+        blob = {
+            "step": int(state.step),
+            "lr_fact": float(state.lr_fact),
+            "adam_t": int(state.adam_t),
+            "seed": int(state.seed),
+            "model": model_state_dict(state),
+            "adam_m": full_state_dict(state.model, mesh, state.adam_m) if mesh else _cpu(state.adam_m),
+            "adam_v": full_state_dict(state.model, mesh, state.adam_v) if mesh else _cpu(state.adam_v),
+        }
+        if writes(state):
+            _atomic_save(blob, path)
+        barrier(state)
 
 
 def restore_state(path: str, template: TrainState) -> TrainState:
@@ -123,13 +126,14 @@ def save_validated(path: str, state: TrainState, loss: float, step: int) -> None
     the state, so a crash mid-save never leaves a sidecar pointing at a
     partial state. On a grid the first rank writes both, then a
     barrier."""
-    save_state(path, state)
-    if writes(state):
-        tmp = _meta_path(path) + ".tmp"
-        with open(tmp, "w") as fid:
-            json.dump({"loss": float(loss), "step": int(step)}, fid)
-        os.replace(tmp, _meta_path(path))
-    barrier(state)
+    with torch.profiler.record_function("train.checkpoint"):
+        save_state(path, state)
+        if writes(state):
+            tmp = _meta_path(path) + ".tmp"
+            with open(tmp, "w") as fid:
+                json.dump({"loss": float(loss), "step": int(step)}, fid)
+            os.replace(tmp, _meta_path(path))
+        barrier(state)
 
 
 def load_validated_meta(path: str) -> dict | None:

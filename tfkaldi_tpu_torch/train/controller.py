@@ -19,8 +19,8 @@ Port of :mod:`tfkaldi_tpu.train.controller` for one device:
   the end (optionally the mean of the last ``average_last`` checkpoints);
 - the state prior = normalized target bincount → ``prior.npy``
   (nnet.py:240-244);
-- with ``profile_steps > 0``, a torch.profiler trace of the steps
-  ``[profile_start, profile_start + profile_steps)`` into
+- with ``profile_steps > 0``, a torch.profiler trace of every thread over
+  the steps ``[profile_start, profile_start + profile_steps)`` into
   ``<savedir>/profile`` (:class:`ProfileWindow`; controller.py:288-298),
   taken once and stopped on every way out of the window: its end, a
   validation rollback, termination or an exception.

@@ -436,9 +436,10 @@ class Trainer:
 
     def evaluate(self, state: TrainState, batches) -> float:
         """Average frame loss over validation batches with the eval forward
-        (trainer.py:475-483: accumulate loss and frames, then divide)."""
+        (trainer.py:475-483: accumulate loss and frames, then divide), under
+        a ``train.validate`` ``torch.profiler`` span."""
         total_loss, total_frames = 0.0, 0.0
-        with torch.inference_mode():
+        with torch.profiler.record_function("train.validate"), torch.inference_mode():
             for batch in batches:
                 loss, frames = self._loss_sum(state.model, batch, train=False)
                 total_loss += float(loss)

@@ -4,11 +4,12 @@ Port of :mod:`tfkaldi_tpu.utils.profiling` on ``torch.profiler`` (the
 JAX package wraps ``jax.profiler``; the reference has no tracing at all,
 SURVEY §5). :class:`Trace` (started and stopped by the caller, as the
 training controller's ``profile_steps`` window does) and
-:func:`trace_profile` (a context manager) capture the host and, where a
-card is present, the device activity of a region and export
-it as a Chrome trace (``<logdir>/<host>_<pid>.<ns>.pt.trace.json``,
-readable in Perfetto or ``chrome://tracing``); :class:`StepTimer` is a
-copy of the JAX package's wall-clock step timer.
+:func:`trace_profile` (a context manager) capture the host activity of
+every thread (the prefetch worker's ``prefetch.build`` spans beside the
+loop's) and, where a card is present, the device activity of a region,
+and export it as a Chrome trace
+(``<logdir>/<host>_<pid>.<ns>.pt.trace.json``, readable in Perfetto or
+``chrome://tracing``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ class Trace:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        self._prof = torch.profiler.profile(activities=activities)
+        # without it the profiler records only the thread that starts it
+        every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+        self._prof = torch.profiler.profile(activities=activities, experimental_config=every_thread)
         self._prof.start()
 
     def stop(self) -> str:
@@ -54,27 +57,3 @@ def trace_profile(logdir: str):
         yield trace
     finally:
         trace.stop()
-
-
-class StepTimer:
-    """Rolling wall-clock timer with warm-up skip (first N steps compile)."""
-
-    def __init__(self, skip_first: int = 1):
-        self.skip_first = skip_first
-        self.times: list[float] = []
-        self._seen = 0
-        self._t0: float | None = None
-
-    def __enter__(self) -> "StepTimer":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        dt = time.perf_counter() - self._t0
-        self._seen += 1
-        if self._seen > self.skip_first:
-            self.times.append(dt)
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / len(self.times) if self.times else 0.0
