@@ -235,10 +235,12 @@ def test_config_from_nnet_section():
     for field in ("num_blocks", "d_model", "num_heads", "ffn_dim", "conv_kernel", "subsample", "left_context",
                   "right_context", "causal_conv", "dropout", "ln_eps", "bn_eps", "bn_decay"):
         assert getattr(cfg, field) == getattr(jcfg, field), field
-    for bad in (dict(d_model=10, num_heads=4), dict(conformer=True, conv_kernel=4), dict(subsample=0),
+    for bad in (dict(d_model=10, num_heads=4), dict(conformer=True, conv_kernel=0), dict(subsample=0),
                 dict(left_context=-2)):
         with pytest.raises(ValueError):
             TransformerConfig(**{**TINY, **bad})
+    # an even kernel pads TF's SAME, (k-1)//2 before and k//2 after (the JAX config refuses it)
+    assert TransformerConfig(**{**TINY, "conformer": True, "conv_kernel": 4}).conv_kernel == 4
     model = Transformer(dataclasses.replace(cfg, num_blocks=1))
     assert model.blocks[0].conv.w_dw.shape == (256, 1, 15) and model.bn_conv_mean.shape == (1, 256)
 

@@ -54,7 +54,10 @@ def masked_moments(zf, mask):
     return mean, var, count
 
 
-def batchnorm(zf, mean, var, beta, eps: float, compute_dtype):
+def batchnorm(zf, mean, var, beta, eps: float, compute_dtype, gamma=None):
     """Center-only batchnorm: ``((z − mean)·rsqrt(var + eps) + beta)`` in
-    f32, cast to ``compute_dtype``."""
-    return ((zf - mean) * torch.rsqrt(var + eps) + beta).to(compute_dtype)
+    f32, cast to ``compute_dtype``; with ``gamma``, ``(z − mean)·rsqrt(var +
+    eps)·gamma + beta``."""
+    if gamma is None:
+        return ((zf - mean) * torch.rsqrt(var + eps) + beta).to(compute_dtype)
+    return ((zf - mean) * torch.rsqrt(var + eps) * gamma + beta).to(compute_dtype)

@@ -13,10 +13,11 @@ copies them.
 
 - The encoder by ``enc_type``: ``conformer`` / ``transformer`` through
   :class:`~tfkaldi_tpu_torch.models.transformer.Transformer`, built from
-  the nine ``[nnet]`` keys of ``enc_extra`` alone with ``dropout`` and
-  ``compute_dtype`` replaced; ``lstm`` / ``gru`` through
-  :mod:`tfkaldi_tpu_torch.models.rnn`. Its output layer (width
-  ``joint_units``) is the encoder half of the joint.
+  the ``[nnet]`` keys of ``enc_extra`` alone (``_ENC_KEYS``: the JAX
+  package's nine, then the port's ``pos_enc``, ``frontend`` and
+  ``conv_bn_scale``) with ``dropout`` and ``compute_dtype`` replaced;
+  ``lstm`` / ``gru`` through :mod:`tfkaldi_tpu_torch.models.rnn`. Its
+  output layer (width ``joint_units``) is the encoder half of the joint.
 - The prediction network is a unidirectional LSTM over the embedded labels
   after a start token (the blank id ``num_labels``), lengths
   ``label_lengths + 1``; its output layer is the prediction half of the
@@ -38,6 +39,12 @@ copies them.
   ``compute_dtype``. Its one-hot band extraction (a TPU workaround) is a
   gather here: a band slot past the last label (``p + s = U``) reads the
   last ``pred`` row and a zero label column, whose gradient stays 0.
+
+``torch.profiler`` spans: ``rnnt.encode`` (:meth:`Transducer.encode`),
+``rnnt.predict`` (:meth:`Transducer.predict`) and ``rnnt.joint`` inside
+each joint block's function, so that the checkpoint's recompute in the
+backward opens it too (the lattice's own span, ``rnnt.lattice``, is in
+:mod:`tfkaldi_tpu_torch.ops.rnnt_loss`).
 """
 
 from __future__ import annotations
@@ -57,7 +64,8 @@ from tfkaldi_tpu_torch.ops import rnnt_loss
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the keys of [nnet] handed to the self-attention encoder (models/transducer.py:104-112)
 _ENC_KEYS = ("num_blocks", "d_model", "num_heads", "ffn_dim", "conv_kernel", "subsample",
-             "attention_left_context", "attention_right_context", "causal_conv")
+             "attention_left_context", "attention_right_context", "causal_conv",
+             "pos_enc", "frontend", "conv_bn_scale")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,24 +233,27 @@ class Transducer(nn.Module):
 
     def encode(self, inputs, lengths, *, train: bool = False, generator=None) -> torch.Tensor:
         """``[B, T, F]`` features → ``[B, T', J]`` f32 encoder projections."""
-        return self.enc(inputs, lengths, train=train, generator=generator)
+        with torch.profiler.record_function("rnnt.encode"):
+            return self.enc(inputs, lengths, train=train, generator=generator)
 
     def predict(self, labels, label_lengths, *, train: bool = False, generator=None) -> torch.Tensor:
         """``[B, U]`` labels → ``[B, U+1, J]`` f32 prediction projections
         (position u conditions on the first u labels; position 0 on the
         start token, the blank)."""
         device = self.embed.device
-        labels = torch.as_tensor(labels).to(device).long()
-        sos = torch.full((labels.shape[0], 1), self.blank_id, dtype=torch.long, device=device)
-        emb = self.embed[torch.cat([sos, labels], dim=1)]
-        lengths = torch.as_tensor(label_lengths).to(device) + 1
-        return self.pred(emb, lengths, train=train, generator=generator)
+        with torch.profiler.record_function("rnnt.predict"):
+            labels = torch.as_tensor(labels).to(device).long()
+            sos = torch.full((labels.shape[0], 1), self.blank_id, dtype=torch.long, device=device)
+            emb = self.embed[torch.cat([sos, labels], dim=1)]
+            lengths = torch.as_tensor(label_lengths).to(device) + 1
+            return self.pred(emb, lengths, train=train, generator=generator)
 
     def _joint(self, enc, pred) -> torch.Tensor:
         """``[B, T, J] × [B, U+1, J]`` → ``[B, T, U+1, V]`` f32 logits."""
         cd = self.config.compute_dtype
-        h = torch.tanh(enc[:, :, None, :] + pred[:, None, :, :]).to(cd)
-        return product(h, self.joint.w, cd) + self.joint.b.float()
+        with torch.profiler.record_function("rnnt.joint"):
+            h = torch.tanh(enc[:, :, None, :] + pred[:, None, :, :]).to(cd)
+            return product(h, self.joint.w, cd) + self.joint.b.float()
 
     def apply_transducer(self, inputs, lengths, labels, label_lengths, *, train: bool = False,
                          generator=None) -> torch.Tensor:
@@ -287,11 +298,13 @@ class Transducer(nn.Module):
         w, bias = self.joint.w, self.joint.b
 
         def block(enc_c):
-            h = torch.tanh(enc_c[:, :, None, :] + pred[:, None, :, :]).to(cd)  # [B, c, U+1, J]
-            logits = product(h, w, cd) + bias.float()
-            lse = torch.logsumexp(logits, dim=-1)
-            lab = torch.einsum("bcuj,buj->bcu", h[:, :, :u_max].float(), w_sel.float()) + b_sel.float()[:, None, :]
-            return logits[..., blank] - lse, lab - lse[..., :u_max]
+            with torch.profiler.record_function("rnnt.joint"):
+                h = torch.tanh(enc_c[:, :, None, :] + pred[:, None, :, :]).to(cd)  # [B, c, U+1, J]
+                logits = product(h, w, cd) + bias.float()
+                lse = torch.logsumexp(logits, dim=-1)
+                lab = (torch.einsum("bcuj,buj->bcu", h[:, :, :u_max].float(), w_sel.float())
+                       + b_sel.float()[:, None, :])
+                return logits[..., blank] - lse, lab - lse[..., :u_max]
 
         return tuple(self._blocks(block, enc))
 
@@ -341,6 +354,10 @@ class Transducer(nn.Module):
         s_off = torch.arange(s_range, device=device)
 
         def block(enc_c, p_c):
+            with torch.profiler.record_function("rnnt.joint"):
+                return band_block(enc_c, p_c)
+
+        def band_block(enc_c, p_c):
             b, c = p_c.shape
             gidx = (p_c.long()[:, :, None] + s_off).clamp(max=u_max).reshape(b, c * s_range)
             pred_band = torch.gather(pred_cd, 1, gidx[:, :, None].expand(-1, -1, j)).reshape(b, c, s_range, j)

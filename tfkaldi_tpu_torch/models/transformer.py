@@ -20,20 +20,34 @@ The rounding points are the JAX package's:
 - attention scores and softmax in f32 with ``-1e30`` masking, the
   probabilities rounded to ``compute_dtype`` before the context product;
 - the conv module's GLU in f32, its depthwise conv in f32 (``F.conv1d``
-  with ``groups = D``, zero-padded SAME or causal), masked center-only
+  with ``groups = D``, zero-padded SAME or causal; an even SAME kernel pads
+  ``(k-1)//2`` frames before and ``k//2`` after, as TF's ``SAME``), masked
   batchnorm in f32 (:func:`~tfkaldi_tpu_torch.layers.masked_moments`),
-  swish in f32;
+  center-only or with a scale (``conv_bn_scale``), swish in f32;
 - the output layer's product and bias in f32, and the result kept in f32.
 
-The ``subsample`` front-end zeroes frames past each length, pads T to a
-multiple of ``s`` and stacks ``s`` frames into one position; positions are
-added after the input projection from the f32 sinusoid of
-:func:`sinusoidal_at`. Padded keys are masked out of every attention row,
-the conv input is zero-masked and the hidden state is re-masked between
-blocks, so logits at real frames do not depend on the padding. Dropout is a
-keep probability, its masks drawn from the trainer's generator (the bits
-are the port's own; under a data split the rank's rows of the whole
-batch's draw, :func:`tfkaldi_tpu_torch.parallel.comm.keep_mask`).
+Two front-ends subsample (``frontend``): ``stack`` zeroes frames past each
+length, pads T to a multiple of ``s`` and stacks ``s`` frames into one
+position; ``conv2d`` (Gulati et al. 2020, the conformer's convolution
+subsampling, ``s = 4``) runs two ``3x3`` stride-2 VALID convolutions of
+``d_model`` channels with ReLU over ``[T, F]`` (operands rounded to
+``compute_dtype``, f32 accumulation and bias, stored in
+``compute_dtype``), flattened channel-major into the input projection:
+``T' = ((T-1)//2 - 1)//2`` positions, each reading real frames only.
+
+Positions (``pos_enc``): ``absolute`` adds the f32 sinusoid of
+:func:`sinusoidal_at` after the input projection; ``relative`` adds none
+and scores head ``h`` as Transformer-XL's
+``((q_i + u_h)·k_j + (q_i + v_h)·(W_R R_{i-j})) / sqrt(d_h)`` with the
+sinusoid ``R`` of the relative distance (:func:`rel_attention`: the table
+of the ``2T-1`` distances, then the rel-shift).
+
+Padded keys are masked out of every attention row, the conv input is
+zero-masked and the hidden state is re-masked between blocks, so logits at
+real frames do not depend on the padding. Dropout is a keep probability,
+its masks drawn from the trainer's generator (the bits are the port's own;
+under a data split the rank's rows of the whole batch's draw,
+:func:`tfkaldi_tpu_torch.parallel.comm.keep_mask`).
 
 Split over a grid's model group (``tp``, set by
 :func:`tfkaldi_tpu_torch.parallel.mesh.shard_state`): Megatron's split of
@@ -91,11 +105,14 @@ class TransformerConfig:
     num_heads: int = 4
     ffn_dim: int = 1024
     conformer: bool = False  # macaron FFN pair + depthwise conv module
-    conv_kernel: int = 15  # conformer depthwise kernel (odd unless causal)
+    conv_kernel: int = 15  # conformer depthwise kernel (SAME: (k-1)//2 frames before, k//2 after)
     left_context: int = -1  # time-restricted attention; -1 = unlimited
     right_context: int = -1
     causal_conv: bool = False  # the depthwise conv sees [t-k+1, t], not [t±k/2]
-    subsample: int = 1  # frames stacked into one position (CTC only)
+    subsample: int = 1  # frames a position: the stacking front-end's s (conv2d sets its own 4)
+    pos_enc: str = "absolute"  # absolute (sinusoid added to the input) | relative (Transformer-XL scores)
+    frontend: str = "stack"  # stack (frames stacked) | conv2d (two 3x3 stride-2 convolutions)
+    conv_bn_scale: bool = False  # the conv module's batchnorm has a scale (bn_gamma) beside its offset
     dropout: float = 1.0  # keep probability, reference semantics
     compute_dtype: torch.dtype = torch.float32
     ln_eps: float = 1e-6
@@ -105,12 +122,22 @@ class TransformerConfig:
     def __post_init__(self):
         if self.d_model % self.num_heads:
             raise ValueError(f"d_model {self.d_model} not divisible by num_heads {self.num_heads}")
-        if self.conformer and not self.causal_conv and self.conv_kernel % 2 == 0:
-            raise ValueError("conv_kernel must be odd (SAME-centered depthwise)")
+        if self.conformer and self.conv_kernel < 1:
+            raise ValueError(f"conv_kernel {self.conv_kernel}: want >= 1 (SAME pads (k-1)//2 frames before and "
+                             "k//2 after, so an even kernel sees one more frame ahead; causal pads k-1 before)")
         if self.left_context < -1 or self.right_context < -1:
             raise ValueError("attention contexts must be >= 0 or -1 (unlimited)")
         if self.subsample < 1:
             raise ValueError("subsample must be >= 1")
+        if self.pos_enc not in ("absolute", "relative"):
+            raise ValueError(f"pos_enc {self.pos_enc!r}: want absolute or relative")
+        if self.frontend not in ("stack", "conv2d"):
+            raise ValueError(f"frontend {self.frontend!r}: want stack or conv2d")
+        if self.frontend == "conv2d":  # two stride-2 convolutions: the factor is the front-end's
+            if self.subsample not in (1, 4):
+                raise ValueError(f"subsample {self.subsample}: frontend = conv2d subsamples by 4 (two stride-2 "
+                                 "convolutions); leave subsample out")
+            object.__setattr__(self, "subsample", 4)
 
     @classmethod
     def from_config(cls, conf: dict, input_dim: int, num_labels: int) -> "TransformerConfig":
@@ -132,6 +159,9 @@ class TransformerConfig:
             right_context=int(conf.get("attention_right_context", -1)),
             causal_conv=str(conf.get("causal_conv", "False")) == "True",
             subsample=int(conf.get("subsample", 1)),
+            pos_enc=str(conf.get("pos_enc", "absolute")),
+            frontend=str(conf.get("frontend", "stack")),
+            conv_bn_scale=str(conf.get("conv_bn_scale", "False")) == "True",
             dropout=float(conf.get("dropout", 1)),
             compute_dtype=_DTYPES[dtype],
         )
@@ -221,6 +251,49 @@ def attention(hq, hkv, p, mask, num_heads: int, dtype, tp=None) -> torch.Tensor:
     return affine(ctx.transpose(1, 2).reshape(b, tq, num_heads * dh), p.wo, p.bo, dtype, tp)
 
 
+def rel_positions(t: int, d: int, device) -> torch.Tensor:
+    """The f32 sinusoid of the relative distances ``t-1, t-2, …, -(t-1)``
+    (``[2t-1, d]``, :func:`sinusoid_rows`): row ``m`` holds distance
+    ``t-1-m``."""
+    return sinusoid_rows(torch.arange(t - 1, -t, -1, device=device), d)
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """``[..., T, 2T-1]`` scores against the rows of :func:`rel_positions`
+    → ``[..., T, T]`` with ``out[i, j] = x[i, T-1-i+j]`` (distance ``i-j``),
+    by Transformer-XL's shift: one zero column in front, the ``[T, 2T]``
+    block read as ``[2T, T]``, its first row dropped."""
+    *lead, t, w = x.shape
+    padded = F.pad(x, (1, 0)).reshape(*lead, w + 1, t)
+    return padded[..., 1:, :].reshape(*lead, t, w)[..., :t]
+
+
+def rel_attention(h, p, pos, mask, num_heads: int, dtype) -> torch.Tensor:
+    """Self-attention of ``h [B, T, D]`` with relative positions
+    (Transformer-XL, Dai et al. 2019, §3.3): head ``h`` scores
+    ``((q_i + u_h)·k_j + (q_i + v_h)·(W_R R_{i-j})) / sqrt(d_h)``, with
+    ``pos [2T-1, D]`` the sinusoid of :func:`rel_positions`, ``W_R =
+    p.w_pos`` (no bias), ``u, v = p.pos_u, p.pos_v [H, d_h]``. The
+    products round their operands to ``dtype`` as :func:`attention` does
+    (``q + u`` and ``q + v`` in f32 first); the position term is computed
+    against the ``2T-1`` distances and moved into place by
+    :func:`rel_shift`."""
+    b, t, d = h.shape
+    dh = d // num_heads
+    q = affine(h, p.wq, p.bq, dtype).reshape(b, t, num_heads, dh).transpose(1, 2)
+    k = affine(h, p.wk, p.bk, dtype).reshape(b, t, num_heads, dh).transpose(1, 2)
+    v = affine(h, p.wv, p.bv, dtype).reshape(b, t, num_heads, dh).transpose(1, 2)
+    r = product(pos, p.w_pos, dtype).reshape(2 * t - 1, num_heads, dh).permute(1, 2, 0)  # [H, dh, 2T-1]
+    qf = q.float()
+    content = product(qf + p.pos_u[:, None, :], k.transpose(-1, -2), dtype)
+    position = rel_shift(product(qf + p.pos_v[:, None, :], r, dtype))
+    scores = (content + position) * (1.0 / np.sqrt(dh))
+    scores = torch.where(mask, scores, _NEG)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    ctx = product(probs, v, dtype).to(dtype)
+    return affine(ctx.transpose(1, 2).reshape(b, t, num_heads * dh), p.wo, p.bo, dtype)
+
+
 def feed_forward(h, p, dtype, tp=None) -> torch.Tensor:
     """``w2·swish(w1·h + b1) + b2`` (the FFN of both stacks); with ``tp``
     ``w1`` holds a block of the columns and ``w2`` of the rows."""
@@ -271,6 +344,10 @@ class _Block(nn.Module):
         d, f = cfg.d_model, cfg.ffn_dim
         self.ln_attn = ln_params(d)
         self.attn = attn_params(d)
+        if cfg.pos_enc == "relative":
+            self.attn.w_pos = nn.Parameter(torch.zeros(d, d))
+            self.attn.pos_u = nn.Parameter(torch.zeros(cfg.num_heads, d // cfg.num_heads))
+            self.attn.pos_v = nn.Parameter(torch.zeros(cfg.num_heads, d // cfg.num_heads))
         self.ln_ffn = ln_params(d)
         self.ffn = ffn_params(d, f)
         if cfg.conformer:
@@ -279,7 +356,16 @@ class _Block(nn.Module):
             self.ln_conv = ln_params(d)
             self.conv = Params(w_in=(d, 2 * d), b_in=(2 * d,), w_dw=(d, 1, cfg.conv_kernel), bn_beta=(d,),
                                w_out=(d, d), b_out=(d,))
+            if cfg.conv_bn_scale:
+                self.conv.bn_gamma = nn.Parameter(torch.ones(d))
             self.ln_out = ln_params(d)
+
+
+def conv2d_out(n):
+    """Positions of the conv2d front-end's output along ``n`` frames or
+    feature bins (ints, tensors or numpy): two 3x3 stride-2 VALID
+    convolutions."""
+    return ((n - 1) // 2 - 1) // 2
 
 
 class Transformer(nn.Module):
@@ -291,7 +377,13 @@ class Transformer(nn.Module):
         super().__init__()
         self.config = config
         cfg = config
-        self.in_proj = Params(w=(cfg.input_dim * cfg.subsample, cfg.d_model), b=(cfg.d_model,))
+        if cfg.frontend == "conv2d":  # d_model channels, flattened channel-major into the projection
+            c = cfg.d_model
+            self.frontend = Params(w1=(c, 1, 3, 3), b1=(c,), w2=(c, c, 3, 3), b2=(c,))
+            fan_in = c * conv2d_out(cfg.input_dim)
+        else:
+            fan_in = cfg.input_dim * cfg.subsample
+        self.in_proj = Params(w=(fan_in, cfg.d_model), b=(cfg.d_model,))
         self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.num_blocks))
         self.ln_final = ln_params(cfg.d_model)
         self.out = Params(w=(cfg.d_model, cfg.num_labels), b=(cfg.num_labels,))
@@ -308,13 +400,26 @@ class Transformer(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX ``init``: ``N(0, 1)/sqrt(fan_in)`` dense weights (the
         depthwise weight ``N(0, 1)/sqrt(k)``), zero biases and ``bn_beta``,
-        unit layernorm gains, a zero output layer, moving stats (0, 1)."""
+        unit layernorm gains, a zero output layer, moving stats (0, 1). The
+        port's own additions: the conv2d front-end's kernels ``N(0,
+        1)/sqrt(c_in·9)`` with zero biases (drawn first), ``w_pos`` as a
+        dense weight, zero ``pos_u`` / ``pos_v``, unit ``bn_gamma``."""
+        if self.config.frontend == "conv2d":
+            for w in (self.frontend.w1, self.frontend.w2):
+                w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(w[0].numel()))
+            self.frontend.b1.zero_()
+            self.frontend.b2.zero_()
         init_params(self.in_proj, generator)
         for blk in self.blocks:
             init_params(blk, generator)
+            if self.config.pos_enc == "relative":
+                blk.attn.pos_u.zero_()
+                blk.attn.pos_v.zero_()
             if self.config.conformer:
                 k = self.config.conv_kernel
                 blk.conv.w_dw.copy_(torch.randn(blk.conv.w_dw.shape, generator=generator) / math.sqrt(k))
+                if self.config.conv_bn_scale:
+                    blk.conv.bn_gamma.fill_(1.0)
         init_params(self.ln_final, generator)
         self.reinit_output_layer()
         if self.config.conformer:
@@ -333,7 +438,10 @@ class Transformer(nn.Module):
 
     def output_lengths(self, lengths):
         """Valid output frames for ``lengths`` input frames: ``ceil(n/s)``
-        under the stacking front-end, else ``n`` (tensors or numpy)."""
+        under the stacking front-end, ``((n-1)//2 - 1)//2`` under conv2d,
+        else ``n`` (tensors or numpy)."""
+        if self.config.frontend == "conv2d":
+            return conv2d_out(lengths)
         s = self.config.subsample
         return lengths if s == 1 else (lengths + (s - 1)) // s
 
@@ -379,9 +487,21 @@ class Transformer(nn.Module):
                 self.bn_conv_var[l].copy_(self.bn_conv_var[l] * decay + var * (1.0 - decay))
         else:
             mean, var = self.bn_conv_mean[l], self.bn_conv_var[l]
-        z = batchnorm(zf, mean, var, p.bn_beta, cfg.bn_eps, torch.float32)
+        z = batchnorm(zf, mean, var, p.bn_beta, cfg.bn_eps, torch.float32, getattr(p, "bn_gamma", None))
         z = swish(z, dtype).reshape(b, t, d)
         return affine(z, p.w_out, p.b_out, dtype)
+
+    def _conv_frontend(self, inputs, dtype):
+        """``[B, T, F]`` f32 → ``[B, T', d_model·F']`` in ``dtype``: each
+        convolution's operands rounded to ``dtype``, the product and bias in
+        f32, ReLU, stored in ``dtype``."""
+        x = inputs[:, None]
+        fe = self.frontend
+        for w, bias in ((fe.w1, fe.b1), (fe.w2, fe.b2)):
+            z = F.conv2d(x.to(dtype).float(), w.to(dtype).float(), stride=2)
+            x = torch.relu(z + bias.float()[:, None, None]).to(dtype)
+        b, c, t, f = x.shape
+        return x.transpose(1, 2).reshape(b, t, c * f)
 
     def forward(
         self,
@@ -399,7 +519,11 @@ class Transformer(nn.Module):
         lengths = torch.as_tensor(lengths).to(device)
         b, t, _ = inputs.shape
         inputs = inputs.float()
-        if cfg.subsample > 1:
+        if cfg.frontend == "conv2d":
+            inputs = self._conv_frontend(inputs, dtype)
+            t = inputs.shape[1]
+            lengths = self.output_lengths(lengths)
+        elif cfg.subsample > 1:
             # zero frames past each length first: the boundary group may
             # straddle the utterance end
             frame_ok = torch.arange(t, device=device)[None, :] < lengths[:, None]
@@ -415,17 +539,25 @@ class Transformer(nn.Module):
         eps, keep = cfg.ln_eps, cfg.dropout
 
         h = affine(inputs, self.in_proj.w, self.in_proj.b, dtype)
-        h = h + sinusoidal_at(t, cfg.d_model, device).to(dtype)
+        relative = cfg.pos_enc == "relative"
+        if relative:
+            pos = rel_positions(t, cfg.d_model, device)
+        else:
+            h = h + sinusoidal_at(t, cfg.d_model, device).to(dtype)
         h = h * mask_btf.to(h.dtype)
         attn_mask = key_mask[:, None, None, :] & self._rel_mask(t, device)[None, None]
         tp = self.tp
+        if relative and tp is not None:
+            raise ValueError("pos_enc = relative has no split over a model group (model_parallel = 1)")
 
         for l, blk in enumerate(self.blocks):
             if cfg.conformer:
                 z = layernorm(h, blk.ln_ffn1, eps)
                 h = h + 0.5 * dropout(feed_forward(z, blk.ffn1, dtype, tp), keep, generator, train)
             z = layernorm(h, blk.ln_attn, eps)
-            h = h + dropout(attention(z, z, blk.attn, attn_mask, cfg.num_heads, dtype, tp), keep, generator, train)
+            a = (rel_attention(z, blk.attn, pos, attn_mask, cfg.num_heads, dtype) if relative
+                 else attention(z, z, blk.attn, attn_mask, cfg.num_heads, dtype, tp))
+            h = h + dropout(a, keep, generator, train)
             if cfg.conformer:
                 z = layernorm(h, blk.ln_conv, eps)
                 h = h + dropout(self._conv_module(z, blk, l, mask_btf, train, dtype), keep, generator, train)
@@ -454,6 +586,12 @@ class Transformer(nn.Module):
         if cfg.conformer and not cfg.causal_conv:
             raise ValueError("streaming a conformer requires causal_conv = True (the centered depthwise conv has "
                              "(k-1)/2 frames of lookahead)")
+        if cfg.pos_enc != "absolute":
+            raise ValueError("streaming needs pos_enc = absolute: the relative-position attention has no stream "
+                             "form (its scores are not computed over the key cache)")
+        if cfg.frontend != "stack":
+            raise ValueError("streaming needs frontend = stack: the conv2d front-end has no stream form (no "
+                             "buffer of its receptive field across chunks)")
 
     def init_stream_carry(self, batch_size: int, device=None) -> dict:
         """Zero stream state for ``batch_size`` rows: ``pos`` and the caches
@@ -625,6 +763,6 @@ class Transformer(nn.Module):
         new_cache = self._roll(cache, glu, v)
         conv = F.conv1d(torch.cat([cache, glu], dim=1).transpose(1, 2), p.w_dw, groups=d)  # [B, D, Tc] f32
         z = batchnorm(conv.transpose(1, 2).reshape(b * tc, d), self.bn_conv_mean[l], self.bn_conv_var[l],
-                      p.bn_beta, cfg.bn_eps, torch.float32)
+                      p.bn_beta, cfg.bn_eps, torch.float32, getattr(p, "bn_gamma", None))
         out = affine(swish(z, dtype).reshape(b, tc, d), p.w_out, p.b_out, dtype)
         return (h + out) * mask_btf.to(h.dtype), new_cache

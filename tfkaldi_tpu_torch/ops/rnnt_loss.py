@@ -23,6 +23,9 @@ on the CPU), the port gathers, with ``_NEG`` where the index leaves the
 range. ``torch.logcumsumexp`` / ``cummax`` / ``cummin`` round differently
 from XLA's associative scans, so the port agrees with the JAX module to
 rounding, not to the bit (``tests/test_torch_rnnt_loss.py``).
+
+The recursion (:func:`_scan`, dense and banded) runs under a
+``rnnt.lattice`` ``torch.profiler`` span.
 """
 
 from __future__ import annotations
@@ -46,15 +49,16 @@ def _scan(lp_blank_t: torch.Tensor, c_rows: torch.Tensor, a_init: torch.Tensor, 
     width = a_init.shape[1]
     s_idx = torch.arange(width, device=a_init.device)
     a, alphas = a_init, []
-    for t in range(c_rows.shape[0]):
-        if deltas is not None:
-            idx = s_idx[None, :] + deltas[t][:, None]
-            shifted = torch.gather(a, 1, idx.clamp(0, width - 1))
-            a = torch.where((idx >= 0) & (idx < width), shifted, _NEG)
-        alpha = c_rows[t] + torch.logcumsumexp(a - c_rows[t], dim=1)
-        alphas.append(alpha)
-        a = alpha + lp_blank_t[t]
-    return torch.stack(alphas)
+    with torch.profiler.record_function("rnnt.lattice"):
+        for t in range(c_rows.shape[0]):
+            if deltas is not None:
+                idx = s_idx[None, :] + deltas[t][:, None]
+                shifted = torch.gather(a, 1, idx.clamp(0, width - 1))
+                a = torch.where((idx >= 0) & (idx < width), shifted, _NEG)
+            alpha = c_rows[t] + torch.logcumsumexp(a - c_rows[t], dim=1)
+            alphas.append(alpha)
+            a = alpha + lp_blank_t[t]
+        return torch.stack(alphas)
 
 
 def _corner(b: int, width: int, device) -> torch.Tensor:

@@ -74,6 +74,11 @@ from tfkaldi_tpu_torch.train import ctc
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # RNN-T loss calls by route since the last reset
 rnnt_routes = {"banded": 0, "dense": 0}
+# the RNN-T lattices of those calls: rows (the recursion's steps, the
+# padded T'), real cells (Σ over rows b of T'_b·min(U_b+1, W), W the
+# lattice's width: U_pad+1 dense, the band's S banded) and padded cells
+# (B·T'·W less the real ones)
+rnnt_lattice = {"rows": 0, "real_cells": 0, "padded_cells": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,6 +336,10 @@ class Trainer:
         frames."""
         args = (batch.inputs, batch.input_lengths, batch.targets, batch.target_lengths)
         enc_lengths = model.output_lengths(batch.input_lengths)
+        # for the lattice counters: host copies taken before the forward is
+        # queued, so they wait only on the batch's own copy
+        real_t = model.output_lengths(ctc.host(batch.input_lengths).astype(np.int64))
+        real_u1 = ctc.host(batch.target_lengths).astype(np.int64) + 1
         if 0 < model.config.prune_s <= batch.targets.shape[1]:
             lp_blank, lp_label, starts = model.lattice_scores_pruned(*args, train=train, generator=generator)
             per_seq = rnnt_loss.rnnt_alpha_loss_banded(lp_blank, lp_label, starts, enc_lengths,
@@ -341,6 +350,11 @@ class Trainer:
             per_seq = rnnt_loss.rnnt_alpha_loss(lp_blank, rnnt_loss.mask_label_scores(lp_label, batch.target_lengths),
                                                 enc_lengths, batch.target_lengths)
             rnnt_routes["dense"] += 1
+        b, t_pad, width = lp_blank.shape
+        real = int(np.sum(real_t * np.minimum(real_u1, width)))
+        rnnt_lattice["rows"] += t_pad
+        rnnt_lattice["real_cells"] += real
+        rnnt_lattice["padded_cells"] += b * t_pad * width - real
         return torch.sum(per_seq), batch.input_lengths.sum().float()
 
     def _loss_sum(self, model, batch: PaddedBatch, *, train: bool, generator=None):
