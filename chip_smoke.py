@@ -44,7 +44,12 @@ accuracy gates.
    kernels 1, 4 and 5 at the held-out gates' shapes
    (``check_heldout_kernels``: kernel 1 at the hybrid gate's 48- and
    64-wide layers and the flagship's batches, kernels 4 and 5 at T 128, B
-   16, H 32-64), kernel 3 at the flagship's batch in ``check_bn_dgrad``.
+   16, H 32-64), kernel 3 at the flagship's batch in ``check_bn_dgrad``;
+   and the split of ``layers.product``'s tensor-core backward
+   (``check_split``: ``ops/csrc/bf16_split.cu``) at the Conformer (L)
+   transducer cell's joint and attention-score cotangents, bit-equal to its
+   plain version on both read routes. The bf16 DNN, attention and
+   transducer paths below must each launch it (``add_split_routes``).
 4. Drives the served path at full width (440 -> 6x2048 -> 2000, batchnorm)
    on a seeded synthetic workspace (32 + 32 wavs of 1-8 s, 4 speakers):
    ``cli.main --steps dnn_train_features,dnn_test_features``, then
@@ -303,6 +308,11 @@ REPLAY_ROWS = 8
 # stack on the card against the CPU, max|diff| / max|ref| (f32 sums in another order; TF32 would
 # give about 1e-3)
 CONV_F32_TOL = 1e-4
+# layers.product's tensor-core backward splits each f32 cotangent into three bf16 terms
+# (ops/bf16_split.py): the Conformer (L) transducer cell's joint cotangent [B·c·(U+1), V] (a width
+# of whole float4s: the vectorised read) and its attention scores' [B, H, T', T'] (T' 415: the
+# scalar read)
+SPLIT_SHAPES = {"vec4": (32 * 32 * 129, 1024), "scalar": (32, 8, 415, 415)}
 
 
 def bf16_close(mine: float, theirs: float) -> bool:
@@ -426,6 +436,45 @@ def check_ffn(card: str) -> dict:
             rows[name] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
                           "library_ms": library_ms, **b_}
         del x, w, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_split(card: str) -> dict:
+    """The split kernel (``ops/csrc/bf16_split.cu``) against its plain
+    version (``split3_ref``: torch's casts and subtractions, five passes) on
+    the card at SPLIT_SHAPES, one shape on each read route: bit-equal, the
+    launch counted on its route. Times by CUDA events; the bound is the
+    bytes (the f32 cotangent read once, its three zero-padded bf16 terms
+    written once; 10 bytes an element before the padding). No one PyTorch
+    call splits a tensor so: there is no library time. Returns the rows by
+    route."""
+    import torch
+
+    from tfkaldi_tpu_torch.ops import bf16_split
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for route, shape in SPLIT_SHAPES.items():
+        g = torch.randn(*shape, generator=gen, device="cuda") * 1e-3
+        before = dict(bf16_split.launches_by_route)
+        got = bf16_split.split3(g)
+        want = bf16_split.split3_ref(g)
+        torch.cuda.synchronize()
+        if bf16_split.launches_by_route != {**before, route: before[route] + 1}:
+            raise AssertionError(f"split3 {list(shape)} did not launch once on the {route} route")
+        differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        kernel_ms = ms_per_call(lambda: bf16_split.split3(g))
+        plain_ms = ms_per_call(lambda: bf16_split.split3_ref(g))
+        b_ = bound(5 * g.numel(), nbytes(g, got), PEAK_F32)
+        log(f"bf16_split {list(shape)} f32 -> {list(got.shape)} bf16, route {route}: {differ} of {got.numel()} "
+            f"differ from the plain split, kernel {kernel_ms!r} ms, plain {plain_ms!r} ms "
+            f"({plain_ms / kernel_ms!r}x), bound {b_['bound_ms']!r} ms by {b_['bound_by']} "
+            f"({b_['bound_ms'] / kernel_ms!r} of it) [{card}]")
+        if differ:
+            raise AssertionError(f"split3 {list(shape)}: {differ} elements differ from split3_ref")
+        rows[route] = {"max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, **b_}
+        del g, got, want
         torch.cuda.empty_cache()
     return rows
 
@@ -845,11 +894,13 @@ def check_rnn_kernels(card: str, cell: str, shape=RNN_SHAPE, dirs: int = 2, widt
 def reset_counts() -> None:
     """Every kernel's launch counts to 0 (per route too), and the CTC loss's
     routes, the beam searches' runs, the rescoring counts, the RNN-T loss's
-    routes and the bulk loader's batches, just before a path is driven."""
+    routes, the bulk loader's batches and ``layers.product``'s calls by
+    route, just before a path is driven."""
+    from tfkaldi_tpu_torch import layers
     from tfkaldi_tpu_torch.data import bulk_loader
     from tfkaldi_tpu_torch.decode import ctc as ctc_decode
     from tfkaldi_tpu_torch.decode import seq2seq as seq2seq_decode
-    from tfkaldi_tpu_torch.ops import bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
+    from tfkaldi_tpu_torch.ops import bf16_split, bn_fused_bwd, fused_mlp, gru_bidi, lstm_bidi
     from tfkaldi_tpu_torch.ops import frame_preemph as fp
     from tfkaldi_tpu_torch.train import ctc
     from tfkaldi_tpu_torch.train import trainer as trainer_mod
@@ -857,7 +908,7 @@ def reset_counts() -> None:
     fused_mlp.launches = fp.launches = bn_fused_bwd.launches = 0
     for counts in (fused_mlp.launches_by_route, bn_fused_bwd.launches_by_route, fp.launches_by_route,
                    ctc.launches_by_route, ctc_decode.beam_runs, seq2seq_decode.rescored, trainer_mod.rnnt_routes,
-                   bulk_loader.batches):
+                   bulk_loader.batches, bf16_split.launches_by_route, layers.product_routes):
         for route in counts:
             counts[route] = 0
     for c in (lstm_bidi.CELL, gru_bidi.CELL):
@@ -872,6 +923,27 @@ FFN_ROUTES = {"float32": {}, "bfloat16": {}}
 def add_ffn_routes(dtype: str, by_route: dict) -> None:
     for route, count in by_route.items():
         FFN_ROUTES[dtype][route] = FFN_ROUTES[dtype].get(route, 0) + count
+
+
+# the split kernel's launches on the bf16 training paths by read route (the kernels line), added
+# where each of those paths reads its counts
+SPLIT_ROUTES = {"vec4": 0, "scalar": 0}
+
+
+def add_split_routes(tag: str) -> None:
+    """A bf16 training path's split launches (``layers.product``'s
+    tensor-core backward, one a product whose operands want a gradient):
+    logged with the products by route, required > 0, added to
+    SPLIT_ROUTES."""
+    from tfkaldi_tpu_torch import layers
+    from tfkaldi_tpu_torch.ops import bf16_split
+
+    by_route = dict(bf16_split.launches_by_route)
+    log(f"{tag}: split kernel launches by route {by_route}; layers.product calls by route {layers.product_routes}")
+    if sum(by_route.values()) == 0 or layers.product_routes["tensor_core"] == 0:
+        raise AssertionError(f"{tag}: no bf16 product took the tensor cores, or none launched the split kernel")
+    for route, count in by_route.items():
+        SPLIT_ROUTES[route] += count
 
 
 def check_dnn_routes(tag: str, steps: int) -> None:
@@ -1245,6 +1317,7 @@ def bf16_dnn_path(card: str, ws: dict) -> tuple[dict, object, str]:
         raise RuntimeError(f"cli.main bf16 DNN path: rc {rc}")
     launches = {"fused_ffn": fused_mlp.launches, "bn_dgrad": bn_fused_bwd.launches}
     add_ffn_routes("bfloat16", fused_mlp.launches_by_route)
+    add_split_routes("bf16 DNN path")
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
     check_loader("bf16 DNN path", "alignment", cfg_path, len(steps))
@@ -2408,6 +2481,7 @@ def attention_path(card: str, ws: dict) -> tuple[str, str, dict]:
     if rc != 0:
         raise RuntimeError(f"cli.main attention path: rc {rc}")
     kernels = seven_counters()
+    add_split_routes("attention path")
     loss_routes, rescored = dict(ctc.launches_by_route), dict(seq2seq_decode.rescored)
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
@@ -2785,6 +2859,7 @@ def transducer_path(card: str, ws: dict, dirs: dict) -> tuple[dict, str, str]:
     other.update({f"gru_{k}": getattr(gru_bidi.CELL, f"{k}_launches")
                   for k in ("fwd_persistent", "fwd", "bwd_persistent", "bwd")})
     loss_routes = dict(trainer_mod.rnnt_routes)
+    add_split_routes("transducer path")
     with open(os.path.join(savedir, "metrics.jsonl")) as f:
         steps = [json.loads(line) for line in f]
     check_loader("transducer path", "text", cfg_path, len(steps))
@@ -5189,6 +5264,7 @@ def main() -> int:
     rnn_rows = {cell: check_rnn_kernels(card, cell) for cell in ("lstm", "gru")}
     pred_rows = check_predictor_kernels(card)
     heldout_ffn = check_heldout_kernels(card)
+    split = check_split(card)
     log(f"phase kernels vs plain: {time.perf_counter() - t0!r} s")
 
     # ---- served path at full width ----
@@ -5453,6 +5529,10 @@ def main() -> int:
                 name=f"{cell}_{part}", route="cuda", source=f"tfkaldi_tpu_torch/ops/csrc/{cell}_bidi.cu",
                 replaces=f"tfkaldi_tpu/ops/{kernel_file}:{line}", launches=rnn_launches[f"{cell}_{part}"],
                 **rnn_rows[cell][part]))
+    log(f"split kernel launches on the bf16 DNN, attention and transducer paths by route: {SPLIT_ROUTES}")
+    kernels.append(dict(name="bf16_split", route="cuda", source="tfkaldi_tpu_torch/ops/csrc/bf16_split.cu",
+                        replaces=None, launches=sum(SPLIT_ROUTES.values()), launches_by_route=SPLIT_ROUTES,
+                        **split["vec4"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

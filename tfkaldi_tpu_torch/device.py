@@ -13,9 +13,12 @@ import torch
 
 
 def pin_precision() -> None:
-    """Full-precision f32 matmuls and convolutions (no TF32)."""
+    """Full-precision f32 matmuls and convolutions (no TF32), and f32
+    reductions inside cuBLAS's bf16 GEMMs (``layers.product``'s tensor-core
+    route)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(name: str | torch.device = "cuda") -> torch.device:

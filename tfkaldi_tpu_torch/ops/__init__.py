@@ -17,6 +17,10 @@ wrappers that run the plain PyTorch version on CPU tensors.
   :mod:`~tfkaldi_tpu_torch.ops.gru_scan`
 - :mod:`tfkaldi_tpu_torch.ops.rnn_bidi`: the wrappers, the autograd
   Function and the launch both recurrences share
+- :mod:`tfkaldi_tpu_torch.ops.bf16_split`: ``split3`` (the exact
+  three-term bf16 split of an f32 cotangent, zero-padded for cuBLAS, that
+  :func:`tfkaldi_tpu_torch.layers.product`'s tensor-core backward feeds
+  its GEMMs; launches by how it reads in ``launches_by_route``)
 
 Each of the first three modules keeps its kernel's launch count in a
 module global ``launches``, and the same launches by route in

@@ -64,6 +64,8 @@ _SIGNATURES = {
     **{f"tk_{cell}_bwd_persistent_{dt}": [_P, _P, _I, _I, _I, _I, _I, _P, _P]
        for cell in ("lstm", "gru") for dt in ("f32", "bf16")},
     "tk_rnn_bwd_smem": [_I, _I, _I],
+    # layers.product's backward: (g, out, batch, m, n, m8, n8, vec_in, stream)
+    "tk_split3_bf16": [_P, _P, *[ctypes.c_longlong] * 5, _I, _P],
 }
 
 _lock = threading.Lock()

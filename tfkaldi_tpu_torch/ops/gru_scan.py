@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from tfkaldi_tpu_torch.layers import product
+from tfkaldi_tpu_torch.layers import widened_product
 from tfkaldi_tpu_torch.ops.lstm_scan import carry_input, weight_grad
 
 
@@ -39,7 +39,7 @@ def forward(gx, wh_cd, mask, *, reverse: bool = False):
     h_cds = torch.empty(t_len, b, h_units, dtype=cd, device=gx.device)
     for t in range(t_len - 1, -1, -1) if reverse else range(t_len):
         h_cd = h.to(cd)
-        ghr, ghz, ghn = product(h_cd, wh_cd, cd).split(h_units, dim=1)
+        ghr, ghz, ghn = widened_product(h_cd, wh_cd, cd).split(h_units, dim=1)
         gxr, gxz, gxn = gx[t].split(h_units, dim=1)
         r = torch.sigmoid(gxr + ghr)
         z = torch.sigmoid(gxz + ghz)
@@ -78,7 +78,7 @@ def backward_scan(dys, acts, hs, ghns, mask, wh_cd, *, reverse: bool = False):
         dpre_r = r * (1.0 - r) * dr
         dpre_z = z * (1.0 - z) * dz
         dgh_t = torch.cat([dpre_r, dpre_z, dpre_n * r], dim=1)
-        dh = dh_prev + product(dgh_t, wht, cd)
+        dh = dh_prev + widened_product(dgh_t, wht, cd)
         dgx[t] = torch.cat([dpre_r, dpre_z, dpre_n], dim=1)
         dgh[t] = dgh_t
     return dgx, dgh

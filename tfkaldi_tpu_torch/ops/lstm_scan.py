@@ -16,15 +16,16 @@ Port of :mod:`tfkaldi_tpu.ops.lstm_scan` (``lstm_scan``, ``_forward``,
   product ``round_cd(dgates) @ W_hᵀ`` per step, then ``dW_h`` hoisted out
   as one ``[H, T·B] @ [T·B, 4H]`` product of ``h_cd`` and ``round_cd(dgx)``.
 
-Products take compute-dtype operands and accumulate in f32
-(:func:`tfkaldi_tpu_torch.layers.product`).
+Products take compute-dtype operands and accumulate in f32; the recurrent
+ones are :func:`tfkaldi_tpu_torch.layers.widened_product` on a card too, so
+that the numerics the kernels are held to stay those of the f32 GEMM.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tfkaldi_tpu_torch.layers import product
+from tfkaldi_tpu_torch.layers import product, widened_product
 
 
 def forward(gx, wh_cd, mask, *, reverse: bool = False):
@@ -45,7 +46,7 @@ def forward(gx, wh_cd, mask, *, reverse: bool = False):
     h_cds = torch.empty(t_len, b, h_units, dtype=cd, device=gx.device)
     for t in range(t_len - 1, -1, -1) if reverse else range(t_len):
         h_cd = h.to(cd)
-        gates = gx[t] + product(h_cd, wh_cd, cd)
+        gates = gx[t] + widened_product(h_cd, wh_cd, cd)
         gi, gf, gg, go = gates.split(h_units, dim=1)
         i = torch.sigmoid(gi)
         f = torch.sigmoid(gf)
@@ -104,7 +105,7 @@ def backward_scan(dys, acts, cs, mask, wh_cd, *, reverse: bool = False):
             (1.0 - g * g) * dg_gate,
             o * (1.0 - o) * do_gate,
         ], dim=1)
-        dh = dh_prev + product(dgates, wht, cd)
+        dh = dh_prev + widened_product(dgates, wht, cd)
         dc = dc_prev
         dgx[t] = dgates
     return dgx
@@ -112,7 +113,8 @@ def backward_scan(dys, acts, cs, mask, wh_cd, *, reverse: bool = False):
 
 def weight_grad(h_cds, dg, compute_dtype):
     """``dW_h = Σ_t h_cd_tᵀ @ round_cd(dg_t)`` as one ``[H, T·B] @ [T·B, G·H]``
-    product (f32 accumulation)."""
+    product (f32 accumulation; :func:`tfkaldi_tpu_torch.layers.product`,
+    as the kernels' autograd Function computes it too)."""
     t_len, b, h_units = h_cds.shape
     return product(h_cds.reshape(t_len * b, h_units).t(), dg.reshape(t_len * b, -1), compute_dtype)
 
