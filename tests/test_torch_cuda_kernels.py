@@ -67,16 +67,25 @@ def _ffn_operands(seed, n, k, m, device):
     (1024, 2048, 2000, "tma"),  # ragged N: 2000 columns of 128- / 256-wide tiles
     (1000, 440, 2048, "tma"),  # ragged rows and depth (440 = 6.9 bf16 / 13.75 f32 stages)
     (128, 64, 256, "tma"),  # one tile, one stage
+    # the recipe's layers: the served path's decode batches (8,192 rows) and
+    # the training paths' validation batches (128 x 512 frames), on whole
+    # 128-row tiles
+    (8192, 440, 2048, "tma128"), (8192, 2048, 2048, "tma128"),
+    (65536, 440, 2048, "tma128"), (65536, 2048, 2048, "tma128"),
 ])
 @pytest.mark.parametrize("affine,relu", [(True, True), (False, False)])
 def test_fused_ffn_matches_plain(cuda, dtype, tol, n, k, m, route, affine, relu):
-    """``route`` is the TMA core's route; where the TMA grid leaves SMs
-    idle the plan may split K (``splitk``, the route its plan names)."""
+    """``route`` is the TMA core's route (``tma128``: on 128-row tiles);
+    where the TMA grid leaves SMs idle the plan may split K (``splitk``,
+    the route its plan names)."""
     x, w, b, scale, shift = _ffn_operands(n + k + m, n, k, m, cuda)
     x, w = x.to(dtype), w.to(dtype)
     if not affine:
         scale = shift = None
     plan = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr()))
+    if route == "tma128":
+        assert (plan.route, plan.bm) == ("tma", 128)
+        route = "tma"
     assert plan.route == route or (route, plan.route) == ("tma", "splitk")
     route = plan.route
     before, by_route = fused_mlp.launches, dict(fused_mlp.launches_by_route)
@@ -97,26 +106,32 @@ def test_fused_ffn_streaming_rows(cuda, dtype, tol, n, k):
     rows, T padded to 8; 1 and 13 rows off that grid): fewer rows than one
     128-row tile, or a ragged last tile, on the route the plan names
     (``splitk`` where splitting K beats the TMA grid's few CTAs, else
-    ``tma``): the tile's rows past n read as zeros and are not stored."""
+    ``tma``): the tile's rows past n read as zeros and are not stored. The
+    planned call twice: on the split route the two are bit-equal."""
     x, w, b, scale, shift = _ffn_operands(n + k, n, k, 2048, cuda)
     x, w = x.to(dtype), w.to(dtype)
     route = gemm_plan(n, k, 2048, dtype, "mn", (x.data_ptr(), w.data_ptr())).route
     assert route in ("splitk", "tma")
     before = dict(fused_mlp.launches_by_route)
     got = fused_mlp.fused_ffn_block(x, w, b, scale, shift)
+    again = fused_mlp.fused_ffn_block(x, w, b, scale, shift)
     want = fused_mlp.fused_ffn_block_ref(x, w, b, scale, shift)
     torch.cuda.synchronize()
-    assert fused_mlp.launches_by_route == {**before, route: before[route] + 1}
+    assert fused_mlp.launches_by_route == {**before, route: before[route] + 2}
     assert got.shape == (n, 2048) and torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
+    assert route != "splitk" or torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
-@pytest.mark.parametrize("n,k,m", [(2048, 48, 64), (2048, 64, 64)])
+@pytest.mark.parametrize("n,k,m", [(2048, 48, 64), (2048, 64, 64), (2048, 440, 2048), (2048, 2048, 2048),
+                                   (16384, 2048, 2048)])
 def test_fused_ffn_gate_narrow_layers(cuda, dtype, tol, n, k, m):
-    """The hybrid held-out gate's two layers (16 utterances x 128 frames,
-    16-dim spliced input, 64 units): one column tile, on the route the plan
-    names."""
+    """The held-out gates' layers without the BN affine: the hybrid gate's
+    two (16 utterances x 128 frames, 16-dim spliced input, 64 units: one
+    column tile), and the flagship gate's first and inner layers at its 16
+    decode utterances and its 128 validation utterances (x the 128-frame
+    bucket); each on the route the plan names."""
     x, w, b, _, _ = _ffn_operands(n + k + m, n, k, m, cuda)
     x, w = x.to(dtype), w.to(dtype)
     route = gemm_plan(n, k, m, dtype, "mn", (x.data_ptr(), w.data_ptr())).route
@@ -154,6 +169,25 @@ def test_fused_ffn_splitk_repeat_is_bit_equal(cuda, dtype, n, k):
             got = fused_mlp.launch(variant(plan, n, k, dtype, bm, splits), x, w, b, scale, shift)
             torch.cuda.synchronize()
             assert (got.float() - want.float()).abs().max().item() <= tol, (bm, splits)
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_plan_matches_the_source(cuda, dtype, bm):
+    """The plan's shared memory and blocks an SM on each tile are the ones
+    the source sets for it (``tk_gemm_smem``, ``tk_gemm_blocks_per_sm``):
+    at the recipe's shapes for kernels 1 and 3, and at a streamed row
+    count, whose split route keeps the TMA route's blocks."""
+    from tfkaldi_tpu_torch.ops import _build
+    from tfkaldi_tpu_torch.ops.gemm_plan import blocks_per_sm, plan_uncached
+
+    lib, bf16 = _build.load(), int(dtype == torch.bfloat16)
+    assert blocks_per_sm(dtype, bm) == lib.tk_gemm_blocks_per_sm(bf16, bm)
+    for n, k, m, major in ((8192, 2048, 2048, "mn"), (65536, 440, 2048, "mn"), (65536, 2048, 2048, "k"),
+                           (600, 2048, 2048, "mn"), (8, 440, 2048, "mn")):
+        plan = plan_uncached(n, k, m, dtype, major, True)
+        if plan.bm == bm:
+            assert plan.smem_bytes == lib.tk_gemm_smem(bf16, bm), (n, k, m, major)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.0625)])
@@ -196,17 +230,26 @@ FRAME_CASES = {
     "edge_offset_view": (4, 4000, 400, 160, 23, 0.97, None, "edge", {}),
     "edge_t_max_one": (2, 301, 400, 160, 1, 0.97, [301, 0], "edge", {}),
     "edge_persistent": (3, 4001, 400, 160, 23, 0.97, None, "edge", {"frames": 2, "grid": 2}),
+    # the kernel table's batches: 16 x 5 s and 16 x 8 s at 16 kHz (the longest
+    # bucket the served run pads to), planned, and one float into their buffer
+    "bulk_5s": (16, 80000, 400, 160, 498, 0.97, None, "bulk", {}),
+    "bulk_8s": (16, 128000, 400, 160, 798, 0.97, None, "bulk", {}),
+    "edge_offset_view_5s": (16, 80000, 400, 160, 498, 0.97, None, "edge", {}),
+    "edge_offset_view_8s": (16, 128000, 400, 160, 798, 0.97, None, "edge", {}),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FRAME_CASES))
 def test_frame_preemph_bit_equal_to_plain(cuda, name):
     """Kernel 2 on both routes at the plan's edge shapes, bit-equal to the
-    plain version; the launch is counted on the route the plan names."""
+    plain version; the launch is counted on the route the plan names, and
+    the plan's shared memory is the source's (``tk_frame_smem``)."""
+    from tfkaldi_tpu_torch.ops import _build
+
     b, s, wl, ws, t_max, preemph, eff, route, force = FRAME_CASES[name]
     rng = np.random.default_rng(s)
     host = np.round(rng.standard_normal(b * s + 1) * 800).astype(np.float32)
-    if name == "edge_offset_view":  # one sample into an aligned buffer
+    if name.startswith("edge_offset_view"):  # one sample into an aligned buffer
         sig = torch.from_numpy(host).to(cuda)[1:].view(b, s)
     else:
         sig = torch.from_numpy(host[: b * s]).to(cuda).view(b, s)
@@ -218,6 +261,7 @@ def test_frame_preemph_bit_equal_to_plain(cuda, name):
     if grid is not None:
         plan = dataclasses.replace(plan, grid=grid)
     assert plan.route == route
+    assert plan.smem_bytes == _build.load().tk_frame_smem(wl, ws, plan.frames, plan.code)
     before, by_route = fp.launches, dict(fp.launches_by_route)
     got = fp.frame_preemph(sig, eff, **args, plan=plan if force or grid else None)
     want = fp.frame_preemph_ref(sig, eff, **args)
@@ -297,10 +341,20 @@ def _bn_operands(n, h, k, dtype, device, seed):
     (1024, 2048, 440, "tma"),  # ragged N: 440 columns of dh
     (512, 256, 2048, "tma"),
     (1000, 64, 256, "tma"),  # ragged rows, one stage
+    # the recipe's training step (128 x 512 frames; w [2048, 2048] and the
+    # first layer's [440, 2048], whose launch is the dz pass alone), an
+    # 8,192-row batch, and the held-out flagship's (128 x the 128-frame
+    # bucket); the product on whole 128-row tiles
+    (65536, 2048, 2048, "tma128"), (65536, 2048, 440, "tma128"), (8192, 2048, 2048, "tma128"),
+    (16384, 2048, 2048, "tma128"),
 ])
 @pytest.mark.parametrize("need_dh", [True, False])
 def test_bn_dgrad_matches_plain(cuda, dtype, tol, n, h, k, route, need_dh):
     args = _bn_operands(n, h, k, dtype, cuda, n + h + k)
+    if route == "tma128":
+        route = "tma"
+        plan = gemm_plan(n, h, k, dtype, "k", (args[0].data_ptr(), args[3].to(dtype).data_ptr()))
+        assert (plan.route, plan.bm) == ("tma", 128)
     if not need_dh and route == "tma":
         route = "dz"  # the vector dz pass alone
     before, by_route = bn_fused_bwd.launches, dict(bn_fused_bwd.launches_by_route)

@@ -113,6 +113,25 @@ def test_gradients_equal_but_for_ties(cuda, name, a_dtype):
         assert miss <= 20 * max(miss_old, 1)
 
 
+# the cell's joint cotangent [B·c·(U+1), V] (whole float4s: the vectorised
+# read) and its attention scores' [B, H, T', T'] (T' 415: the scalar read)
+CELL_COTANGENTS = {"joint": ((32 * 32 * 129, 1024), "vec4"), "scores": ((32, 8, T, T), "scalar")}
+
+
+@pytest.mark.parametrize("name", list(CELL_COTANGENTS))
+def test_split_kernel_at_the_cell_cotangents(cuda, name):
+    """At the cell's cotangents: one launch on the read route of the shape,
+    bit-equal to the plain split."""
+    shape, route = CELL_COTANGENTS[name]
+    g = torch.randn(*shape, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda) * 1e-3
+    before = dict(bf16_split.launches_by_route)
+    out = bf16_split.split3(g)
+    ref = bf16_split.split3_ref(g)
+    torch.cuda.synchronize()
+    assert bf16_split.launches_by_route == {**before, route: before[route] + 1}
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
 @pytest.mark.parametrize("kind", ["normal", "tiny", "huge", "negative", "mixed_scales", "zero"])
 def test_split_kernel_equals_the_plain_split(cuda, kind):
     g = _values(kind, torch.Generator().manual_seed(3)).to(cuda)  # [257, 193]: the scalar route

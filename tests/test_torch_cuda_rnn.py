@@ -15,7 +15,8 @@ distance of the kernels' result from the plain version run in f32 within
 against the plain version run in f32 on the bf16-rounded weights, at least
 half of the plain bf16 version's distance: a kernel that skipped the
 rounding of ``h`` or of the gate cotangents before its products would sit
-near zero there (the rules of chip_smoke.py::check_rnn_kernels).
+near zero there. The backward alone, on the plain forward's residuals (so
+kernel 5 or 7 sees the plain version's inputs), is held to the same rules.
 """
 
 import numpy as np
@@ -52,15 +53,21 @@ def _case(gates, t, b, h, dirs, device, seed):
     return [x.to(device) for x in gxs], [w.to(device) for w in whs], mask.to(device), [d.to(device) for d in dys]
 
 
-def _chain(cell, gxs, whs, mask, dys, cd, kernel):
+def _chain(cell, gxs, whs, mask, dys, cd, kernel, res=None):
+    """Forward with residuals, backward and dW_h of every direction; with
+    ``res`` given, the backward alone on them. Every output by name, the
+    residuals under ``_res``."""
     c = CELLS[cell]
     whs_cd = [w.to(cd) for w in whs]
-    outs = (c.fwd if kernel else c.fwd_ref)(gxs, whs_cd, mask, residuals=True)
-    res = [r for _, r in outs]
+    flat = {}
+    if res is None:
+        outs = (c.fwd if kernel else c.fwd_ref)(gxs, whs_cd, mask, residuals=True)
+        res = [r for _, r in outs]
+        flat["ys"] = [y for y, _ in outs]
+        for i in range(len(res[0])):
+            flat[f"res{i}"] = [r[i] for r in res]
     grads = (c.bwd if kernel else c.bwd_ref)(dys, res, mask, whs_cd)
-    flat = {"ys": [y for y, _ in outs]}
-    for i in range(len(res[0])):
-        flat[f"res{i}"] = [r[i] for r in res]
+    flat["_res"] = res
     flat["dgx"] = [g for g, _ in grads]
     flat["dg_w"] = [g for _, g in grads]
     flat["dW_h"] = [weight_grad(r[2], g, cd) for r, (_, g) in zip(res, grads)]
@@ -72,6 +79,10 @@ def _rel(a, b):
                for x, y in zip(a, b))
 
 
+def _outputs(flat):
+    return [name for name in flat if not name.startswith("_")]
+
+
 def _counts(c):
     return c.fwd_persistent_launches, c.fwd_launches, c.bwd_persistent_launches, c.bwd_launches
 
@@ -81,17 +92,26 @@ def _launched(plan, t):
     return (1, 0) if plan.route == "persistent" else (0, t)
 
 
-# (6, 300, 512, 2): B beyond the grid's 2 row CTAs, so each CTA loops over
-# 3 row tiles; (1, 8, 128, 2): T 1; (5, 6, 720, 2): the LSTM's f32 forward
-# and backward take the step route (their W_h slices do not fit); (7, 5,
-# 33, 2) and (9, 37, 70, 1): dgates rows that are not whole 16-byte pieces
-# send some backwards to the step route
-PERSISTENT_BOTH_WAYS = {(512, 128, 512, 2), (16, 8, 128, 2)}
+# (512, 128, 512, 2): one layer of the recipe's BiLSTM / BiGRU (T_pad,
+# batch, hidden); (129, 128, 320, 1): the transducer's prediction network
+# (T = U_pad + 1); the held-out gates' layers at the dispenser's 16
+# utterances padded to the 128-frame bucket: (128, 16, 64, 2) the CTC
+# BiLSTM, (128, 16, 64, 1) the RNN-T encoder, (128, 16, 48, 2) the attention
+# BiLSTM encoder, (129, 16, 32, 1) the transducers' predictor. (6, 300,
+# 512, 2): B beyond the grid's 2 row CTAs, so each CTA loops over 3 row
+# tiles; (1, 8, 128, 2): T 1; (5, 6, 720, 2): the LSTM's f32 forward and
+# backward take the step route (their W_h slices do not fit); (7, 5, 33, 2)
+# and (9, 37, 70, 1): dgates rows that are not whole 16-byte pieces send
+# some backwards to the step route
+PERSISTENT_BOTH_WAYS = {(512, 128, 512, 2), (16, 8, 128, 2), (129, 128, 320, 1), (128, 16, 64, 2), (128, 16, 64, 1),
+                        (128, 16, 48, 2), (129, 16, 32, 1)}
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("t,b,h,dirs", [(16, 8, 128, 2), (7, 5, 33, 2), (9, 37, 70, 1), (512, 128, 512, 2),
-                                        (6, 300, 512, 2), (1, 8, 128, 2), (12, 70, 256, 1), (5, 6, 720, 2)])
+                                        (6, 300, 512, 2), (1, 8, 128, 2), (12, 70, 256, 1), (5, 6, 720, 2),
+                                        (129, 128, 320, 1), (128, 16, 64, 2), (128, 16, 64, 1), (128, 16, 48, 2),
+                                        (129, 16, 32, 1)])
 def test_kernels_match_plain(cuda, cell, t, b, h, dirs):
     c = CELLS[cell]
     gxs, whs, mask, dys = _case(c.gates, t, b, h, dirs, cuda, seed=t + b + h)
@@ -108,8 +128,11 @@ def test_kernels_match_plain(cuda, cell, t, b, h, dirs):
     # one persistent launch per call, or one step launch per time step, each way
     want = (*_launched(fplan, t), *_launched(bplan, t))
     assert _counts(c) == tuple(x + y for x, y in zip(before, want)), (fplan, bplan)
-    for name in ref32:
+    alone = _chain(cell, gxs, whs, mask, dys, torch.float32, kernel=True, res=ref32["_res"])
+    for name in _outputs(ref32):
         assert _rel(got32[name], ref32[name]) <= 1e-5, name
+    for name in _outputs(alone):
+        assert _rel(alone[name], ref32[name]) <= 1e-5, ("backward alone", name)
     before = _counts(c)
     got = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=True)
     torch.cuda.synchronize()
@@ -118,13 +141,21 @@ def test_kernels_match_plain(cuda, cell, t, b, h, dirs):
     assert _counts(c) == tuple(x + y for x, y in zip(before, want))
     plain = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=False)
     # the same bf16 weights in f32: only the roundings of h and dgates are missing
-    unrounded = _chain(cell, gxs, [w.bfloat16().float() for w in whs], mask, dys, torch.float32, kernel=False)
+    rounded = [w.bfloat16().float() for w in whs]
+    unrounded = _chain(cell, gxs, rounded, mask, dys, torch.float32, kernel=False)
+    alone = _chain(cell, gxs, whs, mask, dys, torch.bfloat16, kernel=True, res=plain["_res"])
+    alone_unrounded = _chain(cell, gxs, rounded, mask, dys, torch.float32, kernel=False, res=plain["_res"])
     torch.cuda.synchronize()
-    for name in ref32:
+    for name in _outputs(ref32):
         mine, theirs = _rel(got[name], ref32[name]), _rel(plain[name], ref32[name])
         assert mine <= 2.0 * theirs + 1e-5, (name, mine, theirs)
         mine, theirs = _rel(got[name], unrounded[name]), _rel(plain[name], unrounded[name])
         assert mine >= theirs / 2.0 - 1e-5, (name, mine, theirs)
+    for name in _outputs(alone):
+        mine, theirs = _rel(alone[name], ref32[name]), _rel(plain[name], ref32[name])
+        assert mine <= 2.0 * theirs + 1e-5, ("backward alone", name, mine, theirs)
+        mine, theirs = _rel(alone[name], alone_unrounded[name]), _rel(plain[name], alone_unrounded[name])
+        assert mine >= theirs / 2.0 - 1e-5, ("backward alone", name, mine, theirs)
     for ys in got["ys"]:
         assert torch.all(ys[mask[:, :, 0] == 0] == 0)  # the padding emits zeros, garbage or not
 

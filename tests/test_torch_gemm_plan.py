@@ -132,7 +132,7 @@ def test_bad_layout_raises():
 
 # ---- the split-K route (kernel 1 below one wave of tiles) ----
 
-STREAM_ROWS = (8, 16, 64, 72, 600)  # the streamed DNN's B x T_pad (chip_smoke.STREAM_FFN_ROWS)
+STREAM_ROWS = (8, 16, 64, 72, 600)  # the streamed DNN's B x T_pad (OnlineSplicedDecoder, T padded to 8)
 GATE_SHAPES = ((2048, 48, 64), (2048, 64, 64))  # the hybrid held-out gate's layers
 
 
@@ -252,8 +252,9 @@ CALIBRATED = [
 
 @pytest.mark.parametrize("cd,n,k,m,route,bm,grid,splits", CALIBRATED)
 def test_streamed_and_gate_shapes_take_the_measured_plan(cd, n, k, m, route, bm, grid, splits):
-    """Route, tile, grid and split count at each shape chip_smoke's
-    ``check_ffn_streaming`` and ``check_heldout_kernels`` time."""
+    """Route, tile, grid and split count at each shape the card tests
+    (tests/test_torch_cuda_kernels.py) and chip_smoke.py's kernel table
+    give kernel 1 below one wave of tiles."""
     plan = gemm_plan(n, k, m, CD[cd], "mn", ALIGNED)
     assert (plan.route, plan.bm, plan.grid, plan.splits) == (route, bm, grid, splits)
     if route == "splitk":

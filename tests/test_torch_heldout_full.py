@@ -5,8 +5,8 @@ value within its gate's limit.
 
 Marked ``slow``: the seven take 5 to 15 minutes on one worker of an
 8-core CPU (the JAX tests about 4), too long for Tier-1, which deselects
-``slow``. The card runs the same gates in every ``chip_smoke.py`` run (its
-held-out phase). The rnnt gate's limit lies inside the spread that the
+``slow``. The card suite runs the same gates
+(``tests/test_torch_cuda_heldout.py::test_heldout_gate``). The rnnt gate's limit lies inside the spread that the
 CPU's rounding gives its value (0.19 to 0.23 over repeated runs; JAX's own
 0.16 to 0.20), so its case here can fail on a run that is not at fault.
 Run them with

@@ -14,7 +14,7 @@ f32 sums can move one of those roundings by a bf16 step, which then travels
 on through two layers and the loss. The yardstick is the bf16 rounding
 itself: the port's bf16 result, against the JAX package's f32 result, must
 lie within BF16_RATIO (2x) of the JAX bf16 result's own distance from it,
-the rule chip_smoke.py holds the card's kernels to.
+the rule the card tests hold the kernels to (tests/test_torch_cuda_rnn.py).
 """
 
 import dataclasses

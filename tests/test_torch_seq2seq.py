@@ -240,7 +240,7 @@ def _num_alignments(labels, frames: int) -> int:
 def test_loss_is_uniform_at_init():
     """Zero-init decoder and CTC heads: both uniform over V+1, so the joint
     loss is ``(1-w)·Σ(U+1)·ln(V+1) + w·Σ(T'·ln(V+1) − ln N)`` whatever the
-    smoothing (the uniform-posterior value chip_smoke checks at full width)."""
+    smoothing (the uniform-posterior value the card suite checks at full width)."""
     w = 0.3
     cfg = _port_config(**ENCODERS["conformer_s4"], ctc_weight=w, label_smoothing=0.1)
     trainer = Trainer(cfg, TrainerConfig(loss_type="attention"), device="cpu")

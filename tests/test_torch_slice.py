@@ -12,6 +12,7 @@ may differ by an f32 ulp).
 """
 
 import ast
+import glob
 import os
 import shutil
 import subprocess
@@ -221,13 +222,16 @@ _PORT_SOURCES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, files in os.walk(os.path.join(ROOT, "tfkaldi_tpu_torch"))
     for f in files if f.endswith(".py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", os.path.join("tests", "card_support.py")] + sorted(
+    os.path.relpath(p, ROOT) for p in glob.glob(os.path.join(ROOT, "tests", "test_torch_cuda_*.py")))
 
 
 @pytest.mark.parametrize("path", _PORT_SOURCES)
 def test_only_port_io_module_imports_jax_package(path):
-    """No source file of the port, and not chip_smoke.py, imports JAX or
-    any module of the JAX package."""
+    """No source file of the port, not chip_smoke.py and no card test file
+    (``tests/test_torch_cuda_*.py`` and the ``tests/card_support.py`` they
+    share, run with ``--noconftest`` where JAX is absent) imports JAX or any
+    module of the JAX package."""
     reached = [m for m in _imported_modules(path) if m.split(".")[0] in ("jax", "tfkaldi_tpu")]
     assert reached == []
     if path == "chip_smoke.py":  # the walk covers the model families and the Kaldi layer too

@@ -41,8 +41,13 @@ bf16 (:func:`stream_times`); run it from another checkout's root with
 ``nvidia-smi`` names it and the result as one JSON object on the last line
 (also written to ``--out``). Needs one CUDA device and ``nvcc``.
 
-chip_smoke.py takes the card's peak rates, :func:`bound`, kernel 1's
-:data:`FFN_TOL`, the timers and :func:`bench_sweep` from here.
+This module holds the card's one set of timers, peaks and bound: the
+device timer :func:`device_ms` (torch.profiler's self device time, of
+every kernel or of those a name picks), the events timer
+:func:`events_ms` (the median of windows of calls) and the host timer
+:func:`host_us`; ``PEAK_*`` and :func:`bound`; and the kernel table's
+rows (``*_ROWS``) with their :func:`work`. chip_smoke.py, profile_frame.py,
+profile_rnn.py and the card tests (``-m cuda``) take them from here.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -59,7 +65,7 @@ import torch
 # [n, k, m]: the streamed DNN's rows (B x T_pad, T padded to 8) at layer 0
 # and layers 1-5, and the hybrid gate's two layers
 SHAPES = tuple((n, k, 2048) for k in (440, 2048) for n in (8, 16, 64, 72, 600)) + ((2048, 48, 64), (2048, 64, 64))
-# kernel 1 against its plain version (chip_smoke.check_ffn says why)
+# kernel 1 against its plain version (tests/test_torch_cuda_kernels.py says why)
 FFN_TOL = {"float32": 1e-4, "bfloat16": 0.0625}
 CALLS = 20
 # H100 SXM peaks (NVIDIA data sheet): f32 and f64 outside the tensor cores, HBM
@@ -78,27 +84,109 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32) -> dict:
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def ffn_bound(n: int, k: int, m: int, dtype, affine: bool = True) -> dict:
-    """:func:`bound` of ``act((x @ w + b) * scale + shift)``: x, w, the
-    vectors and the output each moved once."""
+def ffn_work(n: int, k: int, m: int, dtype, affine: bool = True) -> tuple[int, int]:
+    """The operations and bytes of ``act((x @ w + b) * scale + shift)``: x,
+    w, the vectors and the output each moved once."""
     size = torch.finfo(dtype).bits // 8
     ops = 2 * n * k * m + (2 + 2 * affine) * n * m
     nbytes = (n * k + k * m + n * m) * size + (3 if affine else 1) * m * 4
-    return bound(ops, nbytes, PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+    return ops, nbytes
 
 
-def _self_device_us(event) -> float:
+def ffn_bound(n: int, k: int, m: int, dtype, affine: bool = True) -> dict:
+    """:func:`bound` of :func:`ffn_work`."""
+    return bound(*ffn_work(n, k, m, dtype, affine), PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+
+
+# the kernel table of PERF.md §6 (chip_smoke.py times it). Kernel 1: [n, k] @ [k, m], dtype, the BN
+# affine, the timer: the recipe's [8192, 2048]² (the served path's decode batch), the streamed DNN's rows
+# below one wave of tiles, the hybrid held-out gate's narrow layers and the flagship gate's validation batch
+FFN_ROWS = tuple((8192, 2048, 2048, dt, True, "events") for dt in ("float32", "bfloat16")) + tuple(
+    (n, k, 2048, dt, True, "device") for dt in ("float32", "bfloat16") for n, k in ((8, 2048), (72, 2048),
+                                                                                  (600, 2048), (8, 440))) + (
+    (2048, 48, 64, "float32", False, "device"), (2048, 64, 64, "float32", False, "device"),
+    (16384, 2048, 2048, "float32", False, "events"), (16384, 2048, 2048, "bfloat16", False, "events"))
+# kernel 2: [B, S] at 16 kHz, 25 ms frames every 10 ms, f32 samples to f64 frames
+FRAME_ROWS = ((16, 5 * 16000), (16, 8 * 16000))
+# kernel 3: g, z [n, h], w [k, h], the product on (the training step's 128 x 512 frames)
+BN_ROWS = ((65536, 2048, 2048, "float32"), (65536, 2048, 2048, "bfloat16"))
+# kernels 4-7: cell, [T, B, H], directions, the library call's input width, dtype: one layer of the
+# recipe's BiLSTM / BiGRU, the transducer's prediction network, two of the held-out gates' layers
+RNN_ROWS = (("lstm", (512, 128, 512), 2, 1024, "bfloat16"), ("gru", (512, 128, 512), 2, 1024, "bfloat16"),
+            ("lstm", (129, 128, 320), 1, 128, "bfloat16"), ("lstm", (128, 16, 64), 2, 16, "float32"),
+            ("lstm", (129, 16, 32), 1, 16, "float32"))
+# the split of layers.product's tensor-core backward: the Conformer (L) transducer cell's joint
+# cotangent (whole float4s: the vectorised read) and attention scores' (T' 415: the scalar read)
+SPLIT_ROWS = {"vec4": (32 * 32 * 129, 1024), "scalar": (32, 8, 415, 415)}
+RNN_SEEDS = {"lstm": 5, "gru": 6}
+PEAKS = {"float32": PEAK_F32, "bfloat16": PEAK_BF16, "float64": PEAK_F64}
+SIZES = {"float32": 4, "bfloat16": 2, "float64": 8}
+
+
+def rnn_lengths(cell: str, t: int, b: int):
+    """The rows' real lengths of a kernel 4-7 row: 2/5 T to T, the first
+    T, drawn from the cell's seed; and the generator, for the operands."""
+    gen = torch.Generator().manual_seed(RNN_SEEDS[cell])
+    lengths = torch.randint(t * 2 // 5, t + 1, (b,), generator=gen)
+    lengths[0] = t
+    return lengths, gen
+
+
+def work(kernel: str, row) -> tuple[float, float, str]:
+    """The operations, bytes and compute type of a kernel table row
+    (``kernel``: ``ffn``, ``frame``, ``bn``, ``rnn_fwd``, ``rnn_bwd``,
+    ``split``): each input read once and each output written once."""
+    if kernel == "ffn":
+        n, k, m, dtype, affine, _ = row
+        return (*ffn_work(n, k, m, getattr(torch, dtype), affine), dtype)
+    if kernel == "frame":  # two f64 operations a sample; the signal and eff_len read, the frames written
+        b, s = row
+        t_max = 1 + (s - 400) // 160
+        return 2 * b * s, b * s * 4 + b * 4 + b * t_max * 400 * 8, "float64"
+    if kernel == "bn":  # the dz pass (10 operations an element) and dh = dz @ wᵀ
+        n, h, k, dtype = row
+        size = SIZES[dtype]
+        return 2 * n * h * k + 10 * n * h, 3 * n * h * size + n * 4 + k * h * size + 5 * h * 4 + n * k * size, dtype
+    if kernel == "split":  # the f32 cotangent read, its three bf16 terms written (both last dims padded to 8)
+        *lead, m, n = SPLIT_ROWS[row]
+        numel, pad = math.prod(SPLIT_ROWS[row]), lambda x: -(-x // 8) * 8
+        return 5 * numel, numel * 4 + math.prod(lead) * pad(m) * 3 * pad(n) * 2, "float32"
+    from tfkaldi_tpu_torch.ops import gru_bidi, lstm_bidi
+
+    cell, (t, b, h), dirs, _, dtype = row
+    g, cs = (lstm_bidi.CELL if cell == "lstm" else gru_bidi.CELL).gates, SIZES[dtype]
+    frames = int(rnn_lengths(cell, t, b)[0].sum())
+    mm = dirs * 2 * frames * h * g * h
+    acts, state = t * b * g * h * 4, t * b * h * 4
+    gh_n = state if cell == "gru" else 0
+    if kernel == "rnn_fwd":  # gx, W_h, ys and every residual (acts, state, h in the compute type, GRU's gh_n)
+        return (mm + dirs * frames * 12 * h, dirs * (acts + h * g * h * cs + state + acts + state + t * b * h * cs
+                                                     + gh_n) + t * b * 4, dtype)
+    # the backward reads dy, the residuals but h and W_h, writes dgx (and the GRU's dgh)
+    return (mm + dirs * frames * 20 * h, dirs * (state + acts + state + gh_n + h * g * h * cs + acts
+                                                 + (acts if cell == "gru" else 0)) + t * b * 4, dtype)
+
+
+def row_bound(kernel: str, row) -> dict:
+    """:func:`bound` of a kernel table row's :func:`work`."""
+    flops, nbytes, dtype = work(kernel, row)
+    return bound(flops, nbytes, PEAKS[dtype])
+
+
+def self_device_us(event) -> float:
+    """A torch.profiler average's self device time in microseconds."""
     # renamed from self_cuda_time_total in newer torch releases
     value = getattr(event, "self_device_time_total", None)
     return float(event.self_cuda_time_total if value is None else value)
 
 
-def device_ms(fn, calls: int = CALLS, tries: int = 3) -> float:
+def device_ms(fn, calls: int = CALLS, tries: int = 3, match: str | None = None) -> float:
     """``fn`` called ``calls`` times under ``torch.profiler`` after 3
-    warm-up calls: the device time of all its kernels, summed, over
-    ``calls``. A profile that saw no kernel is taken again (after some
-    hundred profiles in one process CUPTI has returned an empty one), at
-    most ``tries`` times, then it raises."""
+    warm-up calls: the self device time of all its kernels (or of those
+    whose name holds ``match``), summed, over ``calls``. A profile that saw
+    no such kernel is taken again (after some hundred profiles in one
+    process CUPTI has returned an empty one), at most ``tries`` times, then
+    it raises."""
     from torch.autograd import DeviceType
 
     for _ in range(3):
@@ -110,10 +198,12 @@ def device_ms(fn, calls: int = CALLS, tries: int = 3) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and (match is None or match in e.key)]
         if kernels:
-            return sum(_self_device_us(e) for e in kernels) / 1e3 / calls
-    raise RuntimeError(f"torch.profiler saw no device kernel in {tries} profiles")
+            return sum(self_device_us(e) for e in kernels) / 1e3 / calls
+    raise RuntimeError(f"torch.profiler saw no device kernel{f' named *{match}*' if match else ''} in {tries} "
+                       f"profiles")
 
 
 def events_ms(fn, calls: int = CALLS, windows: int = 3) -> float:

@@ -3,22 +3,19 @@ GPU: the kernel's own device time beside the time of its Python wrapper.
 
     python3 tfkaldi_tpu_torch/profile_frame.py [--root DIR] [--sweep] [--out result.json]
 
-At the two shapes of :data:`SHAPES` (16 x 5 s at 16 kHz, chip_smoke's
-batch, and 16 x 8 s, the longest bucket the served run pads to) it prints
+At the two shapes of :data:`SHAPES` (16 x 5 s at 16 kHz, the kernel
+table's batch, and 16 x 8 s, the longest bucket the served run pads to) it prints
 and returns:
 
-- ``device_ms``: the summed device time of the kernel's own events under
-  ``torch.profiler`` over 20 calls, divided by the launches the profiler
-  saw (:func:`device_ms`);
-- ``graph_ms``: a CUDA graph of 20 launches replayed, CUDA events around
-  the replays, divided by 20 (the same device work with the host taken
-  out; it adds the graph's gaps between kernels);
+- ``device_ms``: the summed self device time of the kernel's own events
+  under ``torch.profiler`` over 20 calls (one launch a call), divided by
+  the calls (``profile_ffn.device_ms`` with the kernel's name);
 - ``wrapper_ms``: CUDA events around 20 calls of the wrapper, the median
-  of 3 windows; where the host enqueues slower than the card runs, this is
-  the host's time;
-- ``plain_ms`` (the plain PyTorch version) and ``bound_ms`` (bytes over
-  3.35 TB/s: the f32 signal and ``eff_len`` read once, the f64 frames
-  written once);
+  of 3 windows (``profile_ffn.events_ms``); where the host enqueues slower
+  than the card runs, this is the host's time;
+- ``plain_ms`` (the plain PyTorch version) and ``bound_ms``
+  (``profile_ffn.bound``: the bytes, the f32 signal and ``eff_len`` read
+  once and the f64 frames written once, over the memory rate);
 - the launch plan (route, frames a tile, grid, shared memory)
   where the package has ``frame_plan``.
 
@@ -28,7 +25,8 @@ versions of the kernel are compared in one call. ``--sweep`` adds the
 device time at every tile depth of :data:`SWEEP_FRAMES`.
 Prints the card as ``nvidia-smi`` names it and the result as one JSON
 object on the last line (also written to ``--out``). Needs one CUDA device
-and ``nvcc``.
+and ``nvcc``. The timers and the memory rate are ``profile_ffn``'s, of
+this checkout whatever ``--root`` names.
 """
 
 from __future__ import annotations
@@ -36,22 +34,24 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 
 import torch
 
+if __package__:
+    from .profile_ffn import PEAK_F64, bound, device_ms, events_ms
+else:  # run as a file: this directory heads sys.path
+    from profile_ffn import PEAK_F64, bound, device_ms, events_ms
+
 PREEMPH, WL, WS = 0.97, 400, 160  # 25 ms frames every 10 ms at 16 kHz
 SHAPES = ((16, 5 * 16000), (16, 8 * 16000))  # [B, S]
-CALLS = 20
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 KERNEL_NAME = "frame_preemph"  # a substring of the kernel's symbol
 SWEEP_FRAMES = (2, 4, 8, 16, 32)  # frames a tile
 
 
 def inputs(b: int, s: int, device="cuda"):
-    """chip_smoke's framing inputs: integer-valued f32 samples (as wav
+    """The kernel table's framing inputs: integer-valued f32 samples (as wav
     data is) and real lengths ``s - 97 i``; returns ``(signals, eff_len,
     args)``."""
     gen = torch.Generator().manual_seed(1)
@@ -62,82 +62,10 @@ def inputs(b: int, s: int, device="cuda"):
 
 
 def bound_ms(b: int, s: int, t_max: int) -> float:
-    """Bytes over the memory rate: the work is bound by bytes (two f64
-    operations a sample against 8 bytes written per output element)."""
-    return (b * s * 4 + b * 4 + b * t_max * WL * 8) / PEAK_BYTES * 1e3
-
-
-def _self_device_us(event) -> float:
-    # renamed from self_cuda_time_total in newer torch releases
-    value = getattr(event, "self_device_time_total", None)
-    return float(event.self_cuda_time_total if value is None else value)
-
-
-def device_ms(fn, match: str = KERNEL_NAME, calls: int = CALLS) -> tuple[float, int]:
-    """``fn`` called ``calls`` times under ``torch.profiler`` after 3
-    warm-up calls: the device time of the events whose name holds
-    ``match``, summed and divided by their count; returns ``(ms, count)``.
-    Raises if the profiler saw no such event."""
-    from torch.autograd import DeviceType
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [(e.count, _self_device_us(e)) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and match in e.key]
-    count = sum(n for n, _ in hits)
-    if count == 0:
-        raise RuntimeError(f"torch.profiler saw no device event named *{match}*")
-    return sum(us for _, us in hits) / 1e3 / count, count
-
-
-def graph_ms(fn, calls: int = CALLS) -> float:
-    """A CUDA graph of ``calls`` calls of ``fn``, replayed 3 times, CUDA
-    events around each replay: the median replay over ``calls``."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / calls)
-    return statistics.median(times)
-
-
-def ms_median(fn, calls: int = CALLS, windows: int = 3) -> float:
-    """CUDA events around ``calls`` calls, the median of ``windows``
-    windows, after 3 warm-up calls."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / calls)
-    return statistics.median(times)
+    """``profile_ffn.bound`` of the work: two f64 operations a sample
+    against the f32 signal and ``eff_len`` read once and the f64 frames
+    written once, which bound it."""
+    return bound(2 * b * s, b * s * 4 + b * 4 + b * t_max * WL * 8, PEAK_F64)["bound_ms"]
 
 
 def plan_dict(plan) -> dict:
@@ -156,10 +84,9 @@ def profile_shape(fp, b: int, s: int, *, sweep: bool = False) -> dict:
     if not torch.equal(got, want):
         raise AssertionError(f"frame_preemph [{b},{s}] differs from its plain version")
     row = {"shape": [b, s, t_max, WL], "bound_ms": bound_ms(b, s, t_max)}
-    row["device_ms"], row["device_events"] = device_ms(lambda: fp.frame_preemph(sig, eff, **args))
-    row["graph_ms"] = graph_ms(lambda: fp.frame_preemph(sig, eff, **args))
-    row["wrapper_ms"] = ms_median(lambda: fp.frame_preemph(sig, eff, **args))
-    row["plain_ms"] = ms_median(lambda: fp.frame_preemph_ref(sig, eff, **args))
+    row["device_ms"] = device_ms(lambda: fp.frame_preemph(sig, eff, **args), match=KERNEL_NAME)
+    row["wrapper_ms"] = events_ms(lambda: fp.frame_preemph(sig, eff, **args))
+    row["plain_ms"] = events_ms(lambda: fp.frame_preemph_ref(sig, eff, **args))
     plan_of = getattr(fp, "frame_plan", None)
     if plan_of is not None:
         row["plan"] = plan_dict(fp.plan_for(sig, got, t_max, WL, WS))
@@ -171,7 +98,7 @@ def profile_shape(fp, b: int, s: int, *, sweep: bool = False) -> dict:
             torch.cuda.synchronize()
             if not torch.equal(out, want):
                 raise AssertionError(f"frame_preemph [{b},{s}] with {plan} differs from its plain version")
-            ms, _ = device_ms(lambda: fp.frame_preemph(sig, eff, **args, plan=plan))
+            ms = device_ms(lambda: fp.frame_preemph(sig, eff, **args, plan=plan), match=KERNEL_NAME)
             row["sweep"].append({**plan_dict(plan), "device_ms": ms})
     del sig, eff, got, want
     torch.cuda.empty_cache()

@@ -19,9 +19,9 @@ only its time is read):
   backward issues no TMA load and waits for none);
 - ``epilogue_only``: no barrier and no product.
 
-Times each (CUDA events, 5 calls after 2) at one layer of the recipe's
-BiLSTM / BiGRU, T 512, B 128, H 512, both directions, every frame real, in
-bf16 and f32: the forward with residuals (the training forward) and
+Times each (``profile_ffn.events_ms``: CUDA events around 5 calls after
+3) at one layer of the recipe's BiLSTM / BiGRU, T 512, B 128, H 512, both
+directions, every frame real, in bf16 and f32: the forward with residuals (the training forward) and
 without (eval), and the backward on the full build's residuals, also on
 one direction alone (64 CTAs doing what each of the 128 does: whether the
 staging is bound by what L2 serves all SMs or by each SM); reports µs a
@@ -46,6 +46,7 @@ import torch
 
 from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.ops import _build, gru_bidi, lstm_bidi
+from tfkaldi_tpu_torch.profile_ffn import events_ms
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, "build", "profile_rnn")
@@ -122,19 +123,6 @@ def _build_variants() -> dict:
     return libs
 
 
-def _ms(fn, iters: int = 5) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON result here")
@@ -167,7 +155,7 @@ def main(argv=None) -> int:
                     times = {}
                     for name in VARIANTS:
                         _build._lib = libs[(cell, name)]
-                        times[name] = _ms(fn) * 1e3 / T
+                        times[name] = events_ms(fn, calls=5, windows=1) * 1e3 / T
                     parts = {"barrier": times["full"] - times["no_barrier"],
                              "staging+product": times["full"] - times["no_product"],
                              "staging": times["no_mma"] - times["no_product"],

@@ -2,7 +2,7 @@
 
     python -m tfkaldi_tpu_torch.profile_serve [--out profile.json]
 
-Builds the workspace of ``chip_smoke.py`` (:func:`synthetic.make_workspace`:
+Builds the card suite's served-path workspace (:func:`synthetic.make_workspace`:
 32 test wavs of 1-8 s, 4 speakers, 440 -> 6x2048 -> 2000 with batchnorm)
 under ``build/profile_serve`` and then measures two phases:
 
@@ -42,6 +42,7 @@ from tfkaldi_tpu_torch.device import resolve_device
 from tfkaldi_tpu_torch.frontend.prepare_data import prepare_data
 from tfkaldi_tpu_torch.io import ArkReader
 from tfkaldi_tpu_torch.nnet import Nnet
+from tfkaldi_tpu_torch.profile_ffn import self_device_us
 from tfkaldi_tpu_torch.serve import DecodeService
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,12 +60,6 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def _self_device_us(event) -> float:
-    # renamed from self_cuda_time_total in newer torch releases
-    value = getattr(event, "self_device_time_total", None)
-    return float(event.self_cuda_time_total if value is None else value)
-
-
 def _profiled(fn) -> dict:
     """Run ``fn`` once under torch.profiler: wall, device time, idle share
     and the items with the most device time."""
@@ -73,7 +68,7 @@ def _profiled(fn) -> dict:
         wall_s = _timed(fn)
     # device-side events only: a CPU op such as aten::copy_ also carries the
     # device time of what it launched, which would count it twice
-    events = [(e.key, e.count, _self_device_us(e)) for e in prof.key_averages()
+    events = [(e.key, e.count, self_device_us(e)) for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     device_ms = sum(us for _, _, us in events) / 1e3
     top = sorted((e for e in events if e[2] > 0), key=lambda e: -e[2])[:TOP_ITEMS]
